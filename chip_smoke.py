@@ -9,8 +9,11 @@ Phases (one line each, with its seconds):
 2. build the distributor kernels (``nvcc``, at first use);
 3. hold each kernel against its plain PyTorch version at the main path's
    shapes in float64 and float32 (gather bit-exact; segment sum within
-   1e-12 / 1e-5 of the per-bin sum of |cot|, and bitwise reproducible) and
-   time both with CUDA events;
+   1e-12 / 1e-5 of the per-bin sum of |cot|, and bitwise reproducible),
+   plus two rows of the odd-length 4096^2 quarter map (rows start
+   misaligned), and time both: host-paced ms per call (CUDA events around
+   50 back-to-back calls, kernel and plain in turns) and device ms per
+   call (the same 50 calls captured in a CUDA graph and replayed);
 4. one 32^2 update on the CPU (plain versions) and on the card (kernels)
    from the same latents and host-drawn noise: final KL energies agree to
    1e-8 relative;
@@ -131,7 +134,8 @@ def run_updates(jt, lh, device, n_updates, kwargs, key=7, pos_key=1, **maps):
 
 
 def cuda_ms(fn, n=50):
-    """Mean milliseconds per call of `fn` over `n` calls, CUDA events."""
+    """Mean milliseconds per call of `fn` over `n` back-to-back calls, CUDA
+    events: at small sizes this is how fast the host issues the calls."""
     for _ in range(3):
         fn()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -142,6 +146,37 @@ def cuda_ms(fn, n=50):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / n
+
+
+def host_paced_ms(kernel, plain):
+    """`cuda_ms` of a kernel and its plain version in turns (kernel, plain,
+    plain, kernel); the mean of each pair."""
+    k1, p1, p2, k2 = cuda_ms(kernel), cuda_ms(plain), cuda_ms(plain), cuda_ms(kernel)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def device_ms(fn, n=50, replays=3):
+    """Mean device milliseconds per call of `fn`: its `n` calls captured in
+    one CUDA graph, replayed `replays` times between CUDA events.  The
+    device runs the calls back to back without waiting on the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (replays * n)
 
 
 @phase("1 device")
@@ -209,21 +244,26 @@ def phase_kernels(cases):
                 raise AssertionError(
                     f"bin_segment_sum off by {rel:.3e} of sum|cot| ({label}, {dtype})"
                 )
-            times = dict(
-                gather_ms=cuda_ms(lambda: bg.bin_gather(table, dist)),
-                gather_plain_ms=cuda_ms(lambda: bg.bin_gather_plain(table, dist.idx)),
-                segsum_ms=cuda_ms(lambda: bg.bin_segment_sum(cot, dist)),
-                segsum_plain_ms=cuda_ms(
-                    lambda: bg.bin_segment_sum_plain(cot, dist.perm, dist.offsets)
-                ),
-            )
+            gather, gather_plain = (lambda: bg.bin_gather(table, dist),
+                                    lambda: bg.bin_gather_plain(table, dist.idx))
+            segsum, segsum_plain = (lambda: bg.bin_segment_sum(cot, dist),
+                                    lambda: bg.bin_segment_sum_plain(cot, dist.perm, dist.offsets))
+            times = {}
+            times["gather_ms"], times["gather_plain_ms"] = host_paced_ms(gather, gather_plain)
+            times["segsum_ms"], times["segsum_plain_ms"] = host_paced_ms(segsum, segsum_plain)
+            for kind, fn in (("gather", gather), ("gather_plain", gather_plain),
+                             ("segsum", segsum), ("segsum_plain", segsum_plain)):
+                times[f"{kind}_device_ms"] = device_ms(fn)
             key = (label, str(dtype).replace("torch.", ""))
             results[key] = dict(gather_err=g_err, segsum_err=s_err, segsum_rel=rel, **times)
             print(
-                f"{label} {key[1]}: table ({nrows}, {dist.nb}) x map {dist.shape} | "
-                f"gather {times['gather_ms']:.4f} ms (plain {times['gather_plain_ms']:.4f}) "
-                f"| segment sum {times['segsum_ms']:.4f} ms "
-                f"(plain {times['segsum_plain_ms']:.4f}) rel err {rel:.2e}",
+                f"{label} {key[1]}: table ({nrows}, {dist.nb}) x map {dist.shape} "
+                f"(index {str(dist.idx_narrow.dtype).replace('torch.', '')}) | ms per call, "
+                f"host-paced / device: gather {times['gather_ms']:.4f} / "
+                f"{times['gather_device_ms']:.4f} (plain {times['gather_plain_ms']:.4f} / "
+                f"{times['gather_plain_device_ms']:.4f}) | segment sum {times['segsum_ms']:.4f} / "
+                f"{times['segsum_device_ms']:.4f} (plain {times['segsum_plain_ms']:.4f} / "
+                f"{times['segsum_plain_device_ms']:.4f}) rel err {rel:.2e}",
                 flush=True,
             )
     return results
@@ -323,6 +363,8 @@ def main(argv):
         "4096^2 nb128 quarter B=1": (cf4096.dist, 1),
         "128^2 unbinned B=1": (cf128.dist, 1),
         "128^2 unbinned B=8": (cf128.dist, 8),
+        # an odd-length map: the second row starts misaligned
+        "4096^2 nb128 quarter B=2": (cf4096.dist, 2),
     })
 
     phase_cpu_vs_card(jt)
@@ -356,6 +398,7 @@ def main(argv):
             name=f"{name} ({k}, {label}, float64)", route="cuda", source=src,
             replaces=replaces, launches=counts[kind], max_abs_err=r64[f"{kind}_err"],
             ms=r64[f"{kind}_ms"], plain_ms=r64[f"{kind}_plain_ms"],
+            device_ms=r64[f"{kind}_device_ms"], plain_device_ms=r64[f"{kind}_plain_device_ms"],
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

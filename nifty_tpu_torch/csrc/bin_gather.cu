@@ -3,70 +3,320 @@
 //   bin_gather:       out[b, j] = table[b, idx[j]]
 //   bin_segment_sum:  out[b, k] = sum_{j : idx[j] = k} cot[b, j]
 //
-// One shared index map serves every batch row (rows ride on blockIdx.y).
-// These two kernels replace all four Pallas kernels of
-// nifty_tpu/ops/pallas_gather.py: the select-loop gather/scatter pair
-// (_pallas_gather, _pallas_scatter) and the MXU one-hot pair
-// (_pallas_gather_mxu, _pallas_scatter_mxu).  A Hopper block holds a
+// One shared index map serves every batch row.  These two kernels replace
+// all four Pallas kernels of nifty_tpu/ops/pallas_gather.py: the gather
+// replaces the select loop _pallas_gather (:184, K1) and the MXU one-hot
+// _pallas_gather_mxu (:369, K3); the segment sum replaces _pallas_scatter
+// (:228, K2) and _pallas_scatter_mxu (:406, K4).  A Hopper block holds a
 // 1621-entry float64 table (13 KB) or a 113-entry one in shared memory, so
 // the TPU's split by table size has no counterpart here.
 //
-// Both kernels are bound by device-memory traffic: the gather reads 4 B of
-// index and writes sizeof(T) B per element; the segment sum reads 4 B of
-// permutation and sizeof(T) B of cotangent per element (the cotangent read
-// is a gather through the permutation, coalesced within a bin because the
-// permutation is a stable sort).  Neither does enough arithmetic to matter.
+// bin_gather.  Its two main-path shapes are bound by different things:
+//  - 4096^2 with 128 log bins, a (1, 113) table over the 2049^2 quarter
+//    map (K1's shape): device-memory traffic, the index read plus the
+//    sizeof(T) store per entry.
+//    * The index map is read at the narrowest width that holds the bin
+//      count (uint8 up to 256 bins, int16 up to 32,768, else int32;
+//      BinIndex.idx_narrow), so a float64 entry moves 9 B, not 12.
+//    * Entries go in groups of 16 / sizeof(T), one 16-byte double2/float4
+//      store each, and every warp instruction covers one contiguous span:
+//      thread t of the grid takes groups t, t + T, ... (T threads), four
+//      float64 groups (two float32) a step, loaded before any is stored.
+//      (Eight consecutive entries per thread, i.e. a 64-byte stride
+//      between the lanes of one store, took 2.5x as long.)
+//    * Stores are streaming (st.global.cs): on an H100 80GB HBM3 at
+//      700 W they halved the kernel's time at this shape against
+//      write-back stores; the next op then finds less of the output in L2,
+//      which costs it less than the kernel saves.
+//    * The grid holds at most four waves of resident blocks, so the last
+//      wave is short; a block strides over the map beyond that.
+//  - 128^2 unbinned, an (8, 1621) table over 128^2 entries in the stacked
+//    KL stage (K3's shape): the host's launch path, as the device moves
+//    1 MB in a few microseconds.  The launcher queries each device's
+//    constants once (SM count, shared memory, resident blocks per
+//    instantiation), calls cudaFuncSetAttribute only when a launch needs
+//    more dynamic shared memory than was set before, and then launches.
+// Rows: each block stages the tables of a tile of rows in shared memory,
+// and one index load serves every row of the tile.  A tile holds as many
+// rows as fit in half an SM's shared memory (so two blocks still fit on
+// an SM), and rows are split further only while the grid would have
+// fewer blocks than the card has SMs: 128^2 with B = 8 then runs one row
+// per tile on 64 blocks instead of all 8 rows on 8 blocks (2.6 against
+// 7.1 us on the card above, with write-back stores).  Tables too large for shared memory (above the
+// 227 KB opt-in limit) are read through the read-only cache (__ldg)
+// instead, with one index load for all rows.
+// Row starts are 16-byte aligned only when B * n keeps them so (n odd and
+// B > 1 does not): a misaligned row stores its groups one entry at a
+// time, and the last n % (16 / sizeof(T)) entries of every row are a
+// scalar tail of the last block.  Both stay inside the one kernel.
 //
-// The segment sum uses no atomics: each (bin, row) pair is one block that
+// bin_segment_sum is bound by the 4 B permutation plus sizeof(T) B
+// cotangent read per element (the cotangent read is a gather through the
+// permutation, coalesced within a bin because the permutation is a stable
+// sort).  It uses no atomics: each (bin, row) pair is one block that
 // reduces its CSR segment in a fixed order (strided per-thread partials,
 // then a fixed shared-memory tree), so results are bitwise reproducible.
 // With one block per bin the largest bin sets the time (366,891 entries of
 // 4,198,401 at 4096^2 with 128 log bins); splitting long segments into
 // fixed chunks with a second pass is the known next step.
 //
-// The C entry points return cudaGetLastError() after the launch; the
-// Python wrapper raises when it is not 0.  Nothing here allocates or
-// synchronises.
+// The C entry points return cudaGetLastError() after the launch (or the
+// error that stopped it); the Python wrapper raises when it is not 0.
+// Nothing here allocates or synchronises.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <mutex>
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kVec = 8;  // gather elements per thread and step
+constexpr int kWaves = 4;  // gather grid: at most this many waves of resident blocks
+constexpr int kMaxDevices = 64;
 
-template <typename T>
+// -- gather: index loads and stores ---------------------------------------
+// The map is split into groups of V = 16 / sizeof(T) entries, one 16-byte
+// store each.  Thread t of a step takes groups t, t + T, t + 2T, ... (T
+// threads in the grid), so every load and store instruction of a warp
+// covers one contiguous span.  The map is 16-byte aligned (checked by the
+// launcher), so a group's V entries are one aligned load of V * sizeof(I)
+// bytes.
+
+template <int kBytes> struct Word;
+template <> struct Word<2> { using type = unsigned short; };
+template <> struct Word<4> { using type = unsigned int; };
+template <> struct Word<8> { using type = uint2; };
+template <> struct Word<16> { using type = uint4; };
+
+template <typename I, int V>
+__device__ __forceinline__ void load_group(const I* idx, long long g, int (&k)[V]) {
+  using W = typename Word<V * sizeof(I)>::type;
+  union { W w; I e[V]; } u;
+  u.w = __ldg(reinterpret_cast<const W*>(idx) + g);
+#pragma unroll
+  for (int e = 0; e < V; ++e) k[e] = u.e[e];  // entries are in [0, nb): no sign
+}
+
+__device__ __forceinline__ void store16(double* p, const double (&v)[2]) {
+  __stcs(reinterpret_cast<double2*>(p), make_double2(v[0], v[1]));
+}
+
+__device__ __forceinline__ void store16(float* p, const float (&v)[4]) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+}
+
+// -- gather kernel --------------------------------------------------------
+// blockIdx.y: a tile of up to `tile_rows` rows; blockIdx.x strides over the
+// groups.  kStaged: the tile's tables sit in dynamic shared memory; else
+// they are read through __ldg.
+
+template <typename T, typename I, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
-gather_smem_kernel(const T* __restrict__ table, const int32_t* __restrict__ idx,
-                   T* __restrict__ out, long long n, int nb) {
+gather_kernel(const T* __restrict__ table, const I* __restrict__ idx,
+              T* __restrict__ out, long long n, int nb, int nrows, int tile_rows) {
+  constexpr int V = 16 / sizeof(T);  // entries per group
+  constexpr int U = kVec / V;        // groups per thread and step
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* tab = reinterpret_cast<T*>(smem_raw);
-  const long long b = blockIdx.y;
-  const T* row = table + b * static_cast<long long>(nb);
-  for (int k = threadIdx.x; k < nb; k += blockDim.x) tab[k] = row[k];
-  __syncthreads();
-  T* orow = out + b * n;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       j < n; j += stride) {
-    orow[j] = tab[__ldg(idx + j)];
+  const int r0 = blockIdx.y * tile_rows;
+  const int nr = min(tile_rows, nrows - r0);
+  const T* gtab = table + static_cast<long long>(r0) * nb;
+  T* stab = reinterpret_cast<T*>(smem_raw);
+  if constexpr (kStaged) {
+    // the tile's rows are one contiguous span of nr * nb entries
+    const int total = nr * nb;
+    for (int k = threadIdx.x; k < total; k += kThreads) stab[k] = __ldg(gtab + k);
+    __syncthreads();
+  }
+  auto lookup = [&](int r, int k) -> T {
+    if constexpr (kStaged) return stab[r * nb + k];
+    else return __ldg(gtab + static_cast<long long>(r) * nb + k);
+  };
+  T* orow = out + static_cast<long long>(r0) * n;
+  const long long groups = n / V;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long g0 = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+       g0 < groups; g0 += U * stride) {
+    int k[U][V];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (g0 + u * stride < groups) load_group<I, V>(idx, g0 + u * stride, k[u]);
+    }
+    // one index load serves every row of the tile
+    for (int r = 0; r < nr; ++r) {
+      T* o = orow + r * n;
+      // a row starts off a 16-byte boundary when (r0 + r) * n is not a
+      // multiple of V: its groups store one entry at a time
+      const bool aligned = (reinterpret_cast<uintptr_t>(o) & 15) == 0;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const long long g = g0 + u * stride;
+        if (g < groups) {
+          T v[V];
+#pragma unroll
+          for (int e = 0; e < V; ++e) v[e] = lookup(r, k[u][e]);
+          if (aligned) {
+            store16(o + g * V, v);
+          } else {
+#pragma unroll
+            for (int e = 0; e < V; ++e) __stcs(o + g * V + e, v[e]);
+          }
+        }
+      }
+    }
+  }
+  // the ragged end of each row: the last n % V entries, one thread each
+  const long long j = groups * V + threadIdx.x;
+  if (blockIdx.x == gridDim.x - 1 && j < n) {
+    const int kj = idx[j];
+    for (int r = 0; r < nr; ++r) __stcs(orow + r * n + j, lookup(r, kj));
   }
 }
 
-// Tables too large for shared memory read through the read-only cache.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gather_ldg_kernel(const T* __restrict__ table, const int32_t* __restrict__ idx,
-                  T* __restrict__ out, long long n, int nb) {
-  const long long b = blockIdx.y;
-  const T* row = table + b * static_cast<long long>(nb);
-  T* orow = out + b * n;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       j < n; j += stride) {
-    orow[j] = __ldg(row + __ldg(idx + j));
+// -- gather launch path ---------------------------------------------------
+
+struct DeviceInfo {
+  std::atomic<int> ready{0};
+  int sms = 0, optin = 0, smem_per_sm = 0, reserved = 0;
+  // per instantiation, [float, double] x [uint8, int16, int32] x
+  // [__ldg, staged]: resident blocks per SM as registers allow (0: not yet
+  // asked), and the dynamic shared memory set with cudaFuncSetAttribute
+  std::atomic<int> blocks[2][3][2] = {};
+  std::atomic<int> smem_set[2][3] = {};
+};
+
+DeviceInfo g_devices[kMaxDevices];
+std::mutex g_mutex;
+
+cudaError_t device_info(int dev, DeviceInfo** out) {
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  DeviceInfo& d = g_devices[dev];
+  if (!d.ready.load(std::memory_order_acquire)) {
+    std::lock_guard<std::mutex> lock(g_mutex);
+    if (!d.ready.load(std::memory_order_relaxed)) {
+      const struct { int* dst; cudaDeviceAttr attr; } q[] = {
+          {&d.sms, cudaDevAttrMultiProcessorCount},
+          {&d.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin},
+          {&d.smem_per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor},
+          {&d.reserved, cudaDevAttrReservedSharedMemoryPerBlock},
+      };
+      for (const auto& e : q) {
+        const cudaError_t err = cudaDeviceGetAttribute(e.dst, e.attr, dev);
+        if (err != cudaSuccess) return err;
+      }
+      d.ready.store(1, std::memory_order_release);
+    }
   }
+  *out = &d;
+  return cudaSuccess;
 }
+
+template <typename I> constexpr int index_slot();
+template <> constexpr int index_slot<uint8_t>() { return 0; }
+template <> constexpr int index_slot<int16_t>() { return 1; }
+template <> constexpr int index_slot<int32_t>() { return 2; }
+
+template <typename T, typename I, bool kStaged>
+cudaError_t blocks_per_sm(DeviceInfo* d, int* out) {
+  std::atomic<int>& b = d->blocks[sizeof(T) == 8][index_slot<I>()][kStaged];
+  int v = b.load(std::memory_order_acquire);
+  if (v == 0) {
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &v, gather_kernel<T, I, kStaged>, kThreads, 0);
+    if (err != cudaSuccess) return err;
+    if (v < 1) v = 1;
+    b.store(v, std::memory_order_release);
+  }
+  *out = v;
+  return cudaSuccess;
+}
+
+template <typename T, typename I>
+cudaError_t launch_gather_on(const T* table, const I* idx, T* out, long long n,
+                             int nb, int nrows, int dev, cudaStream_t stream) {
+  DeviceInfo* d = nullptr;
+  cudaError_t err = device_info(dev, &d);
+  if (err != cudaSuccess) return err;
+
+  const long long row_bytes = static_cast<long long>(nb) * sizeof(T);
+  const bool staged = row_bytes <= d->optin;
+  const long long per_block = static_cast<long long>(kThreads) * kVec;  // entries a step
+  const long long gx_need = n >= per_block ? (n + per_block - 1) / per_block : 1;
+  // rows per tile: as many as fit in half an SM's shared memory, then
+  // split further while the grid has fewer blocks than the card has SMs
+  long long tiles = 1;
+  if (staged) {
+    long long budget = d->smem_per_sm / 2 - d->reserved;
+    if (budget < row_bytes) budget = row_bytes;
+    const long long fit = budget / row_bytes;
+    tiles = (nrows + fit - 1) / fit;
+  }
+  const long long fill = (d->sms + gx_need - 1) / gx_need;
+  if (tiles < fill) tiles = fill < nrows ? fill : nrows;
+  const long long tile_rows = (nrows + tiles - 1) / tiles;
+  tiles = (nrows + tile_rows - 1) / tile_rows;
+  const long long smem = staged ? tile_rows * row_bytes : 0;
+
+  // a few waves of resident blocks, so that the last wave is short
+  int by_regs = 0;
+  err = staged ? blocks_per_sm<T, I, true>(d, &by_regs) : blocks_per_sm<T, I, false>(d, &by_regs);
+  if (err != cudaSuccess) return err;
+  long long per_sm = by_regs;
+  if (staged) {
+    const long long by_smem = d->smem_per_sm / (smem + d->reserved);
+    if (by_smem < per_sm) per_sm = by_smem;
+  }
+  if (per_sm < 1) per_sm = 1;
+  long long gx = kWaves * d->sms * per_sm / tiles;
+  if (gx < 1) gx = 1;
+  if (gx > gx_need) gx = gx_need;
+  const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(tiles));
+
+  if (staged) {
+    std::atomic<int>& set = d->smem_set[sizeof(T) == 8][index_slot<I>()];
+    if (smem > 48 * 1024 && smem > set.load(std::memory_order_acquire)) {
+      std::lock_guard<std::mutex> lock(g_mutex);
+      if (smem > set.load(std::memory_order_relaxed)) {
+        err = cudaFuncSetAttribute(gather_kernel<T, I, true>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   static_cast<int>(smem));
+        if (err != cudaSuccess) return err;
+        set.store(static_cast<int>(smem), std::memory_order_release);
+      }
+    }
+    gather_kernel<T, I, true><<<grid, kThreads, smem, stream>>>(
+        table, idx, out, n, nb, nrows, static_cast<int>(tile_rows));
+  } else {
+    gather_kernel<T, I, false><<<grid, kThreads, 0, stream>>>(
+        table, idx, out, n, nb, nrows, static_cast<int>(tile_rows));
+  }
+  return cudaGetLastError();
+}
+
+// `dev` is the device that holds the tensors; the launch switches to it
+// only when it is not already current.
+template <typename T, typename I>
+int launch_gather(const void* table, const void* idx, void* out, long long n,
+                  int nb, int nrows, int dev, void* stream) {
+  if (n == 0 || nrows == 0) return 0;
+  if (reinterpret_cast<uintptr_t>(idx) % 16 != 0) return cudaErrorMisalignedAddress;
+  int cur = 0;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (cur != dev && (err = cudaSetDevice(dev)) != cudaSuccess) return static_cast<int>(err);
+  err = launch_gather_on<T, I>(static_cast<const T*>(table), static_cast<const I*>(idx),
+                               static_cast<T*>(out), n, nb, nrows, dev,
+                               static_cast<cudaStream_t>(stream));
+  if (cur != dev) {
+    const cudaError_t back = cudaSetDevice(cur);
+    if (err == cudaSuccess) err = back;
+  }
+  return static_cast<int>(err);
+}
+
+// -- segment sum ----------------------------------------------------------
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -93,44 +343,6 @@ segment_sum_kernel(const T* __restrict__ cot, const int32_t* __restrict__ perm,
 }
 
 template <typename T>
-int launch_gather(const void* table, const void* idx, void* out, long long n,
-                  int nb, int nrows, void* stream) {
-  if (n == 0 || nrows == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // Each block stages its row's table once, so give it enough elements
-  // to amortise that (at least twice the table length).
-  const long long per_block = (2LL * nb > 2048LL) ? 2LL * nb : 2048LL;
-  long long gx = (n + per_block - 1) / per_block;
-  if (gx > 65535) gx = 65535;  // the grid-stride loop covers the rest
-  const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(nrows));
-  const size_t smem = static_cast<size_t>(nb) * sizeof(T);
-
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int optin = 0;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  if (smem <= static_cast<size_t>(optin)) {
-    if (smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(gather_smem_kernel<T>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    gather_smem_kernel<T><<<grid, kThreads, smem, s>>>(
-        static_cast<const T*>(table), static_cast<const int32_t*>(idx),
-        static_cast<T*>(out), n, nb);
-  } else {
-    gather_ldg_kernel<T><<<grid, kThreads, 0, s>>>(
-        static_cast<const T*>(table), static_cast<const int32_t*>(idx),
-        static_cast<T*>(out), n, nb);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
 int launch_segment_sum(const void* cot, const void* perm, const void* offsets,
                        void* out, long long n, int nb, int nrows, void* stream) {
   if (nb == 0 || nrows == 0) return 0;
@@ -146,15 +358,18 @@ int launch_segment_sum(const void* cot, const void* perm, const void* offsets,
 
 extern "C" {
 
-int bin_gather_f32(const void* table, const void* idx, void* out, long long n,
-                   int nb, int nrows, void* stream) {
-  return launch_gather<float>(table, idx, out, n, nb, nrows, stream);
-}
+#define BIN_GATHER_ENTRY(name, T, I)                                             \
+  int name(const void* table, const void* idx, void* out, long long n, int nb,  \
+           int nrows, int dev, void* stream) {                                   \
+    return launch_gather<T, I>(table, idx, out, n, nb, nrows, dev, stream);     \
+  }
 
-int bin_gather_f64(const void* table, const void* idx, void* out, long long n,
-                   int nb, int nrows, void* stream) {
-  return launch_gather<double>(table, idx, out, n, nb, nrows, stream);
-}
+BIN_GATHER_ENTRY(bin_gather_f32_u8, float, uint8_t)
+BIN_GATHER_ENTRY(bin_gather_f32_i16, float, int16_t)
+BIN_GATHER_ENTRY(bin_gather_f32_i32, float, int32_t)
+BIN_GATHER_ENTRY(bin_gather_f64_u8, double, uint8_t)
+BIN_GATHER_ENTRY(bin_gather_f64_i16, double, int16_t)
+BIN_GATHER_ENTRY(bin_gather_f64_i32, double, int32_t)
 
 int bin_segment_sum_f32(const void* cot, const void* perm, const void* offsets,
                         void* out, long long n, int nb, int nrows, void* stream) {

@@ -7,10 +7,20 @@ the per-bin segment sum.  Both are hand-written CUDA kernels
 (``csrc/bin_gather.cu``) with a plain PyTorch version beside each:
 
 - :func:`bin_gather` replaces the TPU kernels ``_pallas_gather``
-  (``nifty_tpu/ops/pallas_gather.py:184``, select loop) and
-  ``_pallas_gather_mxu`` (``:369``, one-hot MXU chunks).  It stages the
-  row's table in shared memory and copies one element per thread; it is
-  bound by the 4 B index read plus the ``itemsize`` B store per element.
+  (``nifty_tpu/ops/pallas_gather.py:184``, K1, select loop) and
+  ``_pallas_gather_mxu`` (``:369``, K3, one-hot MXU chunks).  At the
+  4096^2 ``n_bins=128`` shape (a (1, 113) table over the 2049^2 quarter
+  map) the device time is bound by memory writes: the kernel reads the
+  index map at the narrowest width that holds the bin count
+  (:attr:`BinIndex.idx_narrow`: uint8, int16 or int32), so a float64
+  entry moves 9 B instead of 12, and writes 16 B per lane with streaming
+  stores, every warp instruction on one contiguous span.  At the 128^2
+  shape (an (8, 1621) table over 128^2 entries) the device moves 1 MB in
+  a few microseconds and the host's launch path bounds the call, so the
+  wrapper does no per-call work beyond the checks, one allocation and the
+  ``ctypes`` call, and the C launcher caches each device's constants.
+  Each block stages the tables of a tile of rows in shared memory, and
+  one index load serves every row of the tile.
 - :func:`bin_segment_sum` replaces ``_pallas_scatter`` (``:228``) and
   ``_pallas_scatter_mxu`` (``:406``), and computes what the XLA sorted
   route (``sorted_bin_gather``, ``:1013``) does for grid-scale maps.  It
@@ -46,6 +56,7 @@ from torch import nn
 from .cuda_build import load_library
 
 _FLOAT_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
+_INDEX_DTYPES = {torch.uint8: "u8", torch.int16: "i16", torch.int32: "i32"}
 _MAX_ROWS = 65535  # gridDim.y
 
 
@@ -60,9 +71,21 @@ def sorted_scatter_aux(idx, nb: int) -> dict:
     return {"perm": perm, "offsets": offsets}
 
 
+def narrow_index_dtype(nb: int) -> torch.dtype:
+    """The narrowest integer type that holds every bin of ``nb``."""
+    if nb <= 256:
+        return torch.uint8
+    return torch.int16 if nb <= 32768 else torch.int32
+
+
 class BinIndex(nn.Module):
     """A constant index map with its sort permutation and CSR offsets, as
-    buffers (``.to(device)`` moves them)."""
+    buffers (``.to(device)`` moves them).
+
+    ``idx`` is the map as int32 (the plain versions and the host
+    precompute use it); ``idx_narrow`` holds the same values at
+    :func:`narrow_index_dtype` width for the gather kernel.  It is derived
+    from ``idx``, so it stays out of ``state_dict``."""
 
     def __init__(self, idx, nb=None):
         super().__init__()
@@ -78,7 +101,9 @@ class BinIndex(nn.Module):
         self.shape = tuple(idx.shape)
         self.nb = nb
         self.n = int(idx.size)
-        self.register_buffer("idx", torch.from_numpy(idx.ravel().astype(np.int32)))
+        idx_t = torch.from_numpy(idx.ravel().astype(np.int32))
+        self.register_buffer("idx", idx_t)
+        self.register_buffer("idx_narrow", idx_t.to(narrow_index_dtype(nb)), persistent=False)
         self.register_buffer("perm", torch.from_numpy(aux["perm"]))
         self.register_buffer("offsets", torch.from_numpy(aux["offsets"]))
 
@@ -112,31 +137,35 @@ def _kernels():
     if not _KERNELS:
         lib = load_library("bin_gather")
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        for sfx in ("f32", "f64"):
-            g = getattr(lib, f"bin_gather_{sfx}")
-            g.argtypes = [vp, vp, vp, ll, ci, ci, vp]
-            g.restype = ci
+        for dtype, sfx in _FLOAT_DTYPES.items():
+            for itype, isfx in _INDEX_DTYPES.items():
+                g = getattr(lib, f"bin_gather_{sfx}_{isfx}")
+                g.argtypes = [vp, vp, vp, ll, ci, ci, ci, vp]
+                g.restype = ci
+                _KERNELS[dtype, itype] = g
             s = getattr(lib, f"bin_segment_sum_{sfx}")
             s.argtypes = [vp, vp, vp, vp, ll, ci, ci, vp]
             s.restype = ci
-            _KERNELS[f"gather_{sfx}"] = g
             _KERNELS[f"segment_sum_{sfx}"] = s
     return _KERNELS
 
 
 def _check_values(x, dist: BinIndex, width: int, what: str):
-    if x.ndim != 2 or x.shape[1] != width:
-        raise ValueError(f"{what} must have shape (B, {width}); got {tuple(x.shape)}")
+    shape = x.shape
+    if len(shape) != 2 or shape[1] != width:
+        raise ValueError(f"{what} must have shape (B, {width}); got {tuple(shape)}")
     if x.dtype not in _FLOAT_DTYPES:
         raise TypeError(f"{what} must be float32 or float64; got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
-    if dist.idx.device != x.device:
+    # buffers read through _buffers: Module.__getattr__ costs more than
+    # all of these checks together
+    if x.device != dist._buffers["idx"].device:
         raise ValueError(
             f"{what} on {x.device} but the index map on {dist.idx.device}"
         )
-    if x.shape[0] > _MAX_ROWS:
-        raise ValueError(f"at most {_MAX_ROWS} rows; got {x.shape[0]}")
+    if shape[0] > _MAX_ROWS:
+        raise ValueError(f"at most {_MAX_ROWS} rows; got {shape[0]}")
 
 
 def _launch(fn, *args):
@@ -148,16 +177,23 @@ def _launch(fn, *args):
 def bin_gather(table, dist: BinIndex):
     """``out[b, j] = table[b, dist.idx[j]]`` for a (B, nb) table."""
     _check_values(table, dist, dist.nb, "table")
-    if table.device.type == "cpu":
-        return bin_gather_plain(table, dist.idx)
-    if table.device.type != "cuda":
+    if not table.is_cuda:
+        if table.device.type == "cpu":
+            return bin_gather_plain(table, dist.idx)
         raise RuntimeError(f"no bin_gather kernel for device {table.device}")
-    fn = _kernels()["gather_" + _FLOAT_DTYPES[table.dtype]]
-    out = torch.empty((table.shape[0], dist.n), dtype=table.dtype, device=table.device)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        _launch(fn, table.data_ptr(), dist.idx.data_ptr(), out.data_ptr(),
-                dist.n, dist.nb, table.shape[0], stream)
+    idx = dist._buffers["idx_narrow"]
+    fn = (_KERNELS or _kernels())[table.dtype, idx.dtype]
+    nrows = table.shape[0]
+    out = table.new_empty((nrows, dist.n))
+    # The C launcher switches to the tensors' device only if it is not
+    # current.  The stream is PyTorch's current one on that device, as a raw
+    # handle (``torch.cuda.current_stream(dev).cuda_stream`` without
+    # building a Stream object).
+    dev = table.get_device()
+    rc = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(), dist.n, dist.nb, nrows,
+            dev, torch._C._cuda_getCurrentRawStream(dev))
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel launch failed with cudaError {rc}")
     bin_gather.launches += 1
     return out
 

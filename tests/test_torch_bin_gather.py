@@ -152,6 +152,52 @@ def test_sorted_scatter_aux_is_csr_of_stable_sort():
     np.testing.assert_array_equal(aux["offsets"], [0, 2, 3, 3, 6, 6])
 
 
+# The gather kernel reads the map at the narrowest width that holds nb.
+NARROW_EDGES = [(1, torch.uint8), (256, torch.uint8), (257, torch.int16),
+                (32768, torch.int16), (32769, torch.int32)]
+
+
+@pytest.mark.parametrize("nb,dtype", NARROW_EDGES, ids=[str(e[0]) for e in NARROW_EDGES])
+def test_bin_index_keeps_a_narrow_copy_of_the_map(nb, dtype):
+    n = max(nb, 1000)
+    idx = _index_map(nb, n, seed=nb)
+    idx[-1] = nb - 1  # the largest entry sits at the end
+    dist = bg.BinIndex(idx, nb=nb)
+    assert bg.narrow_index_dtype(nb) == dtype
+    assert dist.idx_narrow.dtype == dtype and dist.idx.dtype == torch.int32
+    assert torch.equal(dist.idx_narrow.to(torch.int64), dist.idx.to(torch.int64))
+    assert int(dist.idx_narrow.max()) == nb - 1
+
+
+def test_narrow_map_moves_with_the_module_and_stays_out_of_state_dict():
+    def make():
+        return bg.BinIndex(_index_map(300, 2000, seed=6), nb=300)
+
+    dist = make()
+    assert set(dist.state_dict()) == {"idx", "perm", "offsets"}
+    assert "idx_narrow" in dict(dist.named_buffers())
+    assert dist.to(torch.float32).idx_narrow.dtype == torch.int16  # integer buffers keep their type
+    # the narrow map is built from the map, not loaded
+    again = make()
+    again.load_state_dict(dist.state_dict())
+    assert torch.equal(again.idx_narrow, dist.idx_narrow)
+    meta = make().to("meta")
+    assert meta.idx_narrow.device.type == "meta" and meta.idx_narrow.dtype == torch.int16
+
+
+@pytest.mark.parametrize("nb,dtype", NARROW_EDGES[1:4], ids=["256", "257", "32768"])
+def test_plain_gather_at_the_index_width_edges(nb, dtype):
+    """The CPU path keeps reading the int32 map; results are exact copies."""
+    rng = np.random.default_rng(nb)
+    n = 2 * nb + 3
+    idx = _index_map(nb, n, seed=nb + 1)
+    dist = bg.BinIndex(idx, nb=nb)
+    table = torch.from_numpy(rng.standard_normal((3, nb)))
+    got = bg.bin_gather(table, dist)
+    assert torch.equal(got, table[:, torch.from_numpy(idx)])
+    assert torch.equal(got, bg.bin_gather_plain(table, dist.idx_narrow.long()))
+
+
 def test_wrappers_validate_and_count_only_kernel_launches():
     dist = bg.BinIndex(np.array([0, 2, 1, 2]), nb=3)
     bg.reset_launch_counts()

@@ -4,7 +4,8 @@ file imports no jax, so it runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
-Tolerances: the gather is a copy (bitwise equal); the segment sum adds in
+Tolerances: the gather is a copy (bitwise equal, at every index width and
+row alignment the kernel handles); the segment sum adds in
 another order than the plain version, so it is held to 1e-12 (float64) or
 1e-5 (float32) of the per-bin sum of |cot|, and two of its runs must be
 bitwise equal (it uses no atomics).
@@ -66,6 +67,34 @@ def test_kernels_match_plain_versions(cuda, case, dtype):
     plain = bg.bin_segment_sum_plain(cot, dist.perm, dist.offsets)
     scale = bg.bin_segment_sum_plain(cot.abs(), dist.perm, dist.offsets)
     assert bool(torch.all((s1 - plain).abs() <= RTOL[dtype] * scale))
+
+
+# (bins, entries, rows) for the gather alone: each edge of the narrow index
+# map's width (uint8 up to 256 bins, int16 up to 32,768); an odd map with
+# several rows, so rows start off a 16-byte boundary; maps shorter than one
+# 8-element step, and of one entry; the 128^2 stacked KL stage; a table
+# above the 227 KB a block can hold (read through the read-only cache).
+GATHER_CASES = {
+    "nb256": (256, 4099, 3), "nb257": (257, 4099, 3),
+    "nb32768": (32768, 70001, 2), "nb32769": (32769, 70001, 2),
+    "odd_rows": (113, 2049 * 65, 3), "short": (4, 5, 3), "one": (1, 1, 1),
+    "128sq_B8": (1621, 16384, 8), "ldg": (60000, 200003, 2),
+}
+
+
+@pytest.mark.parametrize("case", GATHER_CASES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_gather_is_bit_exact(cuda, case, dtype):
+    nb, n, nrows = GATHER_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    dist = bg.BinIndex(_index_map(nb, n, seed=nb + n), nb=nb).to(cuda)
+    assert dist.idx_narrow.dtype == bg.narrow_index_dtype(nb)
+    table = torch.randn((nrows, nb), dtype=dtype, device=cuda, generator=gen)
+    before = bg.bin_gather.launches
+    got = bg.bin_gather(table, dist)
+    torch.cuda.synchronize()
+    assert bg.bin_gather.launches == before + 1
+    assert torch.equal(got, bg.bin_gather_plain(table, dist.idx))
 
 
 def test_derivatives_on_the_card_match_the_cpu(cuda):
