@@ -9,11 +9,15 @@ Phases (one line each, with its seconds):
 2. build the distributor kernels (``nvcc``, at first use);
 3. hold each kernel against its plain PyTorch version at the main path's
    shapes in float64 and float32 (gather bit-exact; segment sum within
-   1e-12 / 1e-5 of the per-bin sum of |cot|, and bitwise reproducible),
-   plus two rows of the odd-length 4096^2 quarter map (rows start
-   misaligned), and time both: host-paced ms per call (CUDA events around
-   50 back-to-back calls, kernel and plain in turns) and device ms per
-   call (the same 50 calls captured in a CUDA graph and replayed);
+   1e-12 / 1e-5 of the per-bin sum of |cot|, bitwise reproducible, and
+   bitwise equal when replayed from a CUDA graph), plus two rows of the
+   odd-length 4096^2 quarter map (rows start misaligned), and time both:
+   host-paced ms per call (CUDA events around 50 back-to-back calls,
+   kernel and plain in turns) and device ms per call (the same 50 calls
+   captured in a CUDA graph and replayed).  Each map's line names the
+   segment sum's work items: their count, the short bins among them (a
+   warp each), the split bins (chunks plus a second pass) and the chunk
+   size C;
 4. one 32^2 update on the CPU (plain versions) and on the card (kernels)
    from the same latents and host-drawn noise: final KL energies agree to
    1e-8 relative;
@@ -23,7 +27,8 @@ Phases (one line each, with its seconds):
    both stages: one update.
 
 Phases 5 and 6 reset the kernels' launch counts just before the updates
-and fail unless both kernels launched.  Any failure raises, so the exit
+and fail unless both kernels launched; they print the segment sum's calls
+and the kernels those calls launched (two a call where a bin is split).  Any failure raises, so the exit
 code is nonzero and no result line is printed.  The last two lines are a
 JSON object of the kernels' numbers (float64, the main path's type) and
 the device line.
@@ -155,20 +160,39 @@ def host_paced_ms(kernel, plain):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def device_ms(fn, n=50, replays=3):
-    """Mean device milliseconds per call of `fn`: its `n` calls captured in
-    one CUDA graph, replayed `replays` times between CUDA events.  The
-    device runs the calls back to back without waiting on the host."""
+def captured(fn, n=1):
+    """A CUDA graph of `n` calls of `fn` (warmed up off the capture stream)
+    and the last call's output.  Every other call's output is dropped at
+    once, so the calls write the same memory.  (Keeping each output until
+    the next call alternates between two buffers, 67 MB at 4096^2 for the
+    gather, beyond what L2 holds; that took the gather 15 % longer.)"""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm up off the capture stream
+    with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(n):
+        for _ in range(n - 1):
             fn()
+        out = fn()
+    return graph, out
+
+
+def replayed(fn):
+    """`fn`'s output, computed by replaying a CUDA graph of one call."""
+    graph, out = captured(fn)
+    graph.replay()
+    torch.cuda.synchronize()
+    return out.clone()
+
+
+def device_ms(fn, n=50, replays=3):
+    """Mean device milliseconds per call of `fn`: its `n` calls captured in
+    one CUDA graph, replayed `replays` times between CUDA events.  The
+    device runs the calls back to back without waiting on the host."""
+    graph, _ = captured(fn, n)
     graph.replay()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -238,6 +262,10 @@ def phase_kernels(cases):
             torch.cuda.synchronize()
             if not torch.equal(s1, s2):
                 raise AssertionError(f"bin_segment_sum is not reproducible ({label}, {dtype})")
+            s_graph = replayed(lambda: bg.bin_segment_sum(cot, dist))
+            if not torch.equal(s1, s_graph):
+                raise AssertionError(
+                    f"bin_segment_sum differs when replayed from a CUDA graph ({label}, {dtype})")
             s_err = float((s1 - plain).abs().max())
             rel = float(((s1 - plain).abs() / scale.clamp_min(torch.finfo(dtype).tiny)).max())
             if rel > SEGSUM_RTOL[dtype]:
@@ -263,7 +291,9 @@ def phase_kernels(cases):
                 f"{times['gather_device_ms']:.4f} (plain {times['gather_plain_ms']:.4f} / "
                 f"{times['gather_plain_device_ms']:.4f}) | segment sum {times['segsum_ms']:.4f} / "
                 f"{times['segsum_device_ms']:.4f} (plain {times['segsum_plain_ms']:.4f} / "
-                f"{times['segsum_plain_device_ms']:.4f}) rel err {rel:.2e}",
+                f"{times['segsum_plain_device_ms']:.4f}) rel err {rel:.2e} | segment sum "
+                f"work items {dist.n_items} ({dist.n_short} short bins), split bins "
+                f"{dist.n_split}, C = {bg.SEGMENT_CHUNK}",
                 flush=True,
             )
     return results
@@ -294,13 +324,15 @@ def drive(jt, label, lh, n_updates, **maps):
     torch.cuda.reset_peak_memory_stats()
     bg.reset_launch_counts()
     _, state, secs = run_updates(jt, lh, dev, n_updates, BENCH_KWARGS, **maps)
-    counts = dict(gather=bg.bin_gather.launches, segsum=bg.bin_segment_sum.launches)
+    counts = dict(gather=bg.bin_gather.launches, segsum=bg.bin_segment_sum.launches,
+                  segsum_kernels=bg.bin_segment_sum.kernel_launches)
     energy = float(state.minimization_state.fun)
     med = sorted(secs)[len(secs) // 2]
     print(
         f"{label}: s/update {[round(s, 3) for s in secs]} median {med:.3f} | "
         f"geoVI samples/s {2 * N_SAMPLES / med:.4f} | KL energy {energy!r} | "
-        f"launches gather {counts['gather']} segment_sum {counts['segsum']} | "
+        f"launches gather {counts['gather']} segment_sum {counts['segsum']} "
+        f"(calls; {counts['segsum_kernels']} kernels) | "
         f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | "
         f"last KL Newton steps {state.minimization_state.nit}, geoVI steps per "
         f"sample {state.sample_state.nit.tolist()}",
@@ -394,9 +426,13 @@ def main(argv):
     kernels = []
     for name, k, replaces, label, kind, counts in rows:
         r64 = kres[(label, "float64")]
+        # launches: calls of the wrapper; kernel_launches: the kernels they
+        # launched (a segment-sum call on a map with split bins launches two)
         kernels.append(dict(
             name=f"{name} ({k}, {label}, float64)", route="cuda", source=src,
-            replaces=replaces, launches=counts[kind], max_abs_err=r64[f"{kind}_err"],
+            replaces=replaces, launches=counts[kind],
+            kernel_launches=counts.get(f"{kind}_kernels", counts[kind]),
+            max_abs_err=r64[f"{kind}_err"],
             ms=r64[f"{kind}_ms"], plain_ms=r64[f"{kind}_plain_ms"],
             device_ms=r64[f"{kind}_device_ms"], plain_device_ms=r64[f"{kind}_plain_device_ms"],
         ))

@@ -50,18 +50,36 @@
 // time, and the last n % (16 / sizeof(T)) entries of every row are a
 // scalar tail of the last block.  Both stay inside the one kernel.
 //
-// bin_segment_sum is bound by the 4 B permutation plus sizeof(T) B
-// cotangent read per element (the cotangent read is a gather through the
-// permutation, coalesced within a bin because the permutation is a stable
-// sort).  It uses no atomics: each (bin, row) pair is one block that
-// reduces its CSR segment in a fixed order (strided per-thread partials,
-// then a fixed shared-memory tree), so results are bitwise reproducible.
-// With one block per bin the largest bin sets the time (366,891 entries of
-// 4,198,401 at 4096^2 with 128 log bins); splitting long segments into
-// fixed chunks with a second pass is the known next step.
-//
-// The C entry points return cudaGetLastError() after the launch (or the
-// error that stopped it); the Python wrapper raises when it is not 0.
+// bin_segment_sum is a gather through the permutation of a stable sort
+// plus a segmented reduction over its CSR offsets, with no atomics, so its
+// results are bitwise reproducible.  The host cuts the segments into work
+// items from the offsets and a chunk size C = kChunk alone (see "segment
+// sum" below), so the order of every bin's additions is fixed by the map:
+//  - a bin of at most 32 entries is one warp: one lane per entry, then a
+//    shuffle butterfly;
+//  - a longer bin is cut into chunks of at most C entries, each one
+//    block: thread t adds entries t, t + 256, ... of its chunk in order,
+//    then a butterfly in each warp and one over the warps' sums; a bin of
+//    more than one chunk writes one partial per chunk, and a second small
+//    kernel sums each such bin's partials (a warp per bin and row, lane l
+//    taking chunks l, l + 32, ...), so a call is one launch where no bin
+//    is split (128^2) and two where one is (4096^2);
+//  - a block serves a tile of up to 8 rows and loads each permutation
+//    entry once for all of them.
+// What bounds it: at 4096^2 with 128 log bins (4,198,401 entries in 113
+// bins, the largest 366,891) the 4 B permutation plus sizeof(T) B
+// cotangent read per entry, 50.4 MB in float64, on ~2100 blocks; the
+// cotangent read is a gather, coalesced where the permutation runs over
+// consecutive entries (108 on average there).  At 128^2 unbinned (1621
+// bins of at most 32 entries, 8 rows in the stacked KL stage) the data
+// (1 MB) sits in L2 and the time is a few microseconds of latency on 203
+// blocks.  C = 2048: at 4096^2 C = 4096 took 2-6 % longer and C = 8192
+// 60 % longer (fewer, fatter blocks) on an H100 80GB HBM3 at 700 W.
+
+// The gather's C entry points return cudaGetLastError() after the launch
+// (or the error that stopped it); the segment sum's return the number of
+// kernels they launched, or that error negated.  The Python wrapper raises
+// on an error.
 // Nothing here allocates or synchronises.
 
 #include <cuda_runtime.h>
@@ -295,20 +313,15 @@ cudaError_t launch_gather_on(const T* table, const I* idx, T* out, long long n,
   return cudaGetLastError();
 }
 
-// `dev` is the device that holds the tensors; the launch switches to it
-// only when it is not already current.
-template <typename T, typename I>
-int launch_gather(const void* table, const void* idx, void* out, long long n,
-                  int nb, int nrows, int dev, void* stream) {
-  if (n == 0 || nrows == 0) return 0;
-  if (reinterpret_cast<uintptr_t>(idx) % 16 != 0) return cudaErrorMisalignedAddress;
+// Run `launch` with `dev`, the device that holds the tensors, current:
+// switch to it only when it is not already, and back afterwards.
+template <typename F>
+int on_device(int dev, F&& launch) {
   int cur = 0;
   cudaError_t err = cudaGetDevice(&cur);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (cur != dev && (err = cudaSetDevice(dev)) != cudaSuccess) return static_cast<int>(err);
-  err = launch_gather_on<T, I>(static_cast<const T*>(table), static_cast<const I*>(idx),
-                               static_cast<T*>(out), n, nb, nrows, dev,
-                               static_cast<cudaStream_t>(stream));
+  err = launch();
   if (cur != dev) {
     const cudaError_t back = cudaSetDevice(cur);
     if (err == cudaSuccess) err = back;
@@ -316,42 +329,177 @@ int launch_gather(const void* table, const void* idx, void* out, long long n,
   return static_cast<int>(err);
 }
 
-// -- segment sum ----------------------------------------------------------
+template <typename T, typename I>
+int launch_gather(const void* table, const void* idx, void* out, long long n,
+                  int nb, int nrows, int dev, void* stream) {
+  if (n == 0 || nrows == 0) return 0;
+  if (reinterpret_cast<uintptr_t>(idx) % 16 != 0) return cudaErrorMisalignedAddress;
+  return on_device(dev, [&] {
+    return launch_gather_on<T, I>(static_cast<const T*>(table), static_cast<const I*>(idx),
+                                  static_cast<T*>(out), n, nb, nrows, dev,
+                                  static_cast<cudaStream_t>(stream));
+  });
+}
 
+// -- segment sum ----------------------------------------------------------
+// The host (BinIndex, segment_work_items in ops/bin_gather.py) cuts the CSR
+// segments of the stable sort into work items {bin, lo, hi, slot}, from the
+// offsets and kChunk alone: first one item per short bin (at most 32
+// entries, one warp each), then the chunks of at most kChunk entries of the
+// longer bins (one block each).  A chunk of a split bin writes its partial
+// to partials[row, slot]; every other item writes out[row, bin] itself.
+// Each bin's order of additions is fixed by its length and kChunk, never by
+// the grid, the card or the number of rows, so two cards give the same bits.
+
+// The host's work items use the same two sizes (SEGMENT_CHUNK and
+// SHORT_SEGMENT in ops/bin_gather.py); its loader checks them against
+// bin_segment_sum_chunk() and bin_segment_sum_short().
+constexpr int kChunk = 2048;  // entries of a block's item at most
+constexpr int kShort = 32;    // entries of a warp's item at most, one a lane
+static_assert(kShort == 32, "a short item is one warp, one lane per entry");
+constexpr int kSegThreads = 256;
+constexpr int kSegWarps = kSegThreads / 32;
+constexpr int kPerThread = kChunk / kSegThreads;  // entries a thread adds
+constexpr int kRowTile = kSegWarps;               // rows a block serves
+static_assert(kChunk % kSegThreads == 0, "a chunk is a whole number of strides");
+
+// A butterfly over the warp: every lane ends with the same sum (addition
+// commutes), in an order fixed by the lanes alone.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
+  return v;
+}
+
+// blockIdx.x < short_blocks: kSegWarps short items a block, one lane per
+// entry; else one block item, thread t adding entries lo + t + i * 256 in
+// order of i, then a butterfly in each warp and one over the warps' sums.
+// blockIdx.y: a tile of up to kRowTile rows, each permutation entry loaded
+// once for all of them.
+template <typename T>
+__global__ void __launch_bounds__(kSegThreads)
 segment_sum_kernel(const T* __restrict__ cot, const int32_t* __restrict__ perm,
-                   const long long* __restrict__ offsets, T* __restrict__ out,
-                   long long n, int nb) {
-  __shared__ T part[kThreads];
-  const int k = blockIdx.x;
-  const long long b = blockIdx.y;
-  const long long lo = offsets[k];
-  const long long hi = offsets[k + 1];
-  const T* crow = cot + b * n;
-  T acc = T(0);
-  for (long long p = lo + threadIdx.x; p < hi; p += kThreads) {
-    acc += crow[__ldg(perm + p)];
+                   const int4* __restrict__ items, T* __restrict__ out,
+                   T* __restrict__ partials, long long n, int nb, int n_short,
+                   int short_blocks, int n_slots, int nrows) {
+  const int r0 = blockIdx.y * kRowTile;
+  const int nr = min(kRowTile, nrows - r0);
+  const T* crow = cot + static_cast<long long>(r0) * n;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (static_cast<int>(blockIdx.x) < short_blocks) {
+    const int s = blockIdx.x * kSegWarps + warp;
+    if (s >= n_short) return;
+    const int4 it = __ldg(items + s);
+    const bool live = lane < it.z - it.y;
+    const int j = live ? __ldg(perm + it.y + lane) : 0;
+    T v[kRowTile];
+#pragma unroll
+    for (int r = 0; r < kRowTile; ++r) {
+      v[r] = live && r < nr ? __ldg(crow + r * n + j) : T(0);
+    }
+#pragma unroll
+    for (int r = 0; r < kRowTile; ++r) {
+      if (r < nr) {
+        const T sum = warp_sum(v[r]);
+        if (lane == 0) out[static_cast<long long>(r0 + r) * nb + it.x] = sum;
+      }
+    }
+    return;
   }
-  part[threadIdx.x] = acc;
+  __shared__ T part[kRowTile][kSegWarps];
+  const int4 it = __ldg(items + n_short + (blockIdx.x - short_blocks));
+  const int len = it.z - it.y;
+  int j[kPerThread];
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    const int q = threadIdx.x + i * kSegThreads;
+    j[i] = q < len ? __ldg(perm + it.y + q) : -1;
+  }
+#pragma unroll 1
+  for (int r = 0; r < nr; ++r) {
+    const T* c = crow + r * n;
+    T v[kPerThread];
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) v[i] = j[i] >= 0 ? __ldg(c + j[i]) : T(0);
+    T acc = v[0];
+#pragma unroll
+    for (int i = 1; i < kPerThread; ++i) acc += v[i];
+    acc = warp_sum(acc);
+    if (lane == 0) part[r][warp] = acc;
+  }
   __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) part[threadIdx.x] += part[threadIdx.x + s];
-    __syncthreads();
+  // warp r sums row r over the warps
+  if (warp < nr) {
+    const T sum = warp_sum(lane < kSegWarps ? part[warp][lane] : T(0));
+    if (lane == 0) {
+      const long long r = r0 + warp;
+      if (it.w < 0) out[r * nb + it.x] = sum;
+      else partials[r * n_slots + it.w] = sum;
+    }
   }
-  if (threadIdx.x == 0) out[b * nb + k] = part[0];
+}
+
+// The second pass, for split bins only: a warp per (split bin, row) sums
+// the bin's chunk partials {bin, first slot, chunks}; lane l takes chunks
+// l, l + 32, ... in order, then a butterfly.
+template <typename T>
+__global__ void __launch_bounds__(kSegThreads)
+combine_kernel(const T* __restrict__ partials, const int4* __restrict__ split,
+               T* __restrict__ out, int nb, int n_split, int n_slots) {
+  const int s = blockIdx.x * kSegWarps + (threadIdx.x >> 5);
+  if (s >= n_split) return;
+  const int lane = threadIdx.x & 31;
+  const int4 sp = __ldg(split + s);
+  const long long r = blockIdx.y;
+  const T* prow = partials + r * n_slots + sp.y;
+  T acc = T(0);
+  for (int c = lane; c < sp.z; c += 32) acc += prow[c];
+  acc = warp_sum(acc);
+  if (lane == 0) out[r * nb + sp.x] = acc;
 }
 
 template <typename T>
-int launch_segment_sum(const void* cot, const void* perm, const void* offsets,
-                       void* out, long long n, int nb, int nrows, void* stream) {
+cudaError_t launch_segment_sum_on(const T* cot, const int32_t* perm, const int4* items,
+                                  const int4* split, T* partials, T* out, long long n,
+                                  int nb, int n_short, int n_items, int n_split,
+                                  int n_slots, int nrows, cudaStream_t stream) {
+  const int short_blocks = (n_short + kSegWarps - 1) / kSegWarps;
+  const dim3 grid(static_cast<unsigned>(short_blocks + n_items - n_short),
+                  static_cast<unsigned>((nrows + kRowTile - 1) / kRowTile));
+  segment_sum_kernel<T><<<grid, kSegThreads, 0, stream>>>(
+      cot, perm, items, out, partials, n, nb, n_short, short_blocks, n_slots, nrows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 0) return err;
+  const dim3 grid2(static_cast<unsigned>((n_split + kSegWarps - 1) / kSegWarps),
+                   static_cast<unsigned>(nrows));
+  combine_kernel<T><<<grid2, kSegThreads, 0, stream>>>(partials, split, out, nb, n_split,
+                                                        n_slots);
+  return cudaGetLastError();
+}
+
+// The number of kernels launched (0, 1, or 2 where a bin is split), or the
+// cudaError_t that stopped the call, negated.
+template <typename T>
+int launch_segment_sum(const void* cot, const void* perm, const void* items,
+                       const void* split, void* partials, void* out, long long n, int nb,
+                       int n_short, int n_items, int n_split, int n_slots, int nrows,
+                       int dev, void* stream) {
   if (nb == 0 || nrows == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(nb), static_cast<unsigned>(nrows));
-  segment_sum_kernel<T><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(cot), static_cast<const int32_t*>(perm),
-      static_cast<const long long*>(offsets), static_cast<T*>(out), n, nb);
-  return static_cast<int>(cudaGetLastError());
+  if (reinterpret_cast<uintptr_t>(items) % 16 != 0 ||
+      (n_split > 0 && reinterpret_cast<uintptr_t>(split) % 16 != 0)) {
+    return -static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  const int err = on_device(dev, [&] {
+    return launch_segment_sum_on<T>(
+        static_cast<const T*>(cot), static_cast<const int32_t*>(perm),
+        static_cast<const int4*>(items), static_cast<const int4*>(split),
+        static_cast<T*>(partials), static_cast<T*>(out), n, nb, n_short, n_items, n_split,
+        n_slots, nrows, static_cast<cudaStream_t>(stream));
+  });
+  if (err != 0) return -err;
+  return n_split > 0 ? 2 : 1;
 }
 
 }  // namespace
@@ -371,14 +519,20 @@ BIN_GATHER_ENTRY(bin_gather_f64_u8, double, uint8_t)
 BIN_GATHER_ENTRY(bin_gather_f64_i16, double, int16_t)
 BIN_GATHER_ENTRY(bin_gather_f64_i32, double, int32_t)
 
-int bin_segment_sum_f32(const void* cot, const void* perm, const void* offsets,
-                        void* out, long long n, int nb, int nrows, void* stream) {
-  return launch_segment_sum<float>(cot, perm, offsets, out, n, nb, nrows, stream);
-}
+#define BIN_SEGMENT_SUM_ENTRY(name, T)                                              \
+  int name(const void* cot, const void* perm, const void* items, const void* split,   \
+           void* partials, void* out, long long n, int nb, int n_short, int n_items,  \
+           int n_split, int n_slots, int nrows, int dev, void* stream) {               \
+    return launch_segment_sum<T>(cot, perm, items, split, partials, out, n, nb,        \
+                                 n_short, n_items, n_split, n_slots, nrows, dev,      \
+                                 stream);                                              \
+  }
 
-int bin_segment_sum_f64(const void* cot, const void* perm, const void* offsets,
-                        void* out, long long n, int nb, int nrows, void* stream) {
-  return launch_segment_sum<double>(cot, perm, offsets, out, n, nb, nrows, stream);
-}
+BIN_SEGMENT_SUM_ENTRY(bin_segment_sum_f32, float)
+BIN_SEGMENT_SUM_ENTRY(bin_segment_sum_f64, double)
+
+// The item sizes the kernel was built for; the host's work items must use them.
+int bin_segment_sum_chunk() { return kChunk; }
+int bin_segment_sum_short() { return kShort; }
 
 }  // extern "C"

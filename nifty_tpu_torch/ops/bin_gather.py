@@ -25,14 +25,21 @@ the per-bin segment sum.  Both are hand-written CUDA kernels
   ``_pallas_scatter_mxu`` (``:406``), and computes what the XLA sorted
   route (``sorted_bin_gather``, ``:1013``) does for grid-scale maps.  It
   reduces each bin's CSR segment of a host-precomputed stable sort
-  (:func:`sorted_scatter_aux`) in a fixed order, with no atomics, so one
-  kernel serves both ``deterministic_reductions`` settings.  It is bound by
-  the 4 B permutation plus ``itemsize`` B cotangent read per element, and
-  with one block per bin by the largest bin.
+  (:func:`sorted_scatter_aux`) with no atomics, so one kernel serves both
+  ``deterministic_reductions`` settings.  The order of its additions is
+  fixed by the map alone: :func:`segment_work_items` cuts the segments
+  into work items from the CSR offsets and :data:`SEGMENT_CHUNK`, a warp
+  for each bin of at most 32 entries and a block for each chunk of a
+  longer bin, with a second pass over the chunk partials of split bins.
+  It is bound by the 4 B permutation plus ``itemsize`` B cotangent read
+  per entry at 4096^2, and by latency at 128^2, where the data sits in
+  L2; a block loads each permutation entry once for a tile of rows.
 
 Each wrapper runs the plain version for a CPU tensor only; for a CUDA
 tensor it launches its kernel or raises.  ``bin_gather.launches`` and
-``bin_segment_sum.launches`` count kernel launches (never plain runs).
+``bin_segment_sum.launches`` count calls that take the kernel route
+(never plain runs); ``bin_segment_sum.kernel_launches`` counts the
+kernels those calls launched.
 
 :class:`BinGather` and :class:`BinSegmentSum` are the
 ``torch.autograd.Function`` pair: each one's derivative is the other, with
@@ -58,6 +65,12 @@ from .cuda_build import load_library
 _FLOAT_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 _INDEX_DTYPES = {torch.uint8: "u8", torch.int16: "i16", torch.int32: "i32"}
 _MAX_ROWS = 65535  # gridDim.y
+#: Entries of a segment-sum block's work item at most, and of a segment that
+#: one warp sums (one lane each).  The kernel fixes both (``kChunk`` and
+#: ``kShort`` in ``csrc/bin_gather.cu``); :func:`_kernels` checks that they
+#: agree.
+SEGMENT_CHUNK = 2048
+SHORT_SEGMENT = 32
 
 
 def sorted_scatter_aux(idx, nb: int) -> dict:
@@ -69,6 +82,47 @@ def sorted_scatter_aux(idx, nb: int) -> dict:
     offsets = np.zeros(nb + 1, dtype=np.int64)
     np.cumsum(counts, out=offsets[1:])
     return {"perm": perm, "offsets": offsets}
+
+
+def segment_work_items(offsets) -> dict:
+    """The segment-sum kernel's work items, from the CSR offsets and
+    :data:`SEGMENT_CHUNK` alone (so the order of its additions never
+    depends on the card, the grid or the number of rows).
+
+    ``items`` (int32, (n_items, 4)) holds ``{bin, lo, hi, slot}``: first one
+    item per bin of at most :data:`SHORT_SEGMENT` entries, empty bins too,
+    in bin order (a warp each); then each longer bin cut into chunks
+    ``[lo + c * C, min(lo + (c + 1) * C, hi))`` of ``C =``
+    :data:`SEGMENT_CHUNK` in bin and chunk order (a block each).  A chunk of a bin cut into more than one
+    (a split bin) writes its partial sum to ``slot``, numbered over split
+    bins and chunks in order; every other item has slot -1 and writes the
+    bin's sum.  ``split`` (int32, (n_split, 4)) holds ``{bin, first slot,
+    chunks, 0}`` for the second pass.  ``n_short`` and ``n_slots`` are the
+    counts of short items and of slots."""
+    offsets = np.asarray(offsets, dtype=np.int64)
+    lo, hi = offsets[:-1], offsets[1:]
+    lens = hi - lo
+    short = lens <= SHORT_SEGMENT
+    bins = np.flatnonzero(~short)
+    chunks = -(-lens[bins] // SEGMENT_CHUNK)
+    first = np.cumsum(chunks) - chunks  # each long bin's first chunk
+    cbin = np.repeat(bins, chunks)
+    c = np.arange(cbin.size) - np.repeat(first, chunks)
+    clo = lo[cbin] + c * SEGMENT_CHUNK
+    split = chunks > 1
+    # slots count the chunks of split bins only
+    in_split = np.repeat(split, chunks)
+    slot = np.where(in_split, np.cumsum(in_split) - 1, -1)
+    short_bins = np.flatnonzero(short)
+    items = np.concatenate([
+        np.stack([short_bins, lo[short], hi[short], np.full(short_bins.size, -1)], axis=1),
+        np.stack([cbin, clo, np.minimum(clo + SEGMENT_CHUNK, hi[cbin]), slot], axis=1),
+    ]).astype(np.int32)
+    nsplit = chunks[split]
+    split_table = np.stack([bins[split], np.cumsum(nsplit) - nsplit, nsplit,
+                            np.zeros_like(nsplit)], axis=1).astype(np.int32)
+    return {"items": items.reshape(-1, 4), "split": split_table.reshape(-1, 4),
+            "n_short": int(short_bins.size), "n_slots": int(nsplit.sum())}
 
 
 def narrow_index_dtype(nb: int) -> torch.dtype:
@@ -84,8 +138,10 @@ class BinIndex(nn.Module):
 
     ``idx`` is the map as int32 (the plain versions and the host
     precompute use it); ``idx_narrow`` holds the same values at
-    :func:`narrow_index_dtype` width for the gather kernel.  It is derived
-    from ``idx``, so it stays out of ``state_dict``."""
+    :func:`narrow_index_dtype` width for the gather kernel; ``seg_items``
+    and ``seg_split`` are the segment-sum kernel's work items
+    (:func:`segment_work_items`).  Those three are derived from the map, so
+    they stay out of ``state_dict``."""
 
     def __init__(self, idx, nb=None):
         super().__init__()
@@ -106,6 +162,13 @@ class BinIndex(nn.Module):
         self.register_buffer("idx_narrow", idx_t.to(narrow_index_dtype(nb)), persistent=False)
         self.register_buffer("perm", torch.from_numpy(aux["perm"]))
         self.register_buffer("offsets", torch.from_numpy(aux["offsets"]))
+        work = segment_work_items(aux["offsets"])
+        self.n_items = len(work["items"])
+        self.n_short = work["n_short"]
+        self.n_split = len(work["split"])
+        self.n_slots = work["n_slots"]
+        self.register_buffer("seg_items", torch.from_numpy(work["items"]), persistent=False)
+        self.register_buffer("seg_split", torch.from_numpy(work["split"]), persistent=False)
 
     def extra_repr(self):
         return f"shape={self.shape}, nb={self.nb}"
@@ -144,9 +207,16 @@ def _kernels():
                 g.restype = ci
                 _KERNELS[dtype, itype] = g
             s = getattr(lib, f"bin_segment_sum_{sfx}")
-            s.argtypes = [vp, vp, vp, vp, ll, ci, ci, vp]
+            s.argtypes = [vp, vp, vp, vp, vp, vp, ll, *[ci] * 7, vp]
             s.restype = ci
-            _KERNELS[f"segment_sum_{sfx}"] = s
+            _KERNELS["segment_sum", dtype] = s
+        built = (lib.bin_segment_sum_chunk(), lib.bin_segment_sum_short())
+        if built != (SEGMENT_CHUNK, SHORT_SEGMENT):
+            _KERNELS.clear()
+            raise RuntimeError(
+                f"segment-sum kernel built for items of at most {built} entries (block, "
+                f"warp); the work items use {(SEGMENT_CHUNK, SHORT_SEGMENT)}"
+            )
     return _KERNELS
 
 
@@ -166,12 +236,6 @@ def _check_values(x, dist: BinIndex, width: int, what: str):
         )
     if shape[0] > _MAX_ROWS:
         raise ValueError(f"at most {_MAX_ROWS} rows; got {shape[0]}")
-
-
-def _launch(fn, *args):
-    rc = fn(*args)
-    if rc != 0:
-        raise RuntimeError(f"CUDA kernel launch failed with cudaError {rc}")
 
 
 def bin_gather(table, dist: BinIndex):
@@ -203,28 +267,47 @@ bin_gather.launches = 0
 
 def bin_segment_sum(cot, dist: BinIndex):
     """``out[b, k] = sum_{j: dist.idx[j] = k} cot[b, j]`` for a (B, n)
-    cotangent; deterministic on every device."""
+    cotangent; deterministic on every device.
+
+    ``bin_segment_sum.launches`` counts calls that take the kernel route,
+    one each, whatever the number of kernels a call launches, so that the
+    count compares across kernel designs.  ``bin_segment_sum.
+    kernel_launches`` counts the kernels those calls launched, as the C
+    entry reports them: one a call, two where the map has split bins (the
+    chunks, then the second pass over the split bins' partials)."""
     _check_values(cot, dist, dist.n, "cotangent")
-    if cot.device.type == "cpu":
-        return bin_segment_sum_plain(cot, dist.perm, dist.offsets)
-    if cot.device.type != "cuda":
+    if not cot.is_cuda:
+        if cot.device.type == "cpu":
+            return bin_segment_sum_plain(cot, dist.perm, dist.offsets)
         raise RuntimeError(f"no bin_segment_sum kernel for device {cot.device}")
-    fn = _kernels()["segment_sum_" + _FLOAT_DTYPES[cot.dtype]]
-    out = torch.empty((cot.shape[0], dist.nb), dtype=cot.dtype, device=cot.device)
-    with torch.cuda.device(cot.device):
-        stream = torch.cuda.current_stream(cot.device).cuda_stream
-        _launch(fn, cot.data_ptr(), dist.perm.data_ptr(), dist.offsets.data_ptr(),
-                out.data_ptr(), dist.n, dist.nb, cot.shape[0], stream)
+    fn = (_KERNELS or _kernels())["segment_sum", cot.dtype]
+    nrows = cot.shape[0]
+    out = cot.new_empty((nrows, dist.nb))
+    # the split bins' chunk partials: scratch from the caching allocator
+    # (so the call can be captured in a CUDA graph)
+    partials = cot.new_empty((nrows, dist.n_slots)) if dist.n_split else None
+    b = dist._buffers
+    dev = cot.get_device()
+    rc = fn(cot.data_ptr(), b["perm"].data_ptr(), b["seg_items"].data_ptr(),
+            b["seg_split"].data_ptr(), None if partials is None else partials.data_ptr(),
+            out.data_ptr(), dist.n, dist.nb,
+            dist.n_short, dist.n_items, dist.n_split, dist.n_slots, nrows, dev,
+            torch._C._cuda_getCurrentRawStream(dev))
+    if rc < 0:
+        raise RuntimeError(f"CUDA kernel launch failed with cudaError {-rc}")
     bin_segment_sum.launches += 1
+    bin_segment_sum.kernel_launches += rc
     return out
 
 
 bin_segment_sum.launches = 0
+bin_segment_sum.kernel_launches = 0
 
 
 def reset_launch_counts():
     bin_gather.launches = 0
     bin_segment_sum.launches = 0
+    bin_segment_sum.kernel_launches = 0
 
 
 # -- autograd pair --------------------------------------------------------

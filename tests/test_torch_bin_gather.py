@@ -204,6 +204,7 @@ def test_wrappers_validate_and_count_only_kernel_launches():
     bg.bin_gather(torch.ones((1, 3)), dist)
     bg.bin_segment_sum(torch.ones((1, 4)), dist)
     assert bg.bin_gather.launches == 0 and bg.bin_segment_sum.launches == 0
+    assert bg.bin_segment_sum.kernel_launches == 0
     with pytest.raises(ValueError):
         bg.bin_gather(torch.ones((1, 4)), dist)  # wrong table width
     with pytest.raises(TypeError):
@@ -217,3 +218,110 @@ def test_wrappers_validate_and_count_only_kernel_launches():
         bg.bin_gather(torch.ones((1, 3), device="meta"), meta)
     with pytest.raises(RuntimeError, match="no bin_segment_sum kernel"):
         bg.bin_segment_sum(torch.ones((1, 4), device="meta"), meta)
+
+
+# Segment lengths for the segment-sum kernel's work items (chunk C):
+# log-binned lengths like the 4096^2 quarter map's (113 bins, the largest
+# 366,891 entries); empty bins between occupied ones; one bin; each edge
+# of a chunk and of a warp's 32 entries.
+C = bg.SEGMENT_CHUNK
+SEGMENT_LENGTHS = {
+    "skewed_4096sq": np.round(np.geomspace(1, 366891, 113)).astype(int),
+    "empty_bins": [5, 0, 0, 40, 0, 3 * C + 7, 0, 1],
+    "nb1": [10000],
+    "one_chunk": [C],
+    "chunk_edges": [C - 1, C, C + 1, 2 * C, 2 * C + 1, 32, 33, 31],
+}
+
+
+def _offsets(lengths):
+    return np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+
+
+@pytest.mark.parametrize("case", SEGMENT_LENGTHS)
+def test_work_items_cover_each_segment_once_in_order(case):
+    offsets = _offsets(SEGMENT_LENGTHS[case])
+    lens = np.diff(offsets)
+    w = bg.segment_work_items(offsets)
+    items, split, n_short = w["items"], w["split"], w["n_short"]
+    assert items.dtype == split.dtype == np.int32
+    # a warp item for every bin of at most 32 entries, in bin order, first
+    short = np.flatnonzero(lens <= bg.SHORT_SEGMENT)
+    np.testing.assert_array_equal(items[:n_short, 0], short)
+    assert n_short == short.size and np.all(items[:n_short, 3] == -1)
+    # then block items of 1..C entries, in bin and chunk order
+    size = items[:, 2] - items[:, 1]
+    assert np.all(size[n_short:] > 0) and np.all(size <= C)
+    blocks = items[n_short:]
+    assert np.all(np.diff(blocks[:, 1]) > 0) and np.all(np.diff(blocks[:, 0]) >= 0)
+    split_bins = []
+    for k in range(lens.size):
+        mine = items[items[:, 0] == k]
+        # the bin's items tile [lo, hi) exactly once, in order
+        assert mine[0, 1] == offsets[k] and mine[-1, 2] == offsets[k + 1]
+        np.testing.assert_array_equal(mine[1:, 1], mine[:-1, 2])
+        assert len(mine) == (-(-lens[k] // C) if lens[k] > bg.SHORT_SEGMENT else 1)
+        if len(mine) > 1:
+            split_bins.append(k)
+            np.testing.assert_array_equal(mine[:, 3], mine[0, 3] + np.arange(len(mine)))
+        else:
+            assert mine[0, 3] == -1
+    # the second pass: each split bin's slots, numbered in order
+    np.testing.assert_array_equal(split[:, 0], split_bins)
+    chunks = split[:, 2]
+    np.testing.assert_array_equal(split[:, 1], np.cumsum(chunks) - chunks)
+    assert w["n_slots"] == chunks.sum()
+    np.testing.assert_array_equal(np.sort(items[items[:, 3] >= 0, 3]), np.arange(w["n_slots"]))
+
+
+@pytest.mark.parametrize("case", ["skewed_4096sq", "empty_bins", "chunk_edges"])
+def test_work_items_compose_the_segment_sum(case):
+    """Summing each item's entries, then the split bins' partials by slot,
+    gives the per-bin sums (what the kernel computes, in numpy)."""
+    offsets = _offsets(SEGMENT_LENGTHS[case])
+    rng = np.random.default_rng(3)
+    vals = rng.standard_normal((3, offsets[-1]))  # cot already gathered by perm
+    w = bg.segment_work_items(offsets)
+    part = np.stack([vals[:, lo:hi].sum(axis=1) for _, lo, hi, _ in w["items"]], axis=1)
+    out = np.full((3, offsets.size - 1), np.nan)
+    partials = np.zeros((3, w["n_slots"]))
+    for i, (k, _, _, slot) in enumerate(w["items"]):
+        if slot < 0:
+            out[:, k] = part[:, i]
+        else:
+            partials[:, slot] = part[:, i]
+    for k, first, chunks, _ in w["split"]:
+        out[:, k] = partials[:, first:first + chunks].sum(axis=1)
+    want = np.stack([vals[:, lo:hi].sum(axis=1) for lo, hi in zip(offsets[:-1], offsets[1:])],
+                    axis=1)
+    np.testing.assert_allclose(out, want, rtol=1e-12, atol=1e-12)
+
+
+def test_work_items_depend_on_the_map_alone():
+    rng = np.random.default_rng(8)
+    idx = np.concatenate([np.zeros(3 * C + 5, int), rng.integers(0, 40, size=2000)])
+    dist = bg.BinIndex(idx, nb=45)
+    want = bg.segment_work_items(dist.offsets.numpy())
+    assert dist.n_split == 1 and dist.n_items == len(want["items"])
+    for nrows in (1, 5):
+        cot = torch.from_numpy(rng.standard_normal((nrows, dist.n)))
+        bg.segment_sum(cot, dist)
+        np.testing.assert_array_equal(dist.seg_items.numpy(), want["items"])
+        np.testing.assert_array_equal(dist.seg_split.numpy(), want["split"])
+    again = bg.BinIndex(idx, nb=45)
+    assert torch.equal(again.seg_items, dist.seg_items)
+    assert torch.equal(again.seg_split, dist.seg_split)
+
+
+def test_work_items_move_with_the_module_and_stay_out_of_state_dict():
+    idx = np.concatenate([np.zeros(C + 1, int), np.arange(300)])
+    dist = bg.BinIndex(idx, nb=300)
+    assert set(dist.state_dict()) == {"idx", "perm", "offsets"}
+    assert {"seg_items", "seg_split"} <= set(dict(dist.named_buffers()))
+    assert dist.to(torch.float64).seg_items.dtype == torch.int32
+    meta = bg.BinIndex(idx, nb=300).to("meta")
+    for name in ("seg_items", "seg_split"):
+        buf = getattr(meta, name)
+        assert buf.device.type == "meta" and buf.dtype == torch.int32
+        assert buf.shape == getattr(dist, name).shape
+    assert dist.seg_split.shape == (1, 4) and dist.n_slots == 2

@@ -8,7 +8,8 @@ Tolerances: the gather is a copy (bitwise equal, at every index width and
 row alignment the kernel handles); the segment sum adds in
 another order than the plain version, so it is held to 1e-12 (float64) or
 1e-5 (float32) of the per-bin sum of |cot|, and two of its runs must be
-bitwise equal (it uses no atomics).
+bitwise equal (it uses no atomics), as must a replay of the call from a
+CUDA graph and a call on one of the rows alone.
 """
 
 import numpy as np
@@ -95,6 +96,71 @@ def test_gather_is_bit_exact(cuda, case, dtype):
     torch.cuda.synchronize()
     assert bg.bin_gather.launches == before + 1
     assert torch.equal(got, bg.bin_gather_plain(table, dist.idx))
+
+
+def _graph_replay(fn):
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out.clone()
+
+
+C = bg.SEGMENT_CHUNK
+# (segment lengths, rows) for the segment sum's work items: one bin with
+# 90 % of 1.2M entries; lengths at each edge of a chunk; empty bins between
+# occupied ones; one bin; one entry (two empty bins); the 128^2 stacked KL
+# stage (1621 bins of at most 32 entries: warps only, one launch); three
+# rows of an odd-length skewed map.
+_rng = np.random.default_rng(11)
+SEGSUM_CASES = {
+    "one_bin_90pct": (np.bincount(np.where(_rng.random(1_200_000) < 0.9, 57,
+                                           _rng.integers(0, 113, 1_200_000)), minlength=113), 1),
+    "chunk_edges": ([C - 1, C, C + 1, 2 * C, 5, 0, 33, 32], 2),
+    "empty_bins": ([0, 7, 0, 0, 5000, 0, 31, 0, 3 * C + 1, 0], 2),
+    "nb1": ([3 * C + 17], 2),
+    "n1": ([1, 0, 0], 1),
+    "128sq_B8": (np.bincount(_index_map(1621, 16384, seed=1621), minlength=1621), 8),
+    "B3_odd": (np.round(np.geomspace(1, 60000, 41)).astype(int) | 1, 3),
+}
+
+
+@pytest.mark.parametrize("case", SEGSUM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_segment_sum_work_items(cuda, case, dtype):
+    lengths, nrows = SEGSUM_CASES[case]
+    nb = len(lengths)
+    rng = np.random.default_rng(nb)
+    idx = rng.permutation(np.repeat(np.arange(nb), lengths))
+    dist = bg.BinIndex(idx, nb=nb).to(cuda)
+    if case == "128sq_B8":
+        assert dist.n_split == 0 and dist.n_short == nb
+    if case in ("one_bin_90pct", "nb1", "chunk_edges", "B3_odd"):
+        assert dist.n_split > 0
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    cot = torch.randn((nrows, dist.n), dtype=dtype, device=cuda, generator=gen)
+
+    before = bg.bin_segment_sum.launches, bg.bin_segment_sum.kernel_launches
+    s1, s2 = bg.bin_segment_sum(cot, dist), bg.bin_segment_sum(cot, dist)
+    last_row = bg.bin_segment_sum(cot[-1:].contiguous(), dist)
+    torch.cuda.synchronize()
+    # three calls, each one launch, or two where a bin is split
+    per_call = 2 if dist.n_split else 1
+    assert (bg.bin_segment_sum.launches, bg.bin_segment_sum.kernel_launches) == (
+        before[0] + 3, before[1] + 3 * per_call)
+    assert torch.equal(s1, s2)
+    # the order of the sums depends on the map alone, not on the rows
+    assert torch.equal(last_row, s1[-1:])
+    assert torch.equal(_graph_replay(lambda: bg.bin_segment_sum(cot, dist)), s1)
+    plain = bg.bin_segment_sum_plain(cot, dist.perm, dist.offsets)
+    scale = bg.bin_segment_sum_plain(cot.abs(), dist.perm, dist.offsets)
+    assert bool(torch.all((s1 - plain).abs() <= RTOL[dtype] * scale))
 
 
 def test_derivatives_on_the_card_match_the_cpu(cuda):
