@@ -17,12 +17,15 @@ Phases (one line each, with its seconds):
    host-paced ms per call (CUDA events around 50 back-to-back calls,
    kernel and plain in turns) and device ms per call (the same 50 calls
    captured in a CUDA graph and replayed).  Each map's line names the
-   segment sum's work items: their count, the short bins among them (a
-   warp each), the split bins (chunks plus a second pass) and the chunk
-   size C;
-   the 1024^2 unbinned quarter map (82,799 modes: int32 index, a table
-   above the 227 KB a block can hold, 82,799 warp items) is among the
-   shapes;
+   segment sum's work: its items, the short bins among them by class (4, 8
+   or 32 lanes a bin), the split bins (chunks plus a second pass) and the
+   chunk size C; the segment sum must also equal, bit for bit, the same
+   sum with every short bin given a whole warp;
+   the unbinned quarter maps of 1024^2 (82,799 modes: int32 index, a table
+   above the 227 KB a block can hold, short bins only; at 8 rows the gather
+   goes through a rows-innermost copy of the table) and of 4096^2
+   (1,197,363 modes, a 9.6 MB table a float64 row, every class of short
+   bins and 9 block items) are among the shapes;
 4. one 32^2 update on the CPU (plain versions) and on the card (kernels)
    from the same latents and host-drawn noise, once with the sample loop
    (``residual_map="smap"``) and once with the lockstep batched solvers
@@ -42,18 +45,23 @@ Phases (one line each, with its seconds):
    exp-of-field signal at 128^2, schedules by iteration, ``odir`` in a
    temporary directory), three iterations, then a fourth once resumed from
    the checkpoint (``resume=True``) and once continued in memory: the two
-   fourth iterations must be bitwise equal.
+   fourth iterations must be bitwise equal;
+10. the 4096^2 unbinned config (1,197,363 modes; the sample loop for both
+    stages): one update.
 
 The port places models, latents and data on the card by default; only
 phase 4's CPU run asks for the CPU (``config.update("device", "cpu")``).
-Phases 5 to 9 reset the kernels' launch counts just before they drive
-their path and fail unless both kernels launched; they print the segment
-sum's calls and the kernels those calls launched (two a call where a bin
-is split).  Any failure raises, so the exit code is nonzero and no result
+Phases 5 to 10 reset the kernels' launch counts just before they drive
+their path and fail unless both kernels launched; they print each
+kernel's calls and the kernels those calls launched (for the segment sum
+two a call where a bin is split, for the gather two where a large table
+is first copied rows-innermost).  Any failure raises, so the exit code is nonzero and no result
 line is printed.  The last two lines are a JSON object of the kernels'
 numbers and the device line.  The object has one entry for each kernel,
 map and number of rows that the main path launched (float64, the main
-path's type; ``launches`` are the wrapper's calls with that many rows;
+path's type; ``launches`` are the wrapper's calls with that many rows and
+``kernel_launches`` the kernels those calls launched, as the wrapper summed
+them from its C entry's return values in that run;
 ``ms``, ``plain_ms`` and ``library_ms`` are device times from CUDA-graph
 replays, ``bound_ms`` the bytes of the function's inputs and output over
 the card's published 3.35 TB/s); a shape the main path launched and phase
@@ -61,7 +69,7 @@ the card's published 3.35 TB/s); a shape the main path launched and phase
 
     python3 chip_smoke.py --profile
 
-adds, after phases 5 and 6, one more update of each config under
+adds, after phases 5, 6 and 8, one more update of each config under
 ``torch.profiler``: the device's busy share and the costliest kernels.
 """
 
@@ -298,14 +306,18 @@ def phase_kernels(cases):
         for dtype in (torch.float64, torch.float32):
             table = torch.randn((nrows, dist.nb), dtype=dtype, device=dev, generator=gen)
             cot = torch.randn((nrows, dist.n), dtype=dtype, device=dev, generator=gen)
+            kernels_before = bg.bin_gather.kernel_launches
             got = bg.bin_gather(table, dist)
+            gather_kernels = bg.bin_gather.kernel_launches - kernels_before
             want = bg.bin_gather_plain(table, dist.idx)
             torch.cuda.synchronize()
             if not torch.equal(got, want):
                 raise AssertionError(f"bin_gather differs from its plain version ({label}, {dtype})")
             g_err = float((got - want).abs().max())
 
+            kernels_before = bg.bin_segment_sum.kernel_launches
             s1 = bg.bin_segment_sum(cot, dist)
+            segsum_kernels = bg.bin_segment_sum.kernel_launches - kernels_before
             s2 = bg.bin_segment_sum(cot, dist)
             plain = bg.bin_segment_sum_plain(cot, dist.perm, dist.offsets)
             scale = bg.bin_segment_sum_plain(cot.abs(), dist.perm, dist.offsets)
@@ -316,6 +328,14 @@ def phase_kernels(cases):
             if not torch.equal(s1, s_graph):
                 raise AssertionError(
                     f"bin_segment_sum differs when replayed from a CUDA graph ({label}, {dtype})")
+            # the short classes' narrow butterflies must give the bits of a
+            # whole warp a bin
+            if not torch.equal(s1, bg.bin_segment_sum_whole_warps(cot, dist)):
+                raise AssertionError(
+                    f"bin_segment_sum differs from a whole warp a short bin ({label}, {dtype})")
+            if not torch.equal(got, replayed(lambda: bg.bin_gather(table, dist))):
+                raise AssertionError(
+                    f"bin_gather differs when replayed from a CUDA graph ({label}, {dtype})")
             s_err = float((s1 - plain).abs().max())
             rel = float(((s1 - plain).abs() / scale.clamp_min(torch.finfo(dtype).tiny)).max())
             if rel > SEGSUM_RTOL[dtype]:
@@ -374,8 +394,12 @@ def phase_kernels(cases):
                 f"{times['segsum_library_device_ms']:.4f}) rel err {rel:.2e} | bound ms gather "
                 f"{times['gather_bound_ms']:.5f} segment sum {times['segsum_bound_ms']:.5f} | "
                 f"segment sum "
-                f"work items {dist.n_items} ({dist.n_short} short bins), split bins "
-                f"{dist.n_split}, C = {bg.SEGMENT_CHUNK}",
+                f"work items {dist.n_items} ({dist.n_short} short bins: "
+                + ", ".join(f"{c} of {w} lanes" for c, w in zip(dist.short_counts,
+                                                                 bg.SHORT_WIDTHS))
+                + f"; in {dist.n_pieces} pieces), split bins "
+                f"{dist.n_split}, C = {bg.SEGMENT_CHUNK} | kernels the checked call launched, as "
+                f"its C entry returned: gather {gather_kernels}, segment sum {segsum_kernels}",
                 flush=True,
             )
     return results
@@ -405,22 +429,33 @@ def phase_cpu_vs_card(jt):
 
 
 def launch_counts(bg):
-    """The wrappers' counts: calls of the kernel route, the kernels the
-    segment sum's calls launched, and the calls by their number of rows."""
-    return dict(gather=bg.bin_gather.launches, segsum=bg.bin_segment_sum.launches,
-                segsum_kernels=bg.bin_segment_sum.kernel_launches,
-                gather_by_rows=dict(bg.bin_gather.launches_by_rows),
-                segsum_by_rows=dict(bg.bin_segment_sum.launches_by_rows))
+    """The wrappers' counts: calls of the kernel route, the kernels those
+    calls launched (the C entries' return values), and both by the calls'
+    number of rows."""
+    counts = {}
+    for kind, fn in (("gather", bg.bin_gather), ("segsum", bg.bin_segment_sum)):
+        counts[kind] = fn.launches
+        counts[f"{kind}_kernels"] = fn.kernel_launches
+        counts[f"{kind}_by_rows"] = dict(fn.launches_by_rows)
+        counts[f"{kind}_kernels_by_rows"] = dict(fn.kernel_launches_by_rows)
+    return counts
 
 
 def require_launches(label, counts):
-    if min(counts["gather"], counts["segsum"], counts["segsum_kernels"]) <= 0:
+    if min(counts["gather"], counts["segsum"], counts["gather_kernels"],
+           counts["segsum_kernels"]) <= 0:
         raise AssertionError(f"{label}: a distributor kernel never launched: {counts}")
+    for kind in ("gather", "segsum"):
+        if (sum(counts[f"{kind}_by_rows"].values()) != counts[kind]
+                or sum(counts[f"{kind}_kernels_by_rows"].values()) != counts[f"{kind}_kernels"]):
+            raise AssertionError(f"{label}: the counts by rows do not add up: {counts}")
 
 
 def rows_text(counts):
-    return " ".join(f"{kind} " + ", ".join(f"B={b}: {n}" for b, n in sorted(
-        counts[f"{kind}_by_rows"].items())) for kind in ("gather", "segsum"))
+    """Each kernel's calls by rows, with the kernels they launched."""
+    return " ".join(f"{kind} " + ", ".join(
+        f"B={b}: {n} ({counts[f'{kind}_kernels_by_rows'][b]} kernels)"
+        for b, n in sorted(counts[f"{kind}_by_rows"].items())) for kind in ("gather", "segsum"))
 
 
 def drive(jt, label, lh, n_updates, kwargs=BENCH_KWARGS, **maps):
@@ -437,8 +472,9 @@ def drive(jt, label, lh, n_updates, kwargs=BENCH_KWARGS, **maps):
     print(
         f"{label}: s/update {[round(s, 3) for s in secs]} median {med:.3f} | "
         f"geoVI samples/s {2 * N_SAMPLES / med:.4f} | KL energy {energy!r} | "
-        f"launches gather {counts['gather']} segment_sum {counts['segsum']} "
-        f"(calls; {counts['segsum_kernels']} kernels), by rows of the table: "
+        f"launches gather {counts['gather']} (calls; {counts['gather_kernels']} kernels) "
+        f"segment_sum {counts['segsum']} (calls; {counts['segsum_kernels']} kernels), by rows "
+        f"of the table: "
         f"{rows_text(counts)} | "
         f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | "
         f"last KL Newton steps {int(state.minimization_state.nit)}, geoVI steps per "
@@ -583,8 +619,8 @@ def profile_update(jt, label, lh, top=12, **maps):
 
 
 def main(argv):
-    """``--profile``: after phases 5 and 6, profile one more update of each
-    config (device busy share and the costliest kernels)."""
+    """``--profile``: after phases 5, 6 and 8, profile one more update of
+    each config (device busy share and the costliest kernels)."""
     with_profile = "--profile" in argv
     phase_device()
     import nifty_tpu_torch as jt
@@ -596,7 +632,10 @@ def main(argv):
     cf128 = build_field(jt, (128, 128))
     cf1024 = build_field(jt, (1024, 1024))
     cf4096 = build_field(jt, (4096, 4096), n_bins=128)
-    print(f"field set-up (host mode maps, CSR) {time.perf_counter() - t0:.3f} s", flush=True)
+    t1 = time.perf_counter()
+    cf4096u = build_field(jt, (4096, 4096))
+    print(f"field set-up (host mode maps, CSR) {time.perf_counter() - t0:.3f} s, of which 4096^2 "
+          f"unbinned {time.perf_counter() - t1:.3f} s", flush=True)
     kres = phase_kernels({
         "4096^2 nb128 quarter B=1": (cf4096.dist, 1),
         # an odd-length map: the second row starts misaligned
@@ -612,6 +651,10 @@ def main(argv):
         # the 227 KB a block can hold, a warp item per bin
         "1024^2 unbinned quarter B=1": (cf1024.dist, 1),
         "1024^2 unbinned quarter B=8": (cf1024.dist, 8),
+        # 1,197,363 modes on the 2049^2 quarter map: a 9.6 MB table a
+        # float64 row, every class of short bins, 9 bins of 33 to 40 entries
+        # as block items
+        "4096^2 unbinned quarter B=1": (cf4096u.dist, 1),
     })
 
     phase_cpu_vs_card(jt)
@@ -648,15 +691,25 @@ def main(argv):
     if e1024_again != e1024:
         raise AssertionError(
             f"1024^2 unbinned: two runs of one update end at {e1024!r} and {e1024_again!r}")
+    if with_profile:
+        profile_update(jt, "1024^2 unbinned", lh1024, residual_map="smap", kl_map="auto")
     del lh1024
     c_loop = phase_optimize_kl(jt)
+    d = cf4096u.dist
+    print(f"4096^2 unbinned: {d.nb} modes on the {d.shape} quarter map | float64 table "
+          f"{d.nb * 8} bytes a row | segment sum work items {d.n_items} ({d.n_short} short bins, "
+          f"{d.n_block_items} block items, {d.n_split} split)", flush=True)
+    lh4096u = build_likelihood(jt, cf4096u, 0)
+    c4096u, _ = phase("10 4096^2 unbinned, 1 update")(drive)(
+        jt, "4096^2 unbinned", lh4096u, 1, residual_map="smap", kl_map="smap")
+    del lh4096u
 
     src = "nifty_tpu_torch/csrc/bin_gather.cu"
     tpu = "nifty_tpu/ops/pallas_gather.py"
     # each map with the TPU kernels its gather and segment sum replace and
     # the main-path runs that launch it (the first is the one `launches`
-    # counts).  The 1024^2 map is the shape the TPU leaves to its sorted XLA
-    # route (K5, `sorted_bin_gather`).
+    # counts).  The unbinned 1024^2 and 4096^2 maps are shapes the TPU leaves
+    # to its sorted XLA route (K5, `sorted_bin_gather`).
     paths = [
         ("4096^2 nb128 quarter", ("K1", f"{tpu}:184"), ("K2", f"{tpu}:228"),
          {"fixed": c4096}),
@@ -664,12 +717,15 @@ def main(argv):
          {"fixed": c128, "adaptive": c_adaptive, "optimize_kl": c_loop}),
         ("1024^2 unbinned quarter", ("K5 route", f"{tpu}:1013"), ("K5 route", f"{tpu}:1013"),
          {"fixed": c1024}),
+        ("4096^2 unbinned quarter", ("K5 route", f"{tpu}:1013"), ("K5 route", f"{tpu}:1013"),
+         {"fixed": c4096u}),
     ]
     kernels = []
     for grid, tpu_gather, tpu_segsum, runs in paths:
         for name, kind, (k, replaces) in (("bin_gather", "gather", tpu_gather),
                                           ("bin_segment_sum", "segsum", tpu_segsum)):
             by_rows = {run: c[f"{kind}_by_rows"] for run, c in runs.items()}
+            kernels_by_rows = [c[f"{kind}_kernels_by_rows"] for c in runs.values()]
             for nrows in sorted(set().union(*by_rows.values())):
                 label = f"{grid} B={nrows}"
                 if (label, "float64") not in kres:
@@ -677,14 +733,18 @@ def main(argv):
                         f"the main path launched {name} at {label}, a shape that phase 3 "
                         f"did not hold against the plain version")
                 r64 = kres[(label, "float64")]
-                counted = [c[nrows] for c in by_rows.values() if c.get(nrows)]
+                counted = [(c[nrows], k[nrows]) for c, k in zip(by_rows.values(), kernels_by_rows)
+                           if c.get(nrows)]
                 # launches: calls of the wrapper with this many rows in the
-                # first run that made any (launches_by_run: in each run).  ms,
+                # first run that made any (launches_by_run: in each run);
+                # kernel_launches: the kernels those calls launched, summed
+                # from their C entries' return values in that run.  ms,
                 # plain_ms, library_ms: device times (CUDA-graph replay);
                 # host_ms, plain_host_ms: host-paced.
                 kernels.append(dict(
                     name=f"{name} ({k}, {label}, float64)", route="cuda", source=src,
-                    replaces=replaces, launches=counted[0],
+                    replaces=replaces, launches=counted[0][0],
+                    kernel_launches=counted[0][1],
                     launches_by_run={run: c.get(nrows, 0) for run, c in by_rows.items()},
                     max_abs_err=r64[f"{kind}_err"],
                     ms=r64[f"{kind}_device_ms"], plain_ms=r64[f"{kind}_plain_device_ms"],

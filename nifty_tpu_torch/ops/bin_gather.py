@@ -20,7 +20,13 @@ the per-bin segment sum.  Both are hand-written CUDA kernels
   wrapper does no per-call work beyond the checks, one allocation and the
   ``ctypes`` call, and the C launcher caches each device's constants.
   Each block stages the tables of a tile of rows in shared memory, and
-  one index load serves every row of the tile.
+  one index load serves every row of the tile.  At grid-scale unbinned
+  maps (82,799 modes at 1024^2, 1.2 million at 4096^2) the table is too
+  large for shared memory and is read from L2, a 32-byte sector for every
+  8-byte entry: one row a tile and one 16-byte group a thread with one or
+  two rows, and from :data:`ROWS_INNERMOST_MIN` rows on through a
+  rows-innermost (nb, B) copy of the table, so that one entry's rows are
+  one or two sectors (:func:`rows_innermost_columns`; two kernels a call).
 - :func:`bin_segment_sum` replaces ``_pallas_scatter`` (``:228``) and
   ``_pallas_scatter_mxu`` (``:406``), and computes what the XLA sorted
   route (``sorted_bin_gather``, ``:1013``) does for grid-scale maps.  It
@@ -28,19 +34,24 @@ the per-bin segment sum.  Both are hand-written CUDA kernels
   (:func:`sorted_scatter_aux`) with no atomics, so one kernel serves both
   ``deterministic_reductions`` settings.  The order of its additions is
   fixed by the map alone: :func:`segment_work_items` cuts the segments
-  into work items from the CSR offsets and :data:`SEGMENT_CHUNK`, a warp
-  for each bin of at most 32 entries and a block for each chunk of a
-  longer bin, with a second pass over the chunk partials of split bins.
-  It is bound by the 4 B permutation plus ``itemsize`` B cotangent read
-  per entry at 4096^2, and by latency at 128^2, where the data sits in
-  L2; a block loads each permutation entry once for a tile of rows.
+  into work from the CSR offsets and a few constants.  A bin of at most
+  32 entries is summed by 4, 8 or 32 adjacent lanes, as its length alone
+  decides (:data:`SHORT_WIDTHS`), so that a warp serves up to eight of the
+  short bins that make up an unbinned map, with the bits that a whole
+  warp a bin would give; a longer bin is cut into chunks of
+  :data:`SEGMENT_CHUNK`, a block each, with a second pass over the chunk
+  partials of split bins.  It is bound by the 4 B permutation plus
+  ``itemsize`` B cotangent read per entry at 4096^2 with 128 bins, by
+  latency at 128^2, where the data sits in L2, and by scattered 8-byte
+  cotangent reads (a 32-byte sector each) at the unbinned quarter maps; a
+  block loads each permutation entry once for a tile of rows.
 
 Each wrapper runs the plain version for a CPU tensor only; for a CUDA
 tensor it launches its kernel or raises.  ``bin_gather.launches`` and
 ``bin_segment_sum.launches`` count calls that take the kernel route
-(never plain runs); ``bin_segment_sum.kernel_launches`` counts the
-kernels those calls launched, and each wrapper's ``launches_by_rows`` holds
-the same calls by the number of rows B they served.
+(never plain runs); each wrapper's ``kernel_launches`` counts the kernels
+those calls launched; ``launches_by_rows`` and ``kernel_launches_by_rows``
+hold the same two counts by the number of rows B the calls served.
 
 :class:`BinGather` and :class:`BinSegmentSum` are the
 ``torch.autograd.Function`` pair: each one's derivative is the other, with
@@ -67,12 +78,26 @@ from .cuda_build import load_library
 _FLOAT_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 _INDEX_DTYPES = {torch.uint8: "u8", torch.int16: "i16", torch.int32: "i32"}
 _MAX_ROWS = 65535  # gridDim.y
-#: Entries of a segment-sum block's work item at most, and of a segment that
-#: one warp sums (one lane each).  The kernel fixes both (``kChunk`` and
-#: ``kShort`` in ``csrc/bin_gather.cu``); :func:`_kernels` checks that they
-#: agree.
+#: Entries of a segment-sum block's work item at most; of a short bin at
+#: most (longer bins are cut into block items); and the classes of short
+#: bins: a bin of at most ``w`` entries is summed by ``w`` adjacent lanes, for
+#: the least such ``w`` here.  The kernel fixes all three (``kChunk``,
+#: ``kShort`` and ``kWidths`` in ``csrc/bin_gather.cu``); :func:`_kernels`
+#: checks that they agree.
 SEGMENT_CHUNK = 2048
 SHORT_SEGMENT = 32
+SHORT_WIDTHS = (4, 8, 32)
+_MAX_WIDTHS = 4  # class counts a C entry takes
+_BLOCK_THREADS = 256  # threads of a segment-sum block (kSegThreads)
+#: A class's list of short bins is cut into pieces of ``SHORT_VALUES * 256 /
+#: w`` bins (``kShortValues``; 256 threads a block), which the kernel's
+#: blocks take in the order of the pieces' first bins.
+SHORT_VALUES = 2
+#: A table too large for a block's shared memory is copied rows-innermost
+#: before the gather from this many rows on, if the copy fits in half of the
+#: card's L2 (:func:`rows_innermost_columns`; the kernel takes the copy's
+#: route where it is given scratch for it).
+ROWS_INNERMOST_MIN = 3
 
 
 def sorted_scatter_aux(idx, nb: int) -> dict:
@@ -87,25 +112,45 @@ def sorted_scatter_aux(idx, nb: int) -> dict:
 
 
 def segment_work_items(offsets) -> dict:
-    """The segment-sum kernel's work items, from the CSR offsets and
-    :data:`SEGMENT_CHUNK` alone (so the order of its additions never
-    depends on the card, the grid or the number of rows).
+    """The segment-sum kernel's work, from the CSR offsets,
+    :data:`SEGMENT_CHUNK` and :data:`SHORT_WIDTHS` alone (so the order of
+    its additions never depends on the card, the grid or the number of
+    rows).
 
-    ``items`` (int32, (n_items, 4)) holds ``{bin, lo, hi, slot}``: first one
-    item per bin of at most :data:`SHORT_SEGMENT` entries, empty bins too,
-    in bin order (a warp each); then each longer bin cut into chunks
-    ``[lo + c * C, min(lo + (c + 1) * C, hi))`` of ``C =``
-    :data:`SEGMENT_CHUNK` in bin and chunk order (a block each).  A chunk of a bin cut into more than one
-    (a split bin) writes its partial sum to ``slot``, numbered over split
-    bins and chunks in order; every other item has slot -1 and writes the
-    bin's sum.  ``split`` (int32, (n_split, 4)) holds ``{bin, first slot,
-    chunks, 0}`` for the second pass.  ``n_short`` and ``n_slots`` are the
-    counts of short items and of slots."""
+    A bin of at most :data:`SHORT_SEGMENT` entries, empty bins too, is a
+    short bin, of the class ``c`` with the least width ``SHORT_WIDTHS[c]``
+    that holds its entries.  ``short_bins`` (int32, (n_short,)) lists the
+    short bins' numbers class after class, each class in bin order,
+    ``short_los`` (int32) and ``short_lens`` (uint8) their segments' starts
+    and lengths in the same order, and ``short_counts`` the bins in each
+    class.  ``pieces`` (int32) holds where in those lists each piece of :data:`SHORT_VALUES` ``* 256
+    / w`` bins of a class starts, in the order of the pieces' first bins:
+    the order in which the kernel's blocks take them.
+
+    ``items`` (int32, (n, 4)) holds ``{bin, lo, hi, slot}`` for the longer
+    bins, each cut into chunks ``[lo + c * C, min(lo + (c + 1) * C, hi))``
+    of ``C =`` :data:`SEGMENT_CHUNK` in bin and chunk order (a block each).
+    A chunk of a bin cut into more than one (a split bin) writes its partial
+    sum to ``slot``, numbered over split bins and chunks in order; every
+    other item has slot -1 and writes the bin's sum.  ``split`` (int32,
+    (n_split, 4)) holds ``{bin, first slot, chunks, 0}`` for the second
+    pass.  ``n_short`` and ``n_slots`` are the counts of short bins and of
+    slots."""
     offsets = np.asarray(offsets, dtype=np.int64)
     lo, hi = offsets[:-1], offsets[1:]
     lens = hi - lo
-    short = lens <= SHORT_SEGMENT
-    bins = np.flatnonzero(~short)
+    # class of each bin; len(SHORT_WIDTHS) for the longer ones
+    cls = np.searchsorted(np.asarray(SHORT_WIDTHS), lens)
+    by_class = [np.flatnonzero(cls == c) for c in range(len(SHORT_WIDTHS))]
+    short_bins = np.concatenate(by_class).astype(np.int32)
+    first_of_class = np.cumsum([0] + [len(b) for b in by_class[:-1]])
+    pieces = np.concatenate([
+        start + np.arange(0, len(b), SHORT_VALUES * _BLOCK_THREADS // w)
+        for start, b, w in zip(first_of_class, by_class, SHORT_WIDTHS)]).astype(np.int32)
+    # bins next to each other share cotangent sectors: class after class, a
+    # map too large for L2 would fetch them once for each class
+    pieces = pieces[np.argsort(short_bins[pieces], kind="stable")]
+    bins = np.flatnonzero(lens > SHORT_SEGMENT)
     chunks = -(-lens[bins] // SEGMENT_CHUNK)
     first = np.cumsum(chunks) - chunks  # each long bin's first chunk
     cbin = np.repeat(bins, chunks)
@@ -115,15 +160,15 @@ def segment_work_items(offsets) -> dict:
     # slots count the chunks of split bins only
     in_split = np.repeat(split, chunks)
     slot = np.where(in_split, np.cumsum(in_split) - 1, -1)
-    short_bins = np.flatnonzero(short)
-    items = np.concatenate([
-        np.stack([short_bins, lo[short], hi[short], np.full(short_bins.size, -1)], axis=1),
-        np.stack([cbin, clo, np.minimum(clo + SEGMENT_CHUNK, hi[cbin]), slot], axis=1),
-    ]).astype(np.int32)
+    items = np.stack([cbin, clo, np.minimum(clo + SEGMENT_CHUNK, hi[cbin]), slot],
+                     axis=1).astype(np.int32)
     nsplit = chunks[split]
     split_table = np.stack([bins[split], np.cumsum(nsplit) - nsplit, nsplit,
                             np.zeros_like(nsplit)], axis=1).astype(np.int32)
-    return {"items": items.reshape(-1, 4), "split": split_table.reshape(-1, 4),
+    return {"short_bins": short_bins, "short_counts": tuple(len(b) for b in by_class),
+            "short_los": lo[short_bins].astype(np.int32),
+            "short_lens": lens[short_bins].astype(np.uint8), "pieces": pieces,
+            "items": items.reshape(-1, 4), "split": split_table.reshape(-1, 4),
             "n_short": int(short_bins.size), "n_slots": int(nsplit.sum())}
 
 
@@ -140,10 +185,13 @@ class BinIndex(nn.Module):
 
     ``idx`` is the map as int32 (the plain versions and the host
     precompute use it); ``idx_narrow`` holds the same values at
-    :func:`narrow_index_dtype` width for the gather kernel; ``seg_items``
-    and ``seg_split`` are the segment-sum kernel's work items
-    (:func:`segment_work_items`).  Those three are derived from the map, so
-    they stay out of ``state_dict``."""
+    :func:`narrow_index_dtype` width for the gather kernel; ``seg_bins``,
+    ``seg_los``, ``seg_lens``, ``seg_pieces``, ``seg_items`` and
+    ``seg_split`` are the segment-sum kernel's work
+    (:func:`segment_work_items`: the short bins by class with their
+    segments' starts and lengths, the pieces of the classes, the block items
+    and the split bins).  Those seven are derived from the map, so they stay
+    out of ``state_dict``."""
 
     def __init__(self, idx, nb=None):
         super().__init__()
@@ -165,12 +213,19 @@ class BinIndex(nn.Module):
         self.register_buffer("perm", torch.from_numpy(aux["perm"]))
         self.register_buffer("offsets", torch.from_numpy(aux["offsets"]))
         work = segment_work_items(aux["offsets"])
-        self.n_items = len(work["items"])
         self.n_short = work["n_short"]
+        self.short_counts = work["short_counts"]
+        # as the C entries take them: one count for each class they have room for
+        self._counts_c = self.short_counts + (0,) * (_MAX_WIDTHS - len(self.short_counts))
+        self.n_block_items = len(work["items"])
+        self.n_items = self.n_short + self.n_block_items
         self.n_split = len(work["split"])
         self.n_slots = work["n_slots"]
-        self.register_buffer("seg_items", torch.from_numpy(work["items"]), persistent=False)
-        self.register_buffer("seg_split", torch.from_numpy(work["split"]), persistent=False)
+        self.n_pieces = len(work["pieces"])
+        for name, key in (("seg_bins", "short_bins"), ("seg_los", "short_los"),
+                          ("seg_lens", "short_lens"), ("seg_pieces", "pieces"),
+                          ("seg_items", "items"), ("seg_split", "split")):
+            self.register_buffer(name, torch.from_numpy(work[key]), persistent=False)
 
     def extra_repr(self):
         return f"shape={self.shape}, nb={self.nb}"
@@ -196,30 +251,70 @@ def bin_segment_sum_plain(cot, perm, offsets):
 # -- kernel wrappers ------------------------------------------------------
 
 _KERNELS: dict = {}
+#: device index -> (the largest table row in bytes that a block stages in
+#: shared memory, the bytes of L2)
+_DEVICE_LIMITS: dict = {}
 
 
 def _kernels():
-    if not _KERNELS:
-        lib = load_library("bin_gather")
-        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        for dtype, sfx in _FLOAT_DTYPES.items():
-            for itype, isfx in _INDEX_DTYPES.items():
-                g = getattr(lib, f"bin_gather_{sfx}_{isfx}")
-                g.argtypes = [vp, vp, vp, ll, ci, ci, ci, vp]
-                g.restype = ci
-                _KERNELS[dtype, itype] = g
-            s = getattr(lib, f"bin_segment_sum_{sfx}")
-            s.argtypes = [vp, vp, vp, vp, vp, vp, ll, *[ci] * 7, vp]
-            s.restype = ci
-            _KERNELS["segment_sum", dtype] = s
-        built = (lib.bin_segment_sum_chunk(), lib.bin_segment_sum_short())
-        if built != (SEGMENT_CHUNK, SHORT_SEGMENT):
-            _KERNELS.clear()
-            raise RuntimeError(
-                f"segment-sum kernel built for items of at most {built} entries (block, "
-                f"warp); the work items use {(SEGMENT_CHUNK, SHORT_SEGMENT)}"
-            )
+    """The library's C entries, loaded (and built) at first use, after
+    checking that it was built for the host's constants."""
+    if _KERNELS:
+        return _KERNELS
+    lib = load_library("bin_gather")
+    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    widths = (ci * _MAX_WIDTHS)()
+    n_widths = lib.bin_segment_sum_widths(widths)
+    built = (lib.bin_segment_sum_chunk(), lib.bin_segment_sum_short(),
+             tuple(widths[:n_widths]), lib.bin_segment_sum_values())
+    mine = (SEGMENT_CHUNK, SHORT_SEGMENT, SHORT_WIDTHS, SHORT_VALUES)
+    if built != mine:
+        raise RuntimeError(
+            f"kernels built for {built} (block item, short bin, short widths, values a "
+            f"lane); the host uses {mine}"
+        )
+    for dtype, sfx in _FLOAT_DTYPES.items():
+        for itype, isfx in _INDEX_DTYPES.items():
+            g = getattr(lib, f"bin_gather_{sfx}_{isfx}")
+            g.argtypes = [vp, vp, vp, vp, ll, ci, ci, ci, vp]
+            g.restype = ci
+            _KERNELS[dtype, itype] = g
+        s = getattr(lib, f"bin_segment_sum_{sfx}")
+        s.argtypes = [*[vp] * 10, ll, *[ci] * (7 + _MAX_WIDTHS), vp]
+        s.restype = ci
+        _KERNELS["segment_sum", dtype] = s
+    _KERNELS["device_limits"] = lib.bin_gather_device_limits
     return _KERNELS
+
+
+def _device_limits(dev: int):
+    """(The largest table row in bytes that the gather stages in shared
+    memory, the bytes of L2) on device ``dev``; asked of the library once a
+    device."""
+    limits = _DEVICE_LIMITS.get(dev)
+    if limits is None:
+        out = (ctypes.c_int * 2)()
+        rc = _kernels()["device_limits"](dev, out)
+        if rc != 0:
+            raise RuntimeError(f"device query failed with cudaError {rc}")
+        limits = _DEVICE_LIMITS[dev] = tuple(out)
+    return limits
+
+
+def rows_innermost_columns(nb: int, nrows: int, itemsize: int, dev: int) -> int:
+    """The columns of the rows-innermost copy (nb, columns) that the gather
+    of an (nrows, nb) table goes through on device ``dev``: the rows rounded
+    up to a 16-byte group; or 0 where it reads the table as it is (a table
+    that a block stages, fewer than :data:`ROWS_INNERMOST_MIN` rows, or a
+    copy above half of L2, which would not stay there beside the output)."""
+    if nrows < ROWS_INNERMOST_MIN:
+        return 0
+    staged, l2 = _DEVICE_LIMITS.get(dev) or _device_limits(dev)
+    if nb * itemsize <= staged:
+        return 0
+    group = 16 // itemsize
+    columns = -(-nrows // group) * group
+    return columns if nb * columns * itemsize <= l2 // 2 else 0
 
 
 def _check_values(x, dist: BinIndex, width: int, what: str):
@@ -241,14 +336,19 @@ def _check_values(x, dist: BinIndex, width: int, what: str):
 
 
 def bin_gather(table, dist: BinIndex):
-    """``out[b, j] = table[b, dist.idx[j]]`` for a (B, nb) table."""
+    """``out[b, j] = table[b, dist.idx[j]]`` for a (B, nb) table.
+
+    ``bin_gather.launches`` counts calls that take the kernel route, one
+    each; ``bin_gather.kernel_launches`` the kernels those calls launched,
+    as the C entry reports them: one a call, two where a table too large to
+    stage is first copied rows-innermost."""
     _check_values(table, dist, dist.nb, "table")
     if not table.is_cuda:
         if table.device.type == "cpu":
             return bin_gather_plain(table, dist.idx)
         raise RuntimeError(f"no bin_gather kernel for device {table.device}")
     idx = dist._buffers["idx_narrow"]
-    fn = (_KERNELS or _kernels())[table.dtype, idx.dtype]
+    fn = _kernels()[table.dtype, idx.dtype]
     nrows = table.shape[0]
     out = table.new_empty((nrows, dist.n))
     # The C launcher switches to the tensors' device only if it is not
@@ -256,17 +356,51 @@ def bin_gather(table, dist: BinIndex):
     # handle (``torch.cuda.current_stream(dev).cuda_stream`` without
     # building a Stream object).
     dev = table.get_device()
-    rc = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(), dist.n, dist.nb, nrows,
-            dev, torch._C._cuda_getCurrentRawStream(dev))
-    if rc != 0:
-        raise RuntimeError(f"CUDA kernel launch failed with cudaError {rc}")
+    # the rows-innermost copy of a table too large to stage: (nb, B rounded
+    # up to 16 bytes), scratch from the caching allocator (so the call can
+    # be captured in a CUDA graph)
+    columns = rows_innermost_columns(dist.nb, nrows, table.element_size(), dev)
+    scratch = table.new_empty((dist.nb, columns)) if columns else None
+    rc = fn(table.data_ptr(), idx.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            out.data_ptr(), dist.n, dist.nb, nrows, dev,
+            torch._C._cuda_getCurrentRawStream(dev))
+    if rc < 0:
+        raise RuntimeError(f"CUDA kernel launch failed with cudaError {-rc}")
     bin_gather.launches += 1
     bin_gather.launches_by_rows[nrows] += 1
+    bin_gather.kernel_launches += rc
+    bin_gather.kernel_launches_by_rows[nrows] += rc
     return out
 
 
 bin_gather.launches = 0
 bin_gather.launches_by_rows = Counter()
+bin_gather.kernel_launches = 0
+bin_gather.kernel_launches_by_rows = Counter()
+
+
+def _launch_segment_sum(cot, dist: BinIndex, bins, los, lens, counts, pieces):
+    """The segment-sum kernels on a CUDA cotangent, with the short bins
+    ``bins`` (segments from ``los``, of ``lens`` entries) in classes of
+    ``counts``, cut into ``pieces``; returns the sums and the number of
+    kernels launched."""
+    fn = _kernels()["segment_sum", cot.dtype]
+    nrows = cot.shape[0]
+    out = cot.new_empty((nrows, dist.nb))
+    # the split bins' chunk partials: scratch from the caching allocator
+    # (so the call can be captured in a CUDA graph)
+    partials = cot.new_empty((nrows, dist.n_slots)) if dist.n_split else None
+    b = dist._buffers
+    dev = cot.get_device()
+    rc = fn(cot.data_ptr(), b["perm"].data_ptr(), bins.data_ptr(), los.data_ptr(),
+            lens.data_ptr(), pieces.data_ptr(), b["seg_items"].data_ptr(),
+            b["seg_split"].data_ptr(), None if partials is None else partials.data_ptr(),
+            out.data_ptr(), dist.n, dist.nb, *counts, pieces.shape[0],
+            dist.n_block_items, dist.n_split, dist.n_slots, nrows, dev,
+            torch._C._cuda_getCurrentRawStream(dev))
+    if rc < 0:
+        raise RuntimeError(f"CUDA kernel launch failed with cudaError {-rc}")
+    return out, rc
 
 
 def bin_segment_sum(cot, dist: BinIndex):
@@ -284,38 +418,45 @@ def bin_segment_sum(cot, dist: BinIndex):
         if cot.device.type == "cpu":
             return bin_segment_sum_plain(cot, dist.perm, dist.offsets)
         raise RuntimeError(f"no bin_segment_sum kernel for device {cot.device}")
-    fn = (_KERNELS or _kernels())["segment_sum", cot.dtype]
-    nrows = cot.shape[0]
-    out = cot.new_empty((nrows, dist.nb))
-    # the split bins' chunk partials: scratch from the caching allocator
-    # (so the call can be captured in a CUDA graph)
-    partials = cot.new_empty((nrows, dist.n_slots)) if dist.n_split else None
     b = dist._buffers
-    dev = cot.get_device()
-    rc = fn(cot.data_ptr(), b["perm"].data_ptr(), b["seg_items"].data_ptr(),
-            b["seg_split"].data_ptr(), None if partials is None else partials.data_ptr(),
-            out.data_ptr(), dist.n, dist.nb,
-            dist.n_short, dist.n_items, dist.n_split, dist.n_slots, nrows, dev,
-            torch._C._cuda_getCurrentRawStream(dev))
-    if rc < 0:
-        raise RuntimeError(f"CUDA kernel launch failed with cudaError {-rc}")
+    out, kernels = _launch_segment_sum(cot, dist, b["seg_bins"], b["seg_los"], b["seg_lens"],
+                                       dist._counts_c, b["seg_pieces"])
     bin_segment_sum.launches += 1
-    bin_segment_sum.launches_by_rows[nrows] += 1
-    bin_segment_sum.kernel_launches += rc
+    bin_segment_sum.launches_by_rows[cot.shape[0]] += 1
+    bin_segment_sum.kernel_launches += kernels
+    bin_segment_sum.kernel_launches_by_rows[cot.shape[0]] += kernels
     return out
 
 
 bin_segment_sum.launches = 0
 bin_segment_sum.launches_by_rows = Counter()
 bin_segment_sum.kernel_launches = 0
+bin_segment_sum.kernel_launches_by_rows = Counter()
+
+
+def bin_segment_sum_whole_warps(cot, dist: BinIndex):
+    """The segment sum of a CUDA cotangent with every short bin summed by a
+    whole warp (all of them in the widest class), for checks only: the
+    narrower classes' butterflies must give the same bits.  Not counted as
+    a launch, and nothing in the port calls it."""
+    _check_values(cot, dist, dist.n, "cotangent")
+    if not cot.is_cuda:
+        raise RuntimeError("the whole-warp order exists only in the CUDA kernel")
+    lens = dist.offsets[1:] - dist.offsets[:-1]
+    bins = torch.nonzero(lens <= SHORT_SEGMENT).ravel()
+    counts = [0] * _MAX_WIDTHS
+    counts[len(SHORT_WIDTHS) - 1] = dist.n_short
+    pieces = torch.arange(0, dist.n_short, SHORT_VALUES * _BLOCK_THREADS // SHORT_SEGMENT,
+                          dtype=torch.int32, device=cot.device)
+    return _launch_segment_sum(cot, dist, bins.to(torch.int32), dist.offsets[bins].to(torch.int32),
+                               lens[bins].to(torch.uint8), counts, pieces)[0]
 
 
 def reset_launch_counts():
-    bin_gather.launches = 0
-    bin_gather.launches_by_rows.clear()
-    bin_segment_sum.launches = 0
-    bin_segment_sum.launches_by_rows.clear()
-    bin_segment_sum.kernel_launches = 0
+    for fn in (bin_gather, bin_segment_sum):
+        fn.launches = fn.kernel_launches = 0
+        fn.launches_by_rows.clear()
+        fn.kernel_launches_by_rows.clear()
 
 
 # -- autograd pair --------------------------------------------------------

@@ -217,6 +217,8 @@ def test_wrappers_validate_and_count_only_kernel_launches():
     assert bg.bin_gather.launches == 0 and bg.bin_segment_sum.launches == 0
     assert bg.bin_segment_sum.kernel_launches == 0
     assert not bg.bin_gather.launches_by_rows and not bg.bin_segment_sum.launches_by_rows
+    assert not bg.bin_gather.kernel_launches_by_rows
+    assert not bg.bin_segment_sum.kernel_launches_by_rows
     with pytest.raises(ValueError):
         bg.bin_gather(torch.ones((1, 4)), dist)  # wrong table width
     with pytest.raises(TypeError):
@@ -232,22 +234,41 @@ def test_wrappers_validate_and_count_only_kernel_launches():
         bg.bin_segment_sum(torch.ones((1, 4), device="meta"), meta)
 
 
-# Segment lengths for the segment-sum kernel's work items (chunk C):
-# log-binned lengths like the 4096^2 quarter map's (113 bins, the largest
-# 366,891 entries); empty bins between occupied ones; one bin; each edge
-# of a chunk and of a warp's 32 entries.
+# Segment lengths for the segment-sum kernel's work (chunk C, short classes
+# of SHORT_WIDTHS lanes): log-binned lengths like the 4096^2 quarter map's
+# (113 bins, the largest 366,891 entries); empty bins between occupied ones;
+# one bin; each edge of a chunk, of a warp's 32 entries and of every short
+# class; the 1024^2 unbinned quarter map's lengths (82,799 bins of mean 3.18
+# and at most 24 entries, 98.9 % of them 8 or less: the multiplicities of
+# kx^2 + ky^2 on the 513^2 quarter grid) cut to a 65^2 quarter grid.
 C = bg.SEGMENT_CHUNK
+WIDTHS = bg.SHORT_WIDTHS
+
+
+def _quarter_grid_lengths(m):
+    k = np.arange(m)
+    return np.unique((k[:, None] ** 2 + k[None, :] ** 2).ravel(), return_counts=True)[1]
+
+
 SEGMENT_LENGTHS = {
     "skewed_4096sq": np.round(np.geomspace(1, 366891, 113)).astype(int),
     "empty_bins": [5, 0, 0, 40, 0, 3 * C + 7, 0, 1],
     "nb1": [10000],
     "one_chunk": [C],
     "chunk_edges": [C - 1, C, C + 1, 2 * C, 2 * C + 1, 32, 33, 31],
+    "width_edges": [w + d for w in WIDTHS for d in (-1, 0, 1)] + [0, 1, 0],
+    "unbinned_quarter_65sq": _quarter_grid_lengths(65),
 }
 
 
 def _offsets(lengths):
     return np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+
+
+def _classes(w):
+    """The short bins' lists, one per class."""
+    ends = np.cumsum(w["short_counts"])
+    return [w["short_bins"][e - c:e] for e, c in zip(ends, w["short_counts"])]
 
 
 @pytest.mark.parametrize("case", SEGMENT_LENGTHS)
@@ -256,23 +277,47 @@ def test_work_items_cover_each_segment_once_in_order(case):
     lens = np.diff(offsets)
     w = bg.segment_work_items(offsets)
     items, split, n_short = w["items"], w["split"], w["n_short"]
-    assert items.dtype == split.dtype == np.int32
-    # a warp item for every bin of at most 32 entries, in bin order, first
-    short = np.flatnonzero(lens <= bg.SHORT_SEGMENT)
-    np.testing.assert_array_equal(items[:n_short, 0], short)
-    assert n_short == short.size and np.all(items[:n_short, 3] == -1)
-    # then block items of 1..C entries, in bin and chunk order
+    assert items.dtype == split.dtype == w["short_bins"].dtype == np.int32
+    assert w["short_los"].dtype == np.int32 and w["short_lens"].dtype == np.uint8
+    np.testing.assert_array_equal(w["short_los"], offsets[:-1][w["short_bins"]])
+    np.testing.assert_array_equal(w["short_lens"], lens[w["short_bins"]])
+    # every bin of at most 32 entries, empty ones too, exactly once, in the
+    # class that its length alone names, each class in bin order
+    assert len(w["short_counts"]) == len(WIDTHS) and sum(w["short_counts"]) == n_short
+    lower = (-1,) + WIDTHS[:-1]
+    for bins, lo_w, hi_w in zip(_classes(w), lower, WIDTHS):
+        np.testing.assert_array_equal(bins, np.flatnonzero((lens > lo_w) & (lens <= hi_w)))
+    np.testing.assert_array_equal(np.sort(w["short_bins"]),
+                                  np.flatnonzero(lens <= bg.SHORT_SEGMENT))
+    assert WIDTHS[-1] == bg.SHORT_SEGMENT
+    # the classes' lists cut into pieces of SHORT_VALUES * 256 / w bins, each
+    # within one class, together every short bin once, in the order of their
+    # first bins
+    pieces = w["pieces"]
+    assert pieces.dtype == np.int32
+    ends = np.cumsum(w["short_counts"])
+    covered = []
+    for start in pieces:
+        c = int(np.searchsorted(ends, start, side="right"))
+        size = bg.SHORT_VALUES * 256 // WIDTHS[c]
+        assert (start - (ends[c] - w["short_counts"][c])) % size == 0
+        covered.append(np.arange(start, min(start + size, ends[c])))
+    np.testing.assert_array_equal(np.sort(np.concatenate(covered)) if covered else [],
+                                  np.arange(n_short))
+    assert np.all(np.diff(w["short_bins"][pieces]) > 0)
+    # block items of 1..C entries for the longer bins, in bin and chunk order
     size = items[:, 2] - items[:, 1]
-    assert np.all(size[n_short:] > 0) and np.all(size <= C)
-    blocks = items[n_short:]
-    assert np.all(np.diff(blocks[:, 1]) > 0) and np.all(np.diff(blocks[:, 0]) >= 0)
+    assert np.all(size > 0) and np.all(size <= C)
+    assert np.all(np.diff(items[:, 1]) > 0) and np.all(np.diff(items[:, 0]) >= 0)
+    np.testing.assert_array_equal(np.unique(items[:, 0]),
+                                  np.flatnonzero(lens > bg.SHORT_SEGMENT))
     split_bins = []
-    for k in range(lens.size):
+    for k in np.flatnonzero(lens > bg.SHORT_SEGMENT):
         mine = items[items[:, 0] == k]
         # the bin's items tile [lo, hi) exactly once, in order
         assert mine[0, 1] == offsets[k] and mine[-1, 2] == offsets[k + 1]
         np.testing.assert_array_equal(mine[1:, 1], mine[:-1, 2])
-        assert len(mine) == (-(-lens[k] // C) if lens[k] > bg.SHORT_SEGMENT else 1)
+        assert len(mine) == -(-lens[k] // C)
         if len(mine) > 1:
             split_bins.append(k)
             np.testing.assert_array_equal(mine[:, 3], mine[0, 3] + np.arange(len(mine)))
@@ -286,16 +331,73 @@ def test_work_items_cover_each_segment_once_in_order(case):
     np.testing.assert_array_equal(np.sort(items[items[:, 3] >= 0, 3]), np.arange(w["n_slots"]))
 
 
-@pytest.mark.parametrize("case", ["skewed_4096sq", "empty_bins", "chunk_edges"])
+def _butterfly(v, width):
+    """Numpy emulation of the kernel's ``lanes_sum``: (..., 32) lanes, a
+    butterfly over groups of ``width`` adjacent lanes (steps width/2 ... 1,
+    lane l adding lane l ^ step's value)."""
+    lanes = np.arange(32)
+    s = width // 2
+    while s:
+        v = v + v[..., lanes ^ s]
+        s //= 2
+    return v
+
+
+def _emulated_short_sums(vals, offsets, w):
+    """Each short bin's sum as its class's lanes compute it: one lane per
+    entry, zeros beyond the bin's length, a butterfly over the class width."""
+    out = {}
+    for bins, width in zip(_classes(w), WIDTHS):
+        for k in bins:
+            lanes = np.zeros((vals.shape[0], 32), dtype=vals.dtype)
+            seg = vals[:, offsets[k]:offsets[k + 1]]
+            lanes[:, :seg.shape[1]] = seg
+            out[int(k)] = _butterfly(lanes, width)[:, 0]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("width", sorted(set(WIDTHS) | {2, 4, 8, 16}))
+def test_narrow_butterfly_gives_the_whole_warps_bits(width, dtype):
+    """A bin of at most ``width`` entries: the butterfly over ``width``
+    lanes equals the one over all 32 bit for bit (its steps 16 ... width add
+    exact zeros), whichever group of the warp the bin sits in."""
+    rng = np.random.default_rng(width)
+    for _ in range(200):
+        length = int(rng.integers(0, width + 1))
+        group = int(rng.integers(0, 32 // width))
+        seg = (rng.standard_normal(length) * 10.0 ** rng.integers(-6, 7, length)).astype(dtype)
+        alone = np.zeros(32, dtype=dtype)
+        alone[:length] = seg
+        # the group among other bins' entries in the same warp
+        packed = rng.standard_normal(32).astype(dtype)
+        packed[group * width:(group + 1) * width] = alone[:width]
+        narrow = _butterfly(packed, width)[group * width]
+        whole = _butterfly(alone, 32)[0]
+        assert narrow.dtype == whole.dtype == dtype
+        # equal as numbers: only the sign of a zero sum may differ
+        np.testing.assert_array_equal(narrow, whole)
+
+
+@pytest.mark.parametrize("case", ["skewed_4096sq", "empty_bins", "chunk_edges", "width_edges",
+                                  "unbinned_quarter_65sq"])
 def test_work_items_compose_the_segment_sum(case):
-    """Summing each item's entries, then the split bins' partials by slot,
-    gives the per-bin sums (what the kernel computes, in numpy)."""
+    """Summing each short bin as its class's lanes do and each block item's
+    entries, then the split bins' partials by slot, gives the per-bin sums
+    (what the kernel computes, in numpy): equal to ``bin_segment_sum_plain``
+    to rounding."""
     offsets = _offsets(SEGMENT_LENGTHS[case])
     rng = np.random.default_rng(3)
-    vals = rng.standard_normal((3, offsets[-1]))  # cot already gathered by perm
+    n, nb = int(offsets[-1]), offsets.size - 1
+    perm = rng.permutation(n)  # any bijection: position in the sort -> entry
+    cot = rng.standard_normal((3, n))
+    vals = cot[:, perm]
     w = bg.segment_work_items(offsets)
-    part = np.stack([vals[:, lo:hi].sum(axis=1) for _, lo, hi, _ in w["items"]], axis=1)
-    out = np.full((3, offsets.size - 1), np.nan)
+    out = np.full((3, nb), np.nan)
+    for k, total in _emulated_short_sums(vals, offsets, w).items():
+        out[:, k] = total
+    part = np.stack([vals[:, lo:hi].sum(axis=1) for _, lo, hi, _ in w["items"]], axis=1) \
+        if len(w["items"]) else np.zeros((3, 0))
     partials = np.zeros((3, w["n_slots"]))
     for i, (k, _, _, slot) in enumerate(w["items"]):
         if slot < 0:
@@ -304,9 +406,22 @@ def test_work_items_compose_the_segment_sum(case):
             partials[:, slot] = part[:, i]
     for k, first, chunks, _ in w["split"]:
         out[:, k] = partials[:, first:first + chunks].sum(axis=1)
-    want = np.stack([vals[:, lo:hi].sum(axis=1) for lo, hi in zip(offsets[:-1], offsets[1:])],
-                    axis=1)
-    np.testing.assert_allclose(out, want, rtol=1e-12, atol=1e-12)
+    want = bg.bin_segment_sum_plain(torch.from_numpy(cot), torch.from_numpy(perm),
+                                    torch.from_numpy(offsets)).numpy()
+    scale = bg.bin_segment_sum_plain(torch.from_numpy(np.abs(cot)), torch.from_numpy(perm),
+                                     torch.from_numpy(offsets)).numpy()
+    assert not np.isnan(out).any()
+    _assert_segsum_close(out, want, scale)
+
+
+def test_unbinned_quarter_map_lengths_are_short():
+    """The length distribution the short classes were chosen for: on a
+    quarter grid nearly every mode has a handful of entries."""
+    lens = _quarter_grid_lengths(65)
+    w = bg.segment_work_items(_offsets(lens))
+    assert w["n_short"] == lens.size and len(w["items"]) == 0
+    assert (lens <= 8).mean() > 0.95 and 2.5 < lens.mean() < 3.5
+    assert sum(w["short_counts"][:2]) == (lens <= 8).sum()
 
 
 def test_work_items_depend_on_the_map_alone():
@@ -314,26 +429,37 @@ def test_work_items_depend_on_the_map_alone():
     idx = np.concatenate([np.zeros(3 * C + 5, int), rng.integers(0, 40, size=2000)])
     dist = bg.BinIndex(idx, nb=45)
     want = bg.segment_work_items(dist.offsets.numpy())
-    assert dist.n_split == 1 and dist.n_items == len(want["items"])
+    assert dist.n_split == 1 and dist.n_items == len(want["items"]) + want["n_short"]
+    assert dist.short_counts == want["short_counts"] and dist.n_short == want["n_short"]
+    names = {"seg_bins": "short_bins", "seg_los": "short_los", "seg_lens": "short_lens",
+             "seg_pieces": "pieces", "seg_items": "items", "seg_split": "split"}
     for nrows in (1, 5):
         cot = torch.from_numpy(rng.standard_normal((nrows, dist.n)))
         bg.segment_sum(cot, dist)
-        np.testing.assert_array_equal(dist.seg_items.numpy(), want["items"])
-        np.testing.assert_array_equal(dist.seg_split.numpy(), want["split"])
+        for name, key in names.items():
+            np.testing.assert_array_equal(getattr(dist, name).numpy(), want[key])
     again = bg.BinIndex(idx, nb=45)
-    assert torch.equal(again.seg_items, dist.seg_items)
-    assert torch.equal(again.seg_split, dist.seg_split)
+    for name in names:
+        assert torch.equal(getattr(again, name), getattr(dist, name))
+    # the same segment lengths under another arrangement of the entries
+    shuffled = bg.BinIndex(rng.permutation(idx), nb=45)
+    for name in names:
+        assert torch.equal(getattr(shuffled, name), getattr(dist, name))
 
 
 def test_work_items_move_with_the_module_and_stay_out_of_state_dict():
     idx = np.concatenate([np.zeros(C + 1, int), np.arange(300)])
     dist = bg.BinIndex(idx, nb=300)
+    names = ("seg_bins", "seg_los", "seg_lens", "seg_pieces", "seg_items", "seg_split")
     assert set(dist.state_dict()) == {"idx", "perm", "offsets"}
-    assert {"seg_items", "seg_split"} <= set(dict(dist.named_buffers()))
+    assert set(names) <= set(dict(dist.named_buffers()))
     assert dist.to(torch.float64).seg_items.dtype == torch.int32
     meta = bg.BinIndex(idx, nb=300).to("meta")
-    for name in ("seg_items", "seg_split"):
+    for name in names:
         buf = getattr(meta, name)
-        assert buf.device.type == "meta" and buf.dtype == torch.int32
+        assert buf.device.type == "meta" and buf.dtype == getattr(dist, name).dtype
         assert buf.shape == getattr(dist, name).shape
+    assert dist.seg_lens.dtype == torch.uint8 and dist.seg_los.dtype == torch.int32
     assert dist.seg_split.shape == (1, 4) and dist.n_slots == 2
+    assert dist.seg_bins.shape == dist.seg_los.shape == dist.seg_lens.shape == (299,)
+    assert dist.short_counts == (299,) + (0,) * (len(WIDTHS) - 1) and dist.n_block_items == 2

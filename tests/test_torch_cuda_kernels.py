@@ -33,10 +33,10 @@ def cuda():
 
 
 def _index_map(nb, n, seed):
-    """A random map with every bin occupied."""
+    """A random map with every bin occupied (where it has the entries)."""
     rng = np.random.default_rng(seed)
     idx = rng.integers(0, nb, size=n)
-    idx[:nb] = rng.permutation(nb)
+    idx[:nb] = rng.permutation(nb)[:n]
     return idx
 
 
@@ -75,13 +75,25 @@ def test_kernels_match_plain_versions(cuda, case, dtype):
 # (bins, entries, rows) for the gather alone: each edge of the narrow index
 # map's width (uint8 up to 256 bins, int16 up to 32,768); an odd map with
 # several rows, so rows start off a 16-byte boundary; maps shorter than one
-# 8-element step, and of one entry; the 128^2 stacked KL stage; a table
-# above the 227 KB a block can hold (read through the read-only cache).
+# 8-element step, and of one entry; the 128^2 stacked KL stage; tables
+# above the 227 KB (232,448 bytes: 29,056 float64 or 58,112 float32 bins) a
+# block can hold, read from global memory: one and two rows directly, and 3,
+# 8, 9 and 17 rows through the rows-innermost copy (a padded row group, one
+# full tile, a tile of one row after a full one), with odd maps (rows start
+# misaligned, a ragged tail) and even ones, bin counts just above the limit
+# of each type, and a copy above half of L2 (read directly again).
 GATHER_CASES = {
     "nb256": (256, 4099, 3), "nb257": (257, 4099, 3),
     "nb32768": (32768, 70001, 2), "nb32769": (32769, 70001, 2),
     "odd_rows": (113, 2049 * 65, 3), "short": (4, 5, 3), "one": (1, 1, 1),
     "128sq_B8": (1621, 16384, 8), "ldg": (60000, 200003, 2),
+    "global_B1_odd": (60000, 200003, 1), "global_B3_odd": (60000, 200003, 3),
+    "global_B8_odd": (60000, 200001, 8), "global_B8": (60000, 200000, 8),
+    "global_B9": (60000, 200002, 9), "global_B17_odd": (60000, 100003, 17),
+    "above_f64_limit_B1": (29057, 100001, 1), "above_f64_limit_B2": (29057, 100001, 2),
+    "above_f64_limit_B8": (29057, 100000, 8), "at_f64_limit_B8": (29056, 100001, 8),
+    "above_f32_limit_B3": (58113, 150001, 3), "above_f32_limit_B8": (58113, 150004, 8),
+    "short_global_B3": (60000, 3, 3), "copy_above_half_l2_B8": (500000, 100001, 8),
 }
 
 
@@ -93,11 +105,18 @@ def test_gather_is_bit_exact(cuda, case, dtype):
     dist = bg.BinIndex(_index_map(nb, n, seed=nb + n), nb=nb).to(cuda)
     assert dist.idx_narrow.dtype == bg.narrow_index_dtype(nb)
     table = torch.randn((nrows, nb), dtype=dtype, device=cuda, generator=gen)
-    before = bg.bin_gather.launches
+    before = (bg.bin_gather.launches, bg.bin_gather.kernel_launches,
+              bg.bin_gather.kernel_launches_by_rows[nrows])
     got = bg.bin_gather(table, dist)
     torch.cuda.synchronize()
-    assert bg.bin_gather.launches == before + 1
+    # one call; two kernels where the table is first copied rows-innermost
+    kernels = 2 if bg.rows_innermost_columns(
+        nb, nrows, table.element_size(), table.get_device()) else 1
+    assert (bg.bin_gather.launches, bg.bin_gather.kernel_launches,
+            bg.bin_gather.kernel_launches_by_rows[nrows]) == (
+        before[0] + 1, before[1] + kernels, before[2] + kernels)
     assert torch.equal(got, bg.bin_gather_plain(table, dist.idx))
+    assert torch.equal(_graph_replay(lambda: bg.bin_gather(table, dist)), got)
 
 
 def _graph_replay(fn):
@@ -118,9 +137,13 @@ C = bg.SEGMENT_CHUNK
 # (segment lengths, rows) for the segment sum's work items: one bin with
 # 90 % of 1.2M entries; lengths at each edge of a chunk; empty bins between
 # occupied ones; one bin; one entry (two empty bins); the 128^2 stacked KL
-# stage (1621 bins of at most 32 entries: warps only, one launch); three
-# rows of an odd-length skewed map.
+# stage (1621 bins of at most 32 entries: short bins only, one launch); three
+# rows of an odd-length skewed map; lengths at each edge of a short class,
+# with empty bins, at 1, 3 and 9 rows (a row tile of one after a full one);
+# the lengths of an unbinned 129^2 quarter grid (nearly all of 8 or less).
 _rng = np.random.default_rng(11)
+_k = np.arange(129)
+_WIDTH_EDGES = [w + d for w in bg.SHORT_WIDTHS for d in (-1, 0, 1)] * 40 + [0, 1, 0, 2]
 SEGSUM_CASES = {
     "one_bin_90pct": (np.bincount(np.where(_rng.random(1_200_000) < 0.9, 57,
                                            _rng.integers(0, 113, 1_200_000)), minlength=113), 1),
@@ -130,6 +153,10 @@ SEGSUM_CASES = {
     "n1": ([1, 0, 0], 1),
     "128sq_B8": (np.bincount(_index_map(1621, 16384, seed=1621), minlength=1621), 8),
     "B3_odd": (np.round(np.geomspace(1, 60000, 41)).astype(int) | 1, 3),
+    "width_edges_B1": (_WIDTH_EDGES, 1), "width_edges_B3": (_WIDTH_EDGES, 3),
+    "width_edges_B9": (_WIDTH_EDGES, 9),
+    "unbinned_quarter_129sq_B2": (np.unique((_k[:, None] ** 2 + _k[None, :] ** 2).ravel(),
+                                            return_counts=True)[1], 2),
 }
 
 
@@ -145,6 +172,8 @@ def test_segment_sum_work_items(cuda, case, dtype):
         assert dist.n_split == 0 and dist.n_short == nb
     if case in ("one_bin_90pct", "nb1", "chunk_edges", "B3_odd"):
         assert dist.n_split > 0
+    if case.startswith("width_edges"):
+        assert min(dist.short_counts) > 0 and dist.n_block_items > 0
     gen = torch.Generator(device=cuda).manual_seed(2)
     cot = torch.randn((nrows, dist.n), dtype=dtype, device=cuda, generator=gen)
 
@@ -160,40 +189,55 @@ def test_segment_sum_work_items(cuda, case, dtype):
     # the order of the sums depends on the map alone, not on the rows
     assert torch.equal(last_row, s1[-1:])
     assert torch.equal(_graph_replay(lambda: bg.bin_segment_sum(cot, dist)), s1)
+    # the short classes' narrow butterflies give a whole warp's bits
+    assert torch.equal(bg.bin_segment_sum_whole_warps(cot, dist), s1)
     plain = bg.bin_segment_sum_plain(cot, dist.perm, dist.offsets)
     scale = bg.bin_segment_sum_plain(cot.abs(), dist.perm, dist.offsets)
     assert bool(torch.all((s1 - plain).abs() <= RTOL[dtype] * scale))
 
 
-@pytest.mark.parametrize("nrows", [1, 8], ids=["B1", "B8"])
+# grid size -> the quarter map's shape, its modes, the bins above 32 entries
+# (block items) and the longest bin
+UNBINNED_GRIDS = {1024: ((513, 513), 82799, 0, 24), 4096: ((2049, 2049), 1197363, 9, 40)}
+
+
+@pytest.mark.parametrize("size,nrows", [(1024, 1), (1024, 8), (4096, 1)],
+                         ids=["1024sq_B1", "1024sq_B8", "4096sq_B1"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
-def test_unbinned_1024sq_distributor_shape(cuda, dtype, nrows):
-    """The 1024^2 unbinned field's own map: 82,799 modes on the 513^2
+def test_unbinned_1024sq_distributor_shape(cuda, dtype, size, nrows):
+    """The unbinned fields' own maps.  1024^2: 82,799 modes on the 513^2
     quarter grid, so the gather reads an int32 index and a table above the
-    227 KB a block can hold, and the segment sum is 82,799 warp items in one
-    launch."""
+    227 KB a block can hold (through the rows-innermost copy at 8 rows), and
+    the segment sum is 82,799 short bins in one launch.  4096^2: 1,197,363
+    modes on the 2049^2 quarter grid, every short class and 9 block items."""
     from nifty_tpu_torch.models.correlated_field import make_grid
 
-    hg = make_grid((1024, 1024), 1.0 / 1024).harmonic_grid
+    shape, nb, n_long, longest = UNBINNED_GRIDS[size]
+    hg = make_grid((size, size), 1.0 / size).harmonic_grid
     dist = bg.BinIndex(hg.power_distributor_quarter, nb=hg.mode_lengths.size).to(cuda)
-    assert dist.shape == (513, 513) and dist.nb == 82799
+    assert dist.shape == shape and dist.nb == nb
     assert dist.idx_narrow.dtype == torch.int32
     assert dist.nb * torch.finfo(dtype).bits // 8 > 227 * 1024
-    assert (dist.n_items, dist.n_short, dist.n_split) == (82799, 82799, 0)
+    assert (dist.n_items, dist.n_short, dist.n_split) == (nb, nb - n_long, 0)
+    assert dist.n_block_items == n_long and min(dist.short_counts) > 0
+    assert int((dist.offsets[1:] - dist.offsets[:-1]).max()) == longest
     gen = torch.Generator(device=cuda).manual_seed(3)
     table = torch.randn((nrows, dist.nb), dtype=dtype, device=cuda, generator=gen)
     cot = torch.randn((nrows, dist.n), dtype=dtype, device=cuda, generator=gen)
-    before = bg.bin_segment_sum.launches, bg.bin_segment_sum.kernel_launches
+    before = (bg.bin_segment_sum.launches, bg.bin_segment_sum.kernel_launches,
+              bg.bin_gather.launches, bg.bin_gather.kernel_launches)
     got = bg.bin_gather(table, dist)
     s1, s2 = bg.bin_segment_sum(cot, dist), bg.bin_segment_sum(cot, dist)
     last_row = bg.bin_segment_sum(cot[-1:].contiguous(), dist)
     torch.cuda.synchronize()
-    assert (bg.bin_segment_sum.launches, bg.bin_segment_sum.kernel_launches) == (
-        before[0] + 3, before[1] + 3)
+    assert (bg.bin_segment_sum.launches, bg.bin_segment_sum.kernel_launches,
+            bg.bin_gather.launches, bg.bin_gather.kernel_launches) == (
+        before[0] + 3, before[1] + 3, before[2] + 1, before[3] + (2 if nrows == 8 else 1))
     assert torch.equal(got, bg.bin_gather_plain(table, dist.idx))
     assert torch.equal(s1, s2) and torch.equal(last_row, s1[-1:])
     assert torch.equal(_graph_replay(lambda: bg.bin_segment_sum(cot, dist)), s1)
     assert torch.equal(_graph_replay(lambda: bg.bin_gather(table, dist)), got)
+    assert torch.equal(bg.bin_segment_sum_whole_warps(cot, dist), s1)
     plain = bg.bin_segment_sum_plain(cot, dist.perm, dist.offsets)
     scale = bg.bin_segment_sum_plain(cot.abs(), dist.perm, dist.offsets)
     assert bool(torch.all((s1 - plain).abs() <= RTOL[dtype] * scale))
