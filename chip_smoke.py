@@ -25,11 +25,16 @@ Phases (one line each, with its seconds):
    above the 227 KB a block can hold, short bins only; at 8 rows the gather
    goes through a rows-innermost copy of the table) and of 4096^2
    (1,197,363 modes, a 9.6 MB table a float64 row, every class of short
-   bins and 9 block items) are among the shapes;
+   bins and 9 block items) are among the shapes, as are the 1-D subgrid
+   maps of 16 and 64 entries (9 and 33 bins, uint8 index) at 1, 4, 8, 12
+   and 24 rows and the 512^2 unbinned full-grid map (22,026 bins, int16
+   index);
 4. one 32^2 update on the CPU (plain versions) and on the card (kernels)
    from the same latents and host-drawn noise, once with the sample loop
    (``residual_map="smap"``) and once with the lockstep batched solvers
-   (``"vmap"``): final KL energies agree to 1e-8 relative for both;
+   (``"vmap"``): final KL energies agree to 1e-8 relative for both; the
+   same for a two-subgrid field with ``total_N=3, dofdex=[0, 0, 1]`` (a
+   32^2 non-parametric subgrid times an 8-channel Matern subgrid);
 5. the 128^2 unbinned config (``bench.py``'s headline, ``residual_map=
    "vmap"``: the residual stages run the lockstep batched solvers and the
    KL stage stacks the 8 samples): three updates;
@@ -47,16 +52,26 @@ Phases (one line each, with its seconds):
    the checkpoint (``resume=True``) and once continued in memory: the two
    fourth iterations must be bitwise equal;
 10. the 4096^2 unbinned config (1,197,363 modes; the sample loop for both
-    stages): one update.
+    stages): one update;
+11. ``optimize_kl`` as ``demos/10_multifrequency.py`` calls it: 64 pixels
+    times 16 frequency channels, noise 0.2, data from the prior, five
+    iterations; the posterior mean's rms error against the truth must be
+    below the noise level;
+12. space times frequency at grid scale: the demo's two subgrids and
+    priors with a 512^2 spatial subgrid (unbinned, 22,026 bins on the
+    full-grid map) times 64 channels (33 bins), 16.8 M field entries, the
+    sample loop for both stages: one update, with both kernels launched on
+    both subgrids' maps.
 
 The port places models, latents and data on the card by default; only
 phase 4's CPU run asks for the CPU (``config.update("device", "cpu")``).
-Phases 5 to 10 reset the kernels' launch counts just before they drive
-their path and fail unless both kernels launched; they print each
-kernel's calls and the kernels those calls launched (for the segment sum
-two a call where a bin is split, for the gather two where a large table
-is first copied rows-innermost).  Any failure raises, so the exit code is nonzero and no result
-line is printed.  The last two lines are a JSON object of the kernels'
+Phases 5 to 12 reset the kernels' launch counts just before they drive
+their path and fail unless both kernels launched (phases 11 and 12: on
+every subgrid's map); they print each kernel's calls and the kernels those
+calls launched (for the segment sum two a call where a bin is split, for
+the gather two where a large table is first copied rows-innermost), by
+rows and by map.  Any failure raises, so the exit code is nonzero and no
+result line is printed.  The last two lines are a JSON object of the kernels'
 numbers and the device line.  The object has one entry for each kernel,
 map and number of rows that the main path launched (float64, the main
 path's type; ``launches`` are the wrapper's calls with that many rows and
@@ -69,7 +84,7 @@ the card's published 3.35 TB/s); a shape the main path launched and phase
 
     python3 chip_smoke.py --profile
 
-adds, after phases 5, 6 and 8, one more update of each config under
+adds, after phases 5, 6, 8 and 12, one more update of each config under
 ``torch.profiler``: the device's busy share and the costliest kernels.
 """
 
@@ -160,13 +175,46 @@ def build_field(jt, dims, n_bins=None, offset_mean=1.0):
     return cfm.finalize()
 
 
-def build_likelihood(jt, model, key):
+def build_multifrequency(jt, space_shape, n_freq):
+    """`demos/10_multifrequency.py`'s model: a spatial subgrid with IWP
+    deviations times a smoother frequency subgrid."""
+    cfm = jt.CorrelatedFieldMaker("mf")
+    cfm.set_amplitude_total_offset(offset_mean=0.0, offset_std=(1e-1, 3e-2))
+    cfm.add_fluctuations(
+        space_shape, distances=1.0 / space_shape[0], fluctuations=(1.0, 5e-1),
+        loglogavgslope=(-3.0, 2e-1), flexibility=(1.0, 5e-1), asperity=(5e-1, 1e-1),
+        prefix="space",
+    )
+    cfm.add_fluctuations(
+        (n_freq,), distances=1.0 / n_freq, fluctuations=(5e-1, 2e-1),
+        loglogavgslope=(-4.0, 2e-1), flexibility=None, asperity=None, prefix="freq",
+    )
+    return cfm.finalize()
+
+
+def build_field_total_n(jt):
+    """Three fields (two parameter sets) on a 32^2 non-parametric subgrid
+    times an 8-channel Matern subgrid."""
+    cfm = jt.CorrelatedFieldMaker("cf")
+    cfm.set_amplitude_total_offset(offset_mean=1.0, offset_std=(1e-1, 3e-2))
+    cfm.add_fluctuations(
+        (32, 32), distances=1.0 / 32, fluctuations=(1.0, 5e-1), loglogavgslope=(-3.0, 2e-1),
+        flexibility=(1e0, 5e-1), asperity=(5e-1, 5e-2), prefix="space",
+    )
+    cfm.add_fluctuations_matern(
+        8, distances=1.0 / 8, scale=(5e-1, 2e-1), cutoff=(2.0, 1.0), loglogslope=(-3.0, 5e-1),
+        renormalize_amplitude=True, prefix="freq",
+    )
+    return cfm.finalize(total_N=3, dofdex=[0, 0, 1])
+
+
+def build_likelihood(jt, model, key, noise_std=NOISE_STD):
     """bench.py's `_build`: synthetic data from the prior plus white noise."""
     k1, k2 = jt.split(key, 2)
     with torch.no_grad():
         truth = model(model.init(k1))
-        data = truth + NOISE_STD * jt.random_like(k2, truth)
-    return jt.Gaussian(data, noise_cov_inv=lambda x: x / NOISE_STD ** 2).amend(model)
+        data = truth + noise_std * jt.random_like(k2, truth)
+    return jt.Gaussian(data, noise_cov_inv=lambda x: x / noise_std ** 2).amend(model)
 
 
 def start(jt, lh, kwargs, key=7, pos_key=1, **maps):
@@ -405,27 +453,31 @@ def phase_kernels(cases):
     return results
 
 
-@phase("4 32^2 update, CPU vs card, sample loop and lockstep")
+@phase("4 32^2 and 32^2 x Matern 8 (total_N=3) updates, CPU vs card, sample loop and lockstep")
 def phase_cpu_vs_card(jt):
-    for rmap in ("smap", "vmap"):
-        energies = {}
-        for dev in ("cpu", "cuda"):
-            jt.config.update("device", dev)  # the CPU only because it is asked for
-            try:
-                lh = build_likelihood(jt, build_field(jt, (32, 32)), jt.HostKey(0))
-                _, state, secs = run_updates(
-                    jt, lh, 1, SHORT_KWARGS, key=jt.HostKey(7), pos_key=jt.HostKey(1),
-                    residual_map=rmap,
-                )
-            finally:
-                jt.config.update("device", "cuda")
-            energies[dev] = float(state.minimization_state.fun)
-            print(f"32^2 {rmap} on {dev}: KL energy {energies[dev]!r} in {secs[0]:.3f} s",
-                  flush=True)
-        rel = abs(energies["cuda"] - energies["cpu"]) / abs(energies["cpu"])
-        print(f"32^2 {rmap} CPU vs card relative energy difference {rel:.3e}", flush=True)
-        if not rel <= 1e-8:
-            raise AssertionError(f"CPU and card disagree ({rmap}): relative {rel:.3e} > 1e-8")
+    fields = {"32^2": lambda: build_field(jt, (32, 32)),
+              "32^2 x Matern 8, total_N=3": lambda: build_field_total_n(jt)}
+    for name, build in fields.items():
+        for rmap in ("smap", "vmap"):
+            energies = {}
+            for dev in ("cpu", "cuda"):
+                jt.config.update("device", dev)  # the CPU only because it is asked for
+                try:
+                    lh = build_likelihood(jt, build(), jt.HostKey(0))
+                    _, state, secs = run_updates(
+                        jt, lh, 1, SHORT_KWARGS, key=jt.HostKey(7), pos_key=jt.HostKey(1),
+                        residual_map=rmap,
+                    )
+                finally:
+                    jt.config.update("device", "cuda")
+                energies[dev] = float(state.minimization_state.fun)
+                print(f"{name} {rmap} on {dev}: KL energy {energies[dev]!r} in {secs[0]:.3f} s",
+                      flush=True)
+            rel = abs(energies["cuda"] - energies["cpu"]) / abs(energies["cpu"])
+            print(f"{name} {rmap} CPU vs card relative energy difference {rel:.3e}", flush=True)
+            if not rel <= 1e-8:
+                raise AssertionError(
+                    f"CPU and card disagree ({name}, {rmap}): relative {rel:.3e} > 1e-8")
 
 
 def launch_counts(bg):
@@ -438,17 +490,33 @@ def launch_counts(bg):
         counts[f"{kind}_kernels"] = fn.kernel_launches
         counts[f"{kind}_by_rows"] = dict(fn.launches_by_rows)
         counts[f"{kind}_kernels_by_rows"] = dict(fn.kernel_launches_by_rows)
+        counts[f"{kind}_by_map"] = dict(fn.launches_by_map)
+        counts[f"{kind}_kernels_by_map"] = dict(fn.kernel_launches_by_map)
     return counts
 
 
-def require_launches(label, counts):
+def on_map(counts, key, dist):
+    """`counts[key]` (a count by map and rows) of the map `dist`, by rows."""
+    return {rows: n for (shape, nb, rows), n in counts[key].items()
+            if (shape, nb) == (dist.shape, dist.nb)}
+
+
+def require_launches(label, counts, maps=()):
+    """Both kernels launched (on each of `maps`), and the counts by rows and
+    by map add up to the totals."""
     if min(counts["gather"], counts["segsum"], counts["gather_kernels"],
            counts["segsum_kernels"]) <= 0:
         raise AssertionError(f"{label}: a distributor kernel never launched: {counts}")
     for kind in ("gather", "segsum"):
-        if (sum(counts[f"{kind}_by_rows"].values()) != counts[kind]
-                or sum(counts[f"{kind}_kernels_by_rows"].values()) != counts[f"{kind}_kernels"]):
-            raise AssertionError(f"{label}: the counts by rows do not add up: {counts}")
+        for by in ("rows", "map"):
+            if (sum(counts[f"{kind}_by_{by}"].values()) != counts[kind]
+                    or sum(counts[f"{kind}_kernels_by_{by}"].values())
+                    != counts[f"{kind}_kernels"]):
+                raise AssertionError(f"{label}: the counts by {by} do not add up: {counts}")
+        for dist in maps:
+            if sum(on_map(counts, f"{kind}_by_map", dist).values()) <= 0:
+                raise AssertionError(
+                    f"{label}: {kind} never launched on the map {dist.shape}: {counts}")
 
 
 def rows_text(counts):
@@ -458,9 +526,19 @@ def rows_text(counts):
         for b, n in sorted(counts[f"{kind}_by_rows"].items())) for kind in ("gather", "segsum"))
 
 
-def drive(jt, label, lh, n_updates, kwargs=BENCH_KWARGS, **maps):
+def maps_text(counts):
+    """Each kernel's calls by map (shape, bins) and rows, with the kernels
+    they launched."""
+    return " ".join(f"{kind} " + ", ".join(
+        f"{shape} {nb} bins B={b}: {n} ({counts[f'{kind}_kernels_by_map'][shape, nb, b]} kernels)"
+        for (shape, nb, b), n in sorted(counts[f"{kind}_by_map"].items()))
+        for kind in ("gather", "segsum"))
+
+
+def drive(jt, label, lh, n_updates, kwargs=BENCH_KWARGS, subgrid_maps=(), **maps):
     """Run the main path with the launch counts reset just before; returns
-    the counts and the final KL energy."""
+    the counts and the final KL energy.  Fails unless both kernels launched,
+    on each of `subgrid_maps` too."""
     from nifty_tpu_torch.ops import bin_gather as bg
 
     torch.cuda.reset_peak_memory_stats()
@@ -476,14 +554,15 @@ def drive(jt, label, lh, n_updates, kwargs=BENCH_KWARGS, **maps):
         f"segment_sum {counts['segsum']} (calls; {counts['segsum_kernels']} kernels), by rows "
         f"of the table: "
         f"{rows_text(counts)} | "
-        f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | "
+        + (f"by map: {maps_text(counts)} | " if subgrid_maps else "")
+        + f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | "
         f"last KL Newton steps {int(state.minimization_state.nit)}, geoVI steps per "
         f"sample {state.sample_state.nit.tolist()}",
         flush=True,
     )
     if not torch.isfinite(torch.tensor(energy)):
         raise AssertionError(f"{label}: non-finite KL energy {energy}")
-    require_launches(label, counts)
+    require_launches(label, counts, subgrid_maps)
     return counts, energy
 
 
@@ -588,6 +667,50 @@ def phase_optimize_kl(jt):
     return counts
 
 
+@phase("11 optimize_kl as demos/10_multifrequency.py, 64 x 16, 5 iterations")
+def phase_multifrequency(jt):
+    """`demos/10_multifrequency.py`'s model, data and `optimize_kl` call:
+    the posterior mean must be closer to the truth than the noise level."""
+    from nifty_tpu_torch.ops import bin_gather as bg
+
+    noise_std = 0.2
+    cf = build_multifrequency(jt, (64,), 16)
+    k_truth, k_noise, k_init, k_opt = jt.HostKey(5).split(4)
+    with torch.no_grad():
+        truth = cf(cf.init(k_truth))
+        data = truth + noise_std * jt.random_like(k_noise, truth)
+    lh = jt.Gaussian(data, noise_cov_inv=lambda x: x / noise_std ** 2).amend(cf)
+    with tempfile.TemporaryDirectory() as odir:
+        bg.reset_launch_counts()
+        marks = [time.perf_counter()]
+
+        def clock(samples, state):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        samples, state = jt.optimize_kl(
+            lh, jt.random_like(k_init, lh.domain), key=k_opt, n_total_iterations=5,
+            n_samples=4,
+            draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=64)),
+            nonlinearly_update_kwargs=dict(minimize_kwargs=dict(
+                xtol=1e-3, maxiter=5, cg_kwargs=dict(maxiter=24))),
+            kl_kwargs=dict(minimize_kwargs=dict(xtol=1e-4, maxiter=12, cg_kwargs=dict(maxiter=32))),
+            sample_mode="nonlinear_resample", odir=odir, callback=clock)
+        counts = launch_counts(bg)
+    with torch.no_grad():
+        post = cf(samples.samples)
+    rms = float(torch.sqrt(torch.mean((post.mean(0) - truth) ** 2)))
+    seconds = [b - a for a, b in zip(marks, marks[1:])]
+    print(f"multifrequency optimize_kl: s/iteration {[round(s, 3) for s in seconds]} | KL energy "
+          f"{float(state.minimization_state.fun)!r} | posterior rms error {rms:.4f} (noise level "
+          f"{noise_std}) | {len(samples)} samples | launches gather {counts['gather']} segment_sum "
+          f"{counts['segsum']}, by map and rows of the table: {maps_text(counts)}", flush=True)
+    if not rms < noise_std:
+        raise AssertionError(f"posterior rms error {rms} is not below the noise level {noise_std}")
+    require_launches("multifrequency optimize_kl", counts, cf.dists)
+    return counts
+
+
 def profile_update(jt, label, lh, top=12, **maps):
     """One warm-up update, then one under ``torch.profiler``: its wall time
     (inflated by the profiler), the summed device time of its kernels and
@@ -618,9 +741,48 @@ def profile_update(jt, label, lh, top=12, **maps):
         print(f"  {device_us(e) / 1e3:10.3f} ms  {e.count:7d} x  {e.key[:100]}", flush=True)
 
 
+def kernel_entries(kres, paths, src):
+    """The `kernels` line: one entry for each kernel, map and number of rows
+    that the runs in `paths` launched, with phase 3's numbers (`kres`) for
+    that shape; fails on a shape that phase 3 did not check."""
+    kernels = []
+    for grid, dist, tpu_gather, tpu_segsum, runs in paths:
+        for name, kind, (k, replaces) in (("bin_gather", "gather", tpu_gather),
+                                          ("bin_segment_sum", "segsum", tpu_segsum)):
+            by_rows = {run: on_map(c, f"{kind}_by_map", dist) for run, c in runs.items()}
+            kernels_by_rows = [on_map(c, f"{kind}_kernels_by_map", dist) for c in runs.values()]
+            for nrows in sorted(set().union(*by_rows.values())):
+                label = f"{grid} B={nrows}"
+                if (label, "float64") not in kres:
+                    raise AssertionError(
+                        f"the main path launched {name} at {label}, a shape that phase 3 "
+                        f"did not hold against the plain version")
+                r64 = kres[(label, "float64")]
+                counted = [(c[nrows], k[nrows]) for c, k in zip(by_rows.values(), kernels_by_rows)
+                           if c.get(nrows)]
+                # launches: calls of the wrapper with this many rows in the
+                # first run that made any (launches_by_run: in each run);
+                # kernel_launches: the kernels those calls launched, summed
+                # from their C entries' return values in that run.  ms,
+                # plain_ms, library_ms: device times (CUDA-graph replay);
+                # host_ms, plain_host_ms: host-paced.
+                kernels.append(dict(
+                    name=f"{name} ({k}, {label}, float64)", route="cuda", source=src,
+                    replaces=replaces, launches=counted[0][0],
+                    kernel_launches=counted[0][1],
+                    launches_by_run={run: c.get(nrows, 0) for run, c in by_rows.items()},
+                    max_abs_err=r64[f"{kind}_err"],
+                    ms=r64[f"{kind}_device_ms"], plain_ms=r64[f"{kind}_plain_device_ms"],
+                    bound_ms=r64[f"{kind}_bound_ms"], bound_by=r64[f"{kind}_bound_by"],
+                    library_ms=r64[f"{kind}_library_device_ms"],
+                    host_ms=r64[f"{kind}_ms"], plain_host_ms=r64[f"{kind}_plain_ms"],
+                ))
+    return kernels
+
+
 def main(argv):
-    """``--profile``: after phases 5, 6 and 8, profile one more update of
-    each config (device busy share and the costliest kernels)."""
+    """``--profile``: after phases 5, 6, 8 and 12, profile one more update
+    of each config (device busy share and the costliest kernels)."""
     with_profile = "--profile" in argv
     phase_device()
     import nifty_tpu_torch as jt
@@ -634,8 +796,21 @@ def main(argv):
     cf4096 = build_field(jt, (4096, 4096), n_bins=128)
     t1 = time.perf_counter()
     cf4096u = build_field(jt, (4096, 4096))
+    t2 = time.perf_counter()
+    # phase 12's field: 512^2 unbinned (22,026 bins, full-grid map) x 64
+    # channels (33 bins); phase 11's: 64 pixels (33 bins) x 16 channels (9)
+    cf512 = build_multifrequency(jt, (512, 512), 64)
+    map512, map64 = cf512.dists
+    map16 = build_multifrequency(jt, (64,), 16).dists[1]
     print(f"field set-up (host mode maps, CSR) {time.perf_counter() - t0:.3f} s, of which 4096^2 "
-          f"unbinned {time.perf_counter() - t1:.3f} s", flush=True)
+          f"unbinned {t2 - t1:.3f} s, 512^2 x 64 {time.perf_counter() - t2:.3f} s", flush=True)
+    # the 1-D maps at the rows the lockstep stages give them (1 for an
+    # unbatched call, 4 for the draw of 4 keys, 8 for the curve and the
+    # stacked KL stage of 8 samples) and at those rows times total_N = 3
+    # (12 and 24)
+    small_maps = {f"{label} B={rows}": (dist, rows)
+                  for label, dist in (("16 (1-D)", map16), ("64 (1-D)", map64))
+                  for rows in (1, 4, 8, 12, 24)}
     kres = phase_kernels({
         "4096^2 nb128 quarter B=1": (cf4096.dist, 1),
         # an odd-length map: the second row starts misaligned
@@ -655,6 +830,10 @@ def main(argv):
         # float64 row, every class of short bins, 9 bins of 33 to 40 entries
         # as block items
         "4096^2 unbinned quarter B=1": (cf4096u.dist, 1),
+        **small_maps,
+        # 22,026 modes on the full 512^2 map: int16 index, a 176 KB table a
+        # float64 row
+        "512^2 unbinned B=1": (map512, 1),
     })
 
     phase_cpu_vs_card(jt)
@@ -703,56 +882,37 @@ def main(argv):
     c4096u, _ = phase("10 4096^2 unbinned, 1 update")(drive)(
         jt, "4096^2 unbinned", lh4096u, 1, residual_map="smap", kl_map="smap")
     del lh4096u
+    c_mf = phase_multifrequency(jt)
+    print(f"512^2 x 64: {map512.nb} modes on the {map512.shape} map (index "
+          f"{str(map512.idx_narrow.dtype).replace('torch.', '')}) times {map64.nb} on the "
+          f"{map64.shape} map | {map512.n * map64.n} field entries", flush=True)
+    lh512 = build_likelihood(jt, cf512, 0, noise_std=0.2)
+    c512, _ = phase("12 512^2 x 64 space x frequency, 1 update")(drive)(
+        jt, "512^2 x 64", lh512, 1, residual_map="smap", kl_map="smap", subgrid_maps=cf512.dists)
+    if with_profile:
+        profile_update(jt, "512^2 x 64", lh512, residual_map="smap", kl_map="smap")
+    del lh512
 
     src = "nifty_tpu_torch/csrc/bin_gather.cu"
     tpu = "nifty_tpu/ops/pallas_gather.py"
     # each map with the TPU kernels its gather and segment sum replace and
     # the main-path runs that launch it (the first is the one `launches`
-    # counts).  The unbinned 1024^2 and 4096^2 maps are shapes the TPU leaves
-    # to its sorted XLA route (K5, `sorted_bin_gather`).
+    # counts).  The unbinned 512^2, 1024^2 and 4096^2 maps are shapes the TPU
+    # leaves to its sorted XLA route (K5, `sorted_bin_gather`); the 1-D maps
+    # of 16 and 64 entries are K1/K2's (at most 1024 bins).
+    k1k2 = ("K1", f"{tpu}:184"), ("K2", f"{tpu}:228")
+    k5 = ("K5 route", f"{tpu}:1013"), ("K5 route", f"{tpu}:1013")
     paths = [
-        ("4096^2 nb128 quarter", ("K1", f"{tpu}:184"), ("K2", f"{tpu}:228"),
-         {"fixed": c4096}),
-        ("128^2 unbinned", ("K3", f"{tpu}:369"), ("K4", f"{tpu}:406"),
+        ("4096^2 nb128 quarter", cf4096.dist, *k1k2, {"fixed": c4096}),
+        ("128^2 unbinned", cf128.dist, ("K3", f"{tpu}:369"), ("K4", f"{tpu}:406"),
          {"fixed": c128, "adaptive": c_adaptive, "optimize_kl": c_loop}),
-        ("1024^2 unbinned quarter", ("K5 route", f"{tpu}:1013"), ("K5 route", f"{tpu}:1013"),
-         {"fixed": c1024}),
-        ("4096^2 unbinned quarter", ("K5 route", f"{tpu}:1013"), ("K5 route", f"{tpu}:1013"),
-         {"fixed": c4096u}),
+        ("1024^2 unbinned quarter", cf1024.dist, *k5, {"fixed": c1024}),
+        ("4096^2 unbinned quarter", cf4096u.dist, *k5, {"fixed": c4096u}),
+        ("16 (1-D)", map16, *k1k2, {"multifrequency": c_mf}),
+        ("64 (1-D)", map64, *k1k2, {"multifrequency": c_mf, "space_x_frequency": c512}),
+        ("512^2 unbinned", map512, *k5, {"space_x_frequency": c512}),
     ]
-    kernels = []
-    for grid, tpu_gather, tpu_segsum, runs in paths:
-        for name, kind, (k, replaces) in (("bin_gather", "gather", tpu_gather),
-                                          ("bin_segment_sum", "segsum", tpu_segsum)):
-            by_rows = {run: c[f"{kind}_by_rows"] for run, c in runs.items()}
-            kernels_by_rows = [c[f"{kind}_kernels_by_rows"] for c in runs.values()]
-            for nrows in sorted(set().union(*by_rows.values())):
-                label = f"{grid} B={nrows}"
-                if (label, "float64") not in kres:
-                    raise AssertionError(
-                        f"the main path launched {name} at {label}, a shape that phase 3 "
-                        f"did not hold against the plain version")
-                r64 = kres[(label, "float64")]
-                counted = [(c[nrows], k[nrows]) for c, k in zip(by_rows.values(), kernels_by_rows)
-                           if c.get(nrows)]
-                # launches: calls of the wrapper with this many rows in the
-                # first run that made any (launches_by_run: in each run);
-                # kernel_launches: the kernels those calls launched, summed
-                # from their C entries' return values in that run.  ms,
-                # plain_ms, library_ms: device times (CUDA-graph replay);
-                # host_ms, plain_host_ms: host-paced.
-                kernels.append(dict(
-                    name=f"{name} ({k}, {label}, float64)", route="cuda", source=src,
-                    replaces=replaces, launches=counted[0][0],
-                    kernel_launches=counted[0][1],
-                    launches_by_run={run: c.get(nrows, 0) for run, c in by_rows.items()},
-                    max_abs_err=r64[f"{kind}_err"],
-                    ms=r64[f"{kind}_device_ms"], plain_ms=r64[f"{kind}_plain_device_ms"],
-                    bound_ms=r64[f"{kind}_bound_ms"], bound_by=r64[f"{kind}_bound_by"],
-                    library_ms=r64[f"{kind}_library_device_ms"],
-                    host_ms=r64[f"{kind}_ms"], plain_host_ms=r64[f"{kind}_plain_ms"],
-                ))
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernel_entries(kres, paths, src)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

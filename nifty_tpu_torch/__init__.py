@@ -21,8 +21,18 @@ from .likelihood_impl import Gaussian
 from .logger import logger
 from .minisanity import minisanity, reduced_residual_stats
 from .model import Initializer, LazyModel, Model, WrappedCall
-from .models.correlated_field import CorrelatedFieldMaker, make_grid
-from .models.gauss_markov import IntegratedWienerProcess
+from .models import (
+    CorrelatedFieldMaker,
+    GaussMarkovProcess,
+    IntegratedWienerProcess,
+    OrnsteinUhlenbeckProcess,
+    SimpleCorrelatedField,
+    WienerProcess,
+    adjust_variances,
+    make_grid,
+    matern_amplitude,
+    non_parametric_amplitude,
+)
 from .optimize_kl import OptimizeVI, OptimizeVIState, optimize_kl
 from .probing import approximation2endo
 from .prior import LogNormalPrior, NormalPrior

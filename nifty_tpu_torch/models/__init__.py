@@ -1,8 +1,20 @@
 from .correlated_field import (
     CorrelatedField,
     CorrelatedFieldMaker,
+    MaternAmplitude,
     NonParametricAmplitude,
+    SimpleCorrelatedField,
+    adjust_variances,
     make_grid,
+    matern_amplitude,
     non_parametric_amplitude,
 )
-from .gauss_markov import IntegratedWienerProcess, integrated_wiener_process
+from .gauss_markov import (
+    GaussMarkovProcess,
+    IntegratedWienerProcess,
+    OrnsteinUhlenbeckProcess,
+    WienerProcess,
+    integrated_wiener_process,
+    ornstein_uhlenbeck_process,
+    wiener_process,
+)

@@ -1,32 +1,35 @@
-"""Correlated field model: a GP prior with a non-parametric power spectrum
-on one regular Fourier grid (counterpart of
-:mod:`nifty_tpu.models.correlated_field`).
+"""Correlated field model: a GP prior on a product of regular Fourier
+subgrids (counterpart of :mod:`nifty_tpu.models.correlated_field`).
 
-A field on a regular grid is modeled as
+A field is modeled as
 
-    s = offset + HT( A(p) * xi ) / V
+    s = offset + HT( A_1(p) x ... x A_n(p) * xi ) / V
 
-with ``xi`` white in harmonic space, ``A`` the amplitude spectrum (power
-law plus integrated-Wiener-process deviations over log-k) distributed
-from power-space bins onto every mode by the hand-written distributor
-kernels (:mod:`nifty_tpu_torch.ops.bin_gather`), ``HT`` the Hartley
-transform and ``V`` the total volume.
+with ``xi`` white in harmonic space, ``A_i`` the amplitude spectrum of
+subgrid ``i`` (non-parametric: power law plus integrated-Wiener-process
+deviations over log-k; or Matern) distributed from power-space bins onto
+every mode of the subgrid by the hand-written distributor kernels
+(:mod:`nifty_tpu_torch.ops.bin_gather`), ``x`` the outer product, ``HT``
+the Hartley transform of each subgrid over its axes and ``V`` the
+subgrids' total volumes.
 
-Ported: ``make_grid`` with optional log binning, ``non_parametric_amplitude``
-and ``CorrelatedFieldMaker`` (``add_fluctuations``,
-``set_amplitude_total_offset``, ``get_normalized_amplitudes``, ``finalize``)
-for one Fourier subgrid.  Spherical subgrids, ``total_N`` batching,
-Matern amplitudes and several subgrids are still to be ported.
+Ported: ``make_grid`` with optional log binning, ``non_parametric_amplitude``,
+``matern_amplitude``, ``CorrelatedFieldMaker`` with any number of Fourier
+subgrids, ``total_N`` / ``dofdex`` batching and the maker's read-outs,
+``SimpleCorrelatedField`` and ``adjust_variances``.  Spherical subgrids
+(``make_spherical_grid``) are still to be ported.
 """
 
 from __future__ import annotations
 
+import math
 from collections import namedtuple
 from functools import partial
 from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from .. import config
 from ..model import Model, WrappedCall, wrap
@@ -229,69 +232,202 @@ def non_parametric_amplitude(grid, fluctuations, loglogavgslope, flexibility=Non
     )
 
 
-class CorrelatedField(Model):
-    """The finalized field: buffers hold the distributor map (full grid or
-    quarter grid) with its sort permutation and CSR offsets."""
+class MaternAmplitude(Model):
+    """Matern-kernel amplitude spectrum on the power bins:
+    ``A(k) = a (1 + (k / b)^2)^(c / 4)`` with ``a`` the scale, ``b`` the
+    cutoff and ``c`` the log-log slope; optionally renormalized so that the
+    scale is the a-priori total std of the field."""
 
-    def __init__(self, amplitude, azm, grid, offset_mean, xi_key, use_quarter,
-                 domain):
+    def __init__(self, grid, scale, cutoff, loglogslope, renormalize_amplitude=False,
+                 prefix="", kind="amplitude"):
+        if kind.lower() not in ("amplitude", "power"):
+            raise ValueError(f"invalid kind {kind!r}")
+        # no `white_init`, unlike the non-parametric amplitude's parts: the
+        # init rule is derived from the domain when asked for
+        scale_m = WrappedCall(scale, name=prefix + "scale")
+        cutoff_m = WrappedCall(cutoff, name=prefix + "cutoff")
+        slope_m = WrappedCall(loglogslope, name=prefix + "loglogslope")
+        ptree = dict(scale_m.domain)
+        ptree.update(cutoff_m.domain)
+        ptree.update(slope_m.domain)
+        super().__init__(domain=dict(ptree), init=partial(random_like, primals=ptree))
+        self.kind = kind.lower()
+        self.renormalize_amplitude = bool(renormalize_amplitude)
+        self.total_volume = float(grid.total_volume)
+        self.fluctuation_amplitude = scale_m
+        self.cutoff = cutoff_m
+        self.loglogslope = slope_m
+        hg = grid.harmonic_grid
+        self.register_buffer(
+            "mode_lengths", torch.from_numpy(np.asarray(hg.mode_lengths, np.float64))
+        )
+        self.register_buffer(
+            "multiplicity", torch.from_numpy(np.asarray(hg.mode_multiplicity, np.float64))
+        )
+
+    def forward(self, primals):
+        """The table on the power bins, shape (..., nb); leading axes of the
+        latents batch samples."""
+        scl = self.fluctuation_amplitude(primals)
+        ctf = self.cutoff(primals)
+        slp = self.loglogslope(primals)
+        ln_spectrum = 0.25 * slp[..., None] * torch.log1p((self.mode_lengths / ctf[..., None]) ** 2)
+        spectrum = torch.exp(ln_spectrum)
+        sqrt_vol = math.sqrt(self.total_volume)
+        norm = 1.0
+        if self.renormalize_amplitude:
+            expo = 4 if self.kind == "amplitude" else 2
+            norm = torch.sqrt(torch.sum(self.multiplicity[1:] * spectrum[..., 1:] ** expo, -1))
+            norm = norm / sqrt_vol
+        spectrum = (scl * (sqrt_vol / norm))[..., None] * spectrum
+        vol = spectrum.new_full(spectrum.shape[:-1] + (1,), self.total_volume)
+        spectrum = torch.cat([vol, spectrum[..., 1:]], -1)
+        return torch.sqrt(spectrum) if self.kind == "power" else spectrum
+
+
+def matern_amplitude(grid, scale, cutoff, loglogslope, renormalize_amplitude=False,
+                     prefix="", kind="amplitude"):
+    """Matern amplitude model (see :class:`MaternAmplitude`)."""
+    return MaternAmplitude(grid, scale, cutoff, loglogslope, renormalize_amplitude, prefix, kind)
+
+
+class CorrelatedField(Model):
+    """The finalized field.  Each subgrid keeps its own distributor map
+    (full grid or quarter grid, a :class:`BinIndex` of buffers) and its
+    amplitude model.
+
+    The field is ``offset + HT_n(... HT_1(A_1 x ... x A_n * xi) / V_1 ...) / V_n``:
+    the subgrids' amplitudes on every harmonic mode, their outer product
+    (left to right), the excitation, then each subgrid's Hartley transform
+    over its own axes followed by its ``1 / V``.  The latents' leading axes
+    batch samples.  With ``dofdex`` (``total_N`` fields) every parameter
+    leaf carries a set axis after the sample axes, gathered by ``dofdex``
+    into one axis of ``total_N`` fields, and the excitation has that axis
+    too: the tables of every sample and field go to one distributor call
+    per subgrid.
+    """
+
+    def __init__(self, amplitudes, azm, grids, offset_mean, xi_key, use_quarter, domain, *,
+                 hartley_fn=None, dofdex=None, parameter_ndims=None):
         init = {k: partial(random_like, primals=v) for k, v in domain.items()}
         super().__init__(domain=dict(domain), init=init)
-        hg = grid.harmonic_grid
-        self.amplitude = amplitude
+        self.amplitudes = nn.ModuleList(amplitudes)
         self.azm = azm
         self.offset_mean = offset_mean
         self.xi_key = xi_key
-        self.use_quarter = bool(use_quarter)
-        self.grid_shape = tuple(hg.shape)
-        self.total_volume = float(grid.total_volume)
-        dist = hg.power_distributor_quarter if use_quarter else hg.power_distributor
-        self.dist = BinIndex(dist, nb=np.asarray(hg.mode_lengths).size)
-        self.target_grids = (grid,)
+        self.use_quarters = tuple(bool(u) for u in use_quarter)
+        self.grid_shapes = tuple(tuple(g.harmonic_grid.shape) for g in grids)
+        self.total_volumes = tuple(float(g.total_volume) for g in grids)
+        self.dists = nn.ModuleList(
+            BinIndex(
+                g.harmonic_grid.power_distributor_quarter if uq
+                else g.harmonic_grid.power_distributor,
+                nb=np.asarray(g.harmonic_grid.mode_lengths).size,
+            )
+            for g, uq in zip(grids, self.use_quarters)
+        )
+        self.target_grids = tuple(grids)
+        self.hartley_fn = hartley if hartley_fn is None else hartley_fn
+        self.register_buffer(
+            "dofdex", None if dofdex is None else torch.as_tensor(dofdex, dtype=torch.int64)
+        )
+        self._dofdex_is_identity = dofdex is not None and list(dofdex) == list(range(len(dofdex)))
+        self.parameter_ndims = dict(parameter_ndims or {})
 
-    def normalized_amplitude(self, p):
-        """Amplitude table with the degenerate zero mode divided out."""
-        return _divide_out_zero_mode(self.amplitude(p), self.azm(p))
+    def _one(self, what):
+        if len(self.dists) != 1:
+            raise ValueError(f"this field has {len(self.dists)} subgrids; use `{what}s`")
+        return getattr(self, what + "s")[0]
+
+    @property
+    def dist(self):
+        """The distributor map of a field with one subgrid."""
+        return self._one("dist")
+
+    @property
+    def use_quarter(self):
+        return self._one("use_quarter")
+
+    @property
+    def amplitude(self):
+        """The amplitude model of a field with one subgrid."""
+        return self._one("amplitude")
+
+    def field_parameters(self, p):
+        """The latents with every parameter leaf gathered by ``dofdex`` along
+        its set axis (the axis before the leaf's own shape), so that each
+        of the ``total_N`` fields reads its set's parameters."""
+        if self.dofdex is None or self._dofdex_is_identity:
+            return p
+        out = dict(p)
+        for k, nd in self.parameter_ndims.items():
+            out[k] = torch.index_select(p[k], p[k].ndim - nd - 1, self.dofdex)
+        return out
 
     def harmonic_amplitude(self, p):
-        """The amplitude on every harmonic mode (full grid)."""
-        # the zero-mode scale multiplies the small table before
-        # distribution, as in the JAX package
-        table = self.azm(p)[..., None] * self.normalized_amplitude(p)
-        amp = distribute_power(table, self.dist)
-        if self.use_quarter:
-            ndim = len(self.grid_shape)
-            for ax, n in enumerate(self.grid_shape):
-                amp = _mirror_expand(amp, ax - ndim, n)
-        return amp
+        """The outer product of the subgrids' amplitudes on every harmonic
+        mode, shape (..., *excitation)."""
+        outer, before = None, 0
+        for i, (amp_m, dist, shape, uq) in enumerate(
+                zip(self.amplitudes, self.dists, self.grid_shapes, self.use_quarters)):
+            if i == 0:
+                # the zero-mode scale multiplies the small table before
+                # distribution, as in the JAX package.  Evaluated in this
+                # order (scale, table, the table's division): the order
+                # in which autograd records the nodes decides the order of
+                # its sums, and with it the bits of every update.
+                table = self.azm(p)[..., None] * _divide_out_zero_mode(amp_m(p), self.azm(p))
+            else:
+                table = _divide_out_zero_mode(amp_m(p), self.azm(p))
+            amp = distribute_power(table, dist)
+            if uq:
+                for ax, n in enumerate(shape):
+                    amp = _mirror_expand(amp, ax - len(shape), n)
+            if outer is None:
+                outer = amp
+            else:
+                lead = amp.shape[: amp.ndim - len(shape)]
+                outer = outer[(Ellipsis,) + (None,) * len(shape)] * amp.reshape(
+                    lead + (1,) * before + shape)
+            before += len(shape)
+        return outer
 
     def forward(self, p):
         """The field; leading axes of the latents (all of them alike) batch
-        samples, which then share one distributor launch per call."""
+        samples, which then share one distributor launch per subgrid."""
+        p = self.field_parameters(p)
         x = self.harmonic_amplitude(p) * p[self.xi_key]
         tcd = config.get("transform_compute_dtype")
-        xin = x
-        if tcd is not None and x.is_floating_point() and x.dtype != torch.float32:
-            xin = x.to(torch.float32)
-        y = hartley(xin, axes=tuple(range(-len(self.grid_shape), 0)))
-        y = y.to(x.dtype) if y.dtype != x.dtype else y
-        return self.offset_mean + (1.0 / self.total_volume) * y
+        start = x.ndim - sum(len(s) for s in self.grid_shapes)
+        for shape, vol in zip(self.grid_shapes, self.total_volumes):
+            axes = tuple(range(start, start + len(shape)))
+            start += len(shape)
+            xin = x
+            if tcd is not None and x.is_floating_point() and x.dtype != torch.float32:
+                xin = x.to(torch.float32)
+            y = self.hartley_fn(xin, axes=axes)
+            y = y.to(x.dtype) if y.dtype != x.dtype else y
+            x = (1.0 / vol) * y
+        return self.offset_mean + x
 
 
 class CorrelatedFieldMaker:
-    """Construction helper for a correlated field on one Fourier subgrid.
+    """Construction helper for correlated fields on one or more Fourier
+    subgrids.
 
-    ``finalize`` composes power distribution, zero-mode scaling, the
-    Hartley transform and the offset into a :class:`CorrelatedField`.
+    Each ``add_fluctuations*`` call adds one subgrid; ``finalize`` composes
+    power distribution, zero-mode scaling, the outer product, the Hartley
+    transforms and the offset into a :class:`CorrelatedField`.
     """
 
     #: Full-grid maps with at least this many entries are distributed on
-    #: the per-axis folded quarter grid and mirror-expanded.  The port's
-    #: rule: the quarter route cuts the distributor's index and value
-    #: traffic 2^d-fold but adds a full-grid mirror expansion (flip and
-    #: concatenation, and their adjoint); below about a million modes
-    #: (1024^2) the distributor kernels are launch-bound, so the route
-    #: with fewer launches, the full-grid map, is kept.
+    #: the per-axis folded quarter grid and mirror-expanded (decided for
+    #: each subgrid on its own).  The port's rule: the quarter route cuts
+    #: the distributor's index and value traffic 2^d-fold but adds a
+    #: full-grid mirror expansion (flip and concatenation, and their
+    #: adjoint); below about a million modes (1024^2) the distributor
+    #: kernels are launch-bound, so the route with fewer launches, the
+    #: full-grid map, is kept.
     QUARTER_MIN_ENTRIES = 2**20
 
     def __init__(self, prefix: str):
@@ -316,10 +452,9 @@ class CorrelatedFieldMaker:
         non_parametric_kind: str = "amplitude",
         n_bins: Optional[int] = None,
     ):
-        """Add a non-parametric correlation structure; ``n_bins`` bins the
-        power spectrum logarithmically (see :func:`make_grid`)."""
-        if self._fluctuations:
-            raise NotImplementedError("several subgrids are not ported yet")
+        """Add a non-parametric correlation structure on a new subgrid;
+        ``n_bins`` bins the power spectrum logarithmically (see
+        :func:`make_grid`)."""
         grid = make_grid(shape, distances, harmonic_type, n_bins=n_bins)
         self._fluct_logparams.append(
             lognormal_moments(*fluctuations)
@@ -340,18 +475,45 @@ class CorrelatedFieldMaker:
             prefix=self._prefix + prefix,
             kind=non_parametric_kind,
         )
-        self._fluctuations.append(npa)
-        self._target_grids.append(grid)
-        self._update_parameter_tree(npa.domain)
+        self._add(npa, grid)
 
-    def _update_parameter_tree(self, dom):
-        clash = set(dom) & set(self._parameter_tree)
+    def add_fluctuations_matern(
+        self,
+        shape: Union[tuple, int],
+        distances: Union[tuple, float],
+        scale: Union[tuple, Callable],
+        cutoff: Union[tuple, Callable],
+        loglogslope: Union[tuple, Callable],
+        renormalize_amplitude: bool = False,
+        prefix: str = "",
+        harmonic_type: str = "fourier",
+        non_parametric_kind: str = "amplitude",
+        n_bins: Optional[int] = None,
+    ):
+        """Add a Matern-kernel correlation structure on a new subgrid."""
+        grid = make_grid(shape, distances, harmonic_type, n_bins=n_bins)
+        self._fluct_logparams.append(None)  # the scale has its own parametrization
+        ma = matern_amplitude(
+            grid=grid,
+            scale=_as_prior(scale, lognormal_prior, "scale"),
+            cutoff=_as_prior(cutoff, lognormal_prior, "cutoff"),
+            loglogslope=_as_prior(loglogslope, normal_prior, "loglogslope"),
+            renormalize_amplitude=renormalize_amplitude,
+            prefix=self._prefix + prefix,
+            kind=non_parametric_kind,
+        )
+        self._add(ma, grid)
+
+    def _add(self, amplitude, grid):
+        clash = set(amplitude.domain) & set(self._parameter_tree)
         if clash:
             raise ValueError(
                 f"latent parameter keys {sorted(clash)} already exist; "
-                "pass a distinct `prefix=` to each add_fluctuations call"
+                "pass a distinct `prefix=` to each add_fluctuations* call"
             )
-        self._parameter_tree.update(dom)
+        self._fluctuations.append(amplitude)
+        self._target_grids.append(grid)
+        self._parameter_tree.update(amplitude.domain)
 
     def set_amplitude_total_offset(self, offset_mean, offset_std):
         """Set the global offset mean and the zero-mode std prior."""
@@ -384,18 +546,221 @@ class CorrelatedFieldMaker:
 
         return tuple(normalized(a) for a in self._fluctuations)
 
-    def finalize(self, *, device=None) -> CorrelatedField:
-        """Compose and return the correlated field model with its buffers on
-        ``device`` (default: the configured device, the card)."""
+    @property
+    def amplitude(self) -> Callable:
+        """The amplitude of a field with one subgrid, its zero mode scaled
+        by the zero-mode std."""
+        if len(self._fluctuations) > 1:
+            raise NotImplementedError("multiple spectra have no unique absolute amplitude")
+        amp = self._fluctuations[0]
+
+        def amplitude_w_zm(p):
+            a = amp(p)
+            return torch.cat([a[..., :1] * self.azm(p)[..., None], a[..., 1:]], -1)
+
+        return amplitude_w_zm
+
+    @property
+    def power_spectrum(self) -> Callable:
+        amp = self.amplitude
+        return lambda p: amp(p) ** 2
+
+    # -- a-priori moment statistics ----------------------------------------
+
+    def fluctuation_amplitudes(self) -> Tuple[Callable, ...]:
+        return tuple(a.fluctuation_amplitude for a in self._fluctuations)
+
+    def total_fluctuation(self) -> Callable:
+        """A-priori total fluctuation of the field over all subgrids (a
+        callable on latent positions)."""
+        if not self._fluctuations:
+            raise NotImplementedError
+        if len(self._fluctuations) == 1:
+            return self.average_fluctuation(0)
+        fls = self.fluctuation_amplitudes()
+        azm = self.azm
+
+        def total(p):
+            q = 1.0
+            for fl in fls:
+                q = q * (1.0 + (fl(p) / azm(p)) ** 2)
+            return torch.sqrt(q - 1.0) * azm(p)
+
+        return total
+
+    def average_fluctuation(self, space: int) -> Callable:
+        """Fluctuations of the field averaged over the other subgrids."""
+        fls = self.fluctuation_amplitudes()
+        if space >= len(fls):
+            raise ValueError(f"invalid space {space!r}")
+        return fls[0] if len(fls) == 1 else fls[space]
+
+    def slice_fluctuation(self, space: int) -> Callable:
+        """Fluctuations of a single slice along subgrid ``space``."""
+        fls = self.fluctuation_amplitudes()
+        if space >= len(fls):
+            raise ValueError(f"invalid space {space!r}")
+        if len(fls) == 1:
+            return self.average_fluctuation(0)
+        azm = self.azm
+
+        def slice_fl(p):
+            q = 1.0
+            for j, fl in enumerate(fls):
+                r = (fl(p) / azm(p)) ** 2
+                q = q * (r if j == space else 1.0 + r)
+            return torch.sqrt(q) * azm(p)
+
+        return slice_fl
+
+    def moment_slice_to_average(self, fluctuations_slice_mean: float, key=None,
+                                nsamples: int = 1000) -> float:
+        """Translate single-subgrid slice fluctuations into the average
+        fluctuations of a multi-subgrid field (a Monte Carlo estimate over
+        ``nsamples`` prior draws on the host).  ``key`` is a
+        ``torch.Generator`` or an int seed (default 42); each subgrid's
+        draws are ``random_like(generator, ...)`` of its fluctuation
+        latents and the zero mode, with a leading axis of ``nsamples``."""
+        fluctuations_slice_mean = float(fluctuations_slice_mean)
+        if fluctuations_slice_mean <= 0:
+            raise ValueError("fluctuations_slice_mean must be positive")
+        gen = key
+        if not isinstance(gen, torch.Generator):
+            gen = torch.Generator().manual_seed(42 if key is None else int(key))
+        scm = torch.ones(nsamples, dtype=torch.float64)
+        for fl in self.fluctuation_amplitudes():
+            dom = {**fl.domain, self._prefix + "zeromode": ShapeWithDtype(())}
+            batched = {k: ShapeWithDtype((nsamples,) + tuple(v.shape), v.dtype)
+                       for k, v in dom.items()}
+            p = random_like(gen, batched, device=gen.device)
+            vals = fl(p) / self.azm(p)
+            scm = scm * (vals ** 2 + 1.0)
+        return fluctuations_slice_mean / float(torch.mean(torch.sqrt(scm)))
+
+    # -- realized statistics of stacked field samples (N, *grid) -----------
+
+    @staticmethod
+    def total_fluctuation_realized(samples) -> float:
+        """Spatial-std statistic over stacked field samples (N, *grid)."""
+        s = torch.as_tensor(samples)
+        ax = tuple(range(1, s.ndim))
+        res = (s - s.mean(dim=ax, keepdim=True)) ** 2
+        return float(torch.sqrt(res.mean()))
+
+    @staticmethod
+    def average_fluctuation_realized(samples, sub_axes, space: int) -> float:
+        """Fluctuations of samples averaged over the other subgrids;
+        ``sub_axes`` are each subgrid's axes (without the sample axis 0)."""
+        s = torch.as_tensor(samples)
+        other = tuple(a + 1 for j, axes in enumerate(sub_axes) if j != space for a in axes)
+        r = s.mean(dim=other) if other else s
+        ax = tuple(range(1, r.ndim))
+        res = (r - r.mean(dim=ax, keepdim=True)) ** 2
+        return float(torch.sqrt(res.mean()))
+
+    @staticmethod
+    def slice_fluctuation_realized(samples, sub_axes, space: int) -> float:
+        """Variability within slices along subgrid ``space``."""
+        s = torch.as_tensor(samples)
+        space_axes = tuple(a + 1 for a in sub_axes[space])
+        res = s ** 2 - s.mean(dim=space_axes, keepdim=True) ** 2
+        return float(torch.sqrt(res.mean()))
+
+    def finalize(self, hartley_fn: Optional[Callable] = None, total_N: int = 0, dofdex=None,
+                 *, device=None) -> CorrelatedField:
+        """Compose and return the correlated field with its buffers on
+        ``device`` (default: the configured device, the card).
+
+        ``hartley_fn(x, axes=...)`` replaces the Hartley transform of each
+        subgrid (``axes`` index the tensor it is given, leading batch axes
+        included).  ``total_N`` fields (0: one field) share ``n_sets =
+        max(dofdex) + 1`` parameter sets, ``dofdex[b]`` naming the set of
+        field ``b`` (default: ``range(total_N)``); every parameter leaf gets
+        a leading axis of ``n_sets`` and the excitation one of ``total_N``.
+        """
         device = torch.device(device) if device is not None else config.default_device()
-        if len(self._target_grids) != 1:
-            raise ValueError("add exactly one subgrid with `add_fluctuations`")
-        grid = self._target_grids[0]
+        grids = tuple(self._target_grids)
+        if not grids:
+            raise ValueError("add a subgrid with `add_fluctuations*` first")
+        excitation_shape = sum((tuple(g.harmonic_grid.shape) for g in grids), ())
         xi_key = self._prefix + "xi"
-        self._parameter_tree[xi_key] = ShapeWithDtype(grid.harmonic_grid.shape)
-        full_entries = int(np.prod(grid.harmonic_grid.shape))
+        self._parameter_tree[xi_key] = ShapeWithDtype(excitation_shape)
+        use_quarter = tuple(
+            int(np.prod(g.harmonic_grid.shape)) >= self.QUARTER_MIN_ENTRIES for g in grids
+        )
+        domain, parameter_ndims = dict(self._parameter_tree), None
+        if total_N > 0:
+            dofdex = list(range(total_N)) if dofdex is None else [int(d) for d in dofdex]
+            if len(dofdex) != total_N:
+                raise ValueError("len(dofdex) must equal total_N")
+            n_sets = max(dofdex) + 1
+            domain = {
+                k: ShapeWithDtype((n_sets,) + tuple(v.shape), v.dtype)
+                for k, v in self._parameter_tree.items() if k != xi_key
+            }
+            domain[xi_key] = ShapeWithDtype(
+                (total_N,) + excitation_shape, self._parameter_tree[xi_key].dtype)
+            parameter_ndims = {
+                k: len(v.shape) for k, v in self._parameter_tree.items() if k != xi_key
+            }
+        else:
+            dofdex = None
         return CorrelatedField(
-            self._fluctuations[0], self.azm, grid, self._offset_mean, xi_key,
-            use_quarter=full_entries >= self.QUARTER_MIN_ENTRIES,
-            domain=self._parameter_tree,
+            self._fluctuations, self.azm, grids, self._offset_mean, xi_key, use_quarter,
+            domain, hartley_fn=hartley_fn, dofdex=dofdex, parameter_ndims=parameter_ndims,
         ).to(device)
+
+
+def SimpleCorrelatedField(
+    shape,
+    distances,
+    *,
+    offset_mean=0.0,
+    offset_std=(1e-1, 1e-2),
+    fluctuations=(1.0, 0.5),
+    loglogavgslope=(-3.0, 0.5),
+    flexibility=(1.0, 0.5),
+    asperity=None,
+    prefix: str = "cf",
+    harmonic_type: str = "fourier",
+    hartley_fn=None,
+    n_bins: Optional[int] = None,
+    device=None,
+) -> CorrelatedField:
+    """A correlated field on one subgrid in one call; the maker is the
+    field's ``maker``."""
+    cfm = CorrelatedFieldMaker(prefix)
+    cfm.set_amplitude_total_offset(offset_mean=offset_mean, offset_std=offset_std)
+    cfm.add_fluctuations(
+        shape, distances, fluctuations=fluctuations, loglogavgslope=loglogavgslope,
+        flexibility=flexibility, asperity=asperity, harmonic_type=harmonic_type,
+        n_bins=n_bins,
+    )
+    cf = cfm.finalize(hartley_fn=hartley_fn, device=device)
+    cf.maker = cfm
+    return cf
+
+
+def adjust_variances(position: dict, maker: CorrelatedFieldMaker, space: int = 0) -> dict:
+    """Rebalance the excitation / amplitude split of a position.
+
+    Rescales the harmonic excitations (all but the first zero mode) to unit
+    sample variance and absorbs the factor into subgrid ``space``'s
+    ``fluctuations`` latent (exact for log-normal fluctuation priors), so
+    that the field of a one-subgrid model is unchanged.
+    """
+    lp = maker._fluct_logparams[space]
+    if lp is None:
+        raise ValueError("adjust_variances requires (mean, std) `fluctuations`")
+    xi_key = maker._prefix + "xi"
+    flu_key = next(k for k in maker._fluctuations[space].domain if k.endswith("fluctuations"))
+    pos = dict(position)
+    xi = pos[xi_key]
+    fct = torch.sqrt(torch.mean(xi ** 2))
+    scaled = (xi / fct).reshape(-1)
+    # the zero mode is left as it was
+    pos[xi_key] = torch.cat([xi.reshape(-1)[:1], scaled[1:]]).reshape(xi.shape)
+    # flu = exp(mu + sigma z); flu_new = flu * fct  =>  z += log(fct) / sigma
+    _, log_std = lp
+    pos[flu_key] = pos[flu_key] + torch.log(fct) / log_std
+    return pos

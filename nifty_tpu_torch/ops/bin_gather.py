@@ -51,7 +51,9 @@ tensor it launches its kernel or raises.  ``bin_gather.launches`` and
 ``bin_segment_sum.launches`` count calls that take the kernel route
 (never plain runs); each wrapper's ``kernel_launches`` counts the kernels
 those calls launched; ``launches_by_rows`` and ``kernel_launches_by_rows``
-hold the same two counts by the number of rows B the calls served.
+hold the same two counts by the number of rows B the calls served, and
+``launches_by_map`` and ``kernel_launches_by_map`` by the map (its shape
+and bin count) and B, for runs that distribute onto several maps.
 
 :class:`BinGather` and :class:`BinSegmentSum` are the
 ``torch.autograd.Function`` pair: each one's derivative is the other, with
@@ -366,17 +368,19 @@ def bin_gather(table, dist: BinIndex):
             torch._C._cuda_getCurrentRawStream(dev))
     if rc < 0:
         raise RuntimeError(f"CUDA kernel launch failed with cudaError {-rc}")
-    bin_gather.launches += 1
-    bin_gather.launches_by_rows[nrows] += 1
-    bin_gather.kernel_launches += rc
-    bin_gather.kernel_launches_by_rows[nrows] += rc
+    _count(bin_gather, dist, nrows, rc)
     return out
 
 
-bin_gather.launches = 0
-bin_gather.launches_by_rows = Counter()
-bin_gather.kernel_launches = 0
-bin_gather.kernel_launches_by_rows = Counter()
+def _count(wrapper, dist: BinIndex, nrows: int, kernels: int):
+    """One call of ``wrapper``'s kernel route, which launched ``kernels``."""
+    by_map = (dist.shape, dist.nb, nrows)
+    wrapper.launches += 1
+    wrapper.launches_by_rows[nrows] += 1
+    wrapper.launches_by_map[by_map] += 1
+    wrapper.kernel_launches += kernels
+    wrapper.kernel_launches_by_rows[nrows] += kernels
+    wrapper.kernel_launches_by_map[by_map] += kernels
 
 
 def _launch_segment_sum(cot, dist: BinIndex, bins, los, lens, counts, pieces):
@@ -421,17 +425,8 @@ def bin_segment_sum(cot, dist: BinIndex):
     b = dist._buffers
     out, kernels = _launch_segment_sum(cot, dist, b["seg_bins"], b["seg_los"], b["seg_lens"],
                                        dist._counts_c, b["seg_pieces"])
-    bin_segment_sum.launches += 1
-    bin_segment_sum.launches_by_rows[cot.shape[0]] += 1
-    bin_segment_sum.kernel_launches += kernels
-    bin_segment_sum.kernel_launches_by_rows[cot.shape[0]] += kernels
+    _count(bin_segment_sum, dist, cot.shape[0], kernels)
     return out
-
-
-bin_segment_sum.launches = 0
-bin_segment_sum.launches_by_rows = Counter()
-bin_segment_sum.kernel_launches = 0
-bin_segment_sum.kernel_launches_by_rows = Counter()
 
 
 def bin_segment_sum_whole_warps(cot, dist: BinIndex):
@@ -455,8 +450,11 @@ def bin_segment_sum_whole_warps(cot, dist: BinIndex):
 def reset_launch_counts():
     for fn in (bin_gather, bin_segment_sum):
         fn.launches = fn.kernel_launches = 0
-        fn.launches_by_rows.clear()
-        fn.kernel_launches_by_rows.clear()
+        fn.launches_by_rows, fn.kernel_launches_by_rows = Counter(), Counter()
+        fn.launches_by_map, fn.kernel_launches_by_map = Counter(), Counter()
+
+
+reset_launch_counts()
 
 
 # -- autograd pair --------------------------------------------------------

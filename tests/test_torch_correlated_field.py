@@ -184,7 +184,7 @@ def test_integrated_wiener_process_matches_jax():
 def test_field_buffers_move_with_the_module():
     cf = build(jt, (16, 16))
     names = {n for n, _ in cf.named_buffers()}
-    assert {"dist.idx", "dist.perm", "dist.offsets", "amplitude.log_k_rel"} <= names
+    assert {"dists.0.idx", "dists.0.perm", "dists.0.offsets", "amplitudes.0.log_k_rel"} <= names
     moved = cf.to(torch.float32)  # floating buffers follow .to(); index maps stay int
     assert moved.dist.idx.dtype == torch.int32
     assert moved.amplitude.log_k_rel.dtype == torch.float32

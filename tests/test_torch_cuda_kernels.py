@@ -308,3 +308,33 @@ def test_wrappers_reject_a_map_on_another_device(cuda):
         bg.bin_gather(torch.ones((1, 3), device=cuda), dist)
     with pytest.raises(ValueError, match="index map"):
         bg.bin_segment_sum(torch.ones((1, 4), device=cuda), dist)
+
+
+@pytest.mark.parametrize("n", [16, 64], ids=["16", "64"])
+@pytest.mark.parametrize("nrows", [1, 3, 8, 12, 24])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_small_1d_maps(cuda, dtype, nrows, n):
+    """The 1-D subgrid maps of 16 and 64 entries (9 and 33 bins, uint8
+    index, rows of 128 and 512 bytes in float64): every bin is short (one
+    or two entries), a piece holds fewer bins than a warp has lanes, and
+    the rows are those of the lockstep stages and of ``total_N`` fields."""
+    from nifty_tpu_torch.models.correlated_field import make_grid
+
+    hg = make_grid((n,), 1.0 / n).harmonic_grid
+    dist = bg.BinIndex(hg.power_distributor, nb=hg.mode_lengths.size).to(cuda)
+    assert (dist.nb, dist.n_short, dist.n_split) == (n // 2 + 1, n // 2 + 1, 0)
+    assert dist.idx_narrow.dtype == torch.uint8
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    table = torch.randn((nrows, dist.nb), dtype=dtype, device=cuda, generator=gen)
+    cot = torch.randn((nrows, dist.n), dtype=dtype, device=cuda, generator=gen)
+    got = bg.bin_gather(table, dist)
+    s1, s2 = bg.bin_segment_sum(cot, dist), bg.bin_segment_sum(cot, dist)
+    last_row = bg.bin_segment_sum(cot[-1:].contiguous(), dist)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bg.bin_gather_plain(table, dist.idx))
+    assert torch.equal(_graph_replay(lambda: bg.bin_gather(table, dist)), got)
+    assert torch.equal(s1, s2) and torch.equal(last_row, s1[-1:])
+    assert torch.equal(bg.bin_segment_sum_whole_warps(cot, dist), s1)
+    plain = bg.bin_segment_sum_plain(cot, dist.perm, dist.offsets)
+    scale = bg.bin_segment_sum_plain(cot.abs(), dist.perm, dist.offsets)
+    assert bool(torch.all((s1 - plain).abs() <= RTOL[dtype] * scale))
