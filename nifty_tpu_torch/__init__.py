@@ -16,11 +16,34 @@ from .evi import (
     nonlinearly_update_residuals,
     sample_likelihood,
 )
-from .likelihood import Likelihood, LikelihoodPartial, LikelihoodWithModel
-from .likelihood_impl import Gaussian
+from .extra import (
+    assert_equal_tree,
+    check_dtype_purity,
+    check_inverse,
+    check_likelihood,
+    check_linear_model,
+    check_model,
+    check_purity,
+)
+from .likelihood import (
+    Likelihood,
+    LikelihoodPartial,
+    LikelihoodSum,
+    LikelihoodWithModel,
+)
+from .likelihood_impl import (
+    Bernoulli,
+    Categorical,
+    Gaussian,
+    InverseGamma,
+    Poissonian,
+    StudentT,
+    VariableCovarianceGaussian,
+    VariableCovarianceStudentT,
+)
 from .logger import logger
 from .minisanity import minisanity, reduced_residual_stats
-from .model import Initializer, LazyModel, Model, WrappedCall
+from .model import Initializer, LazyModel, Model, WrappedCall, wrap, wrap_left
 from .models import (
     CorrelatedFieldMaker,
     GaussMarkovProcess,
@@ -35,17 +58,48 @@ from .models import (
 )
 from .optimize_kl import OptimizeVI, OptimizeVIState, optimize_kl
 from .probing import approximation2endo
-from .prior import LogNormalPrior, NormalPrior
+from .prior import (
+    GammaPrior,
+    InvGammaPrior,
+    LaplacePrior,
+    LogInvGammaPrior,
+    LogNormalPrior,
+    NormalPrior,
+    UniformPrior,
+)
 from .sample_io import load_samples, save_samples
 from .solvers import minimize, static_cg, static_cg_batched
 from .solvers.newton_cg import OptimizeResults
+from .stats import (
+    gamma_prior,
+    interpolator,
+    invgamma_invprior,
+    invgamma_prior,
+    laplace_prior,
+    log_invgamma_prior,
+    lognormal_invprior,
+    lognormal_moments,
+    lognormal_prior,
+    normal_invprior,
+    normal_prior,
+    uniform_prior,
+)
+from .sugar import calculate_position, density_estimator
 from .tree import (
     HostKey,
     ShapeWithDtype,
     Vector,
+    dot,
     from_numpy,
+    mean,
     mean_and_std,
+    norm,
     random_like,
     split,
+    stack,
     to_numpy,
+    unite,
+    unstack,
+    vdot,
+    zeros_like,
 )

@@ -109,7 +109,7 @@ def draw_linear_residual(
         if napprox and napprox > 0 and "preconditioner" not in cg_kwargs:
             from .probing import approximation2endo
 
-            _, lsm = vjp(lh.transformation, live)
+            lsm, _ = lh.sqrt_metric_at(live)
             probes = []
             for k in _preconditioner_keys(key, napprox):
                 white, latent = _metric_sample_noise(lh, live, k)
@@ -163,7 +163,7 @@ def draw_linear_residuals(
     noise = [_metric_sample_noise(lh, live, k) for k in keys]
     white = stack([w for w, _ in noise])
     latent_part = stack([lat for _, lat in noise])
-    _, lsm = vjp(lh.transformation, live_rows)
+    lsm, _ = lh.sqrt_metric_at(live_rows)
     sample = tree_add(lsm(white), latent_part)
     info = torch.zeros(nrows, dtype=torch.int64, device=tree_device(live))
     if from_inverse:
@@ -208,9 +208,16 @@ def _nonlinear_update_funcs(likelihood: Likelihood, anchor, *, rows: bool = Fals
     lsm_a, rsm_a = likelihood.sqrt_metric_at(anchor)
     dot = vdot_rows if rows else vdot
 
+    def transformation_and_lsm(x):
+        # T(x) and the left square root at x: one vjp of T where that is
+        # the left square root, else the likelihood's own
+        if likelihood.lsm_is_transformation_vjp:
+            return vjp(likelihood.transformation, x)
+        return likelihood.transformation(x), likelihood.sqrt_metric_at(x)[0]
+
     def residual_vg(trafo_ref, target, x):
         # value and gradient of 0.5 ||target - g(x)||^2; `trafo_ref` is T(a)
-        trafo_x, lsm_x = vjp(likelihood.transformation, x)
+        trafo_x, lsm_x = transformation_and_lsm(x)
         dtrafo = tree_sub(trafo_x, trafo_ref)
         transported = tree_add(tree_sub(x, anchor), lsm_a(dtrafo))
         mismatch = tree_sub(target, transported)

@@ -31,6 +31,7 @@ from .tree import (
     ShapeWithDtype,
     Vector,
     shape_dtype_like,
+    tree_add,
     tree_leaves,
     tree_map,
     tree_unflatten,
@@ -93,18 +94,22 @@ def vjp(f: Callable, primals):
 def linearize(f: Callable, primals):
     """``(f(primals), t -> J t, ct -> J^T ct)`` at a fixed point, from a
     recorded forward graph and its recorded backward graph (see the module
-    docstring).  Requires every operation in ``f`` to be twice
-    differentiable in reverse mode, which the distributor's
-    ``autograd.Function`` pair is."""
+    docstring).  The backward graph is recorded at the first ``J t``, so a
+    caller that only pulls back pays for one forward pass.  Requires every
+    operation in ``f`` to be twice differentiable in reverse mode, which the
+    distributor's ``autograd.Function`` pair is."""
     xs, p = _leaf_inputs(primals)
     with torch.enable_grad():
         y = f(p)
         ys = tree_leaves(y)
-        us = [torch.zeros_like(t, requires_grad=True) for t in ys]
-        adj = _grad(ys, xs, us, create_graph=True)
+    recorded = []  # the backward graph, recorded at the first jvp
 
     def jvp_fn(tangents):
         with torch.enable_grad():
+            if not recorded:
+                us = [torch.zeros_like(t, requires_grad=True) for t in ys]
+                recorded.append((us, _grad(ys, xs, us, create_graph=True)))
+            us, adj = recorded[0]
             out = _grad(adj, us, tree_leaves(tangents), retain_graph=True)
         return tree_unflatten(y, out)
 
@@ -205,21 +210,51 @@ class Likelihood(LazyModel):
         """The metric matvec at fixed ``primals``, all primal work hoisted."""
         return lambda tangents: self.metric(primals, tangents)
 
+    #: Whether ``left_sqrt_metric`` is the vjp of ``transformation``, so
+    #: that both square roots can come from the transformation's
+    #: linearization.  A likelihood without a transformation, or whose
+    #: closed-form left square root is another one, takes its right square
+    #: root from the transpose of the left one instead.
+    lsm_is_transformation_vjp = True
+
     def left_sqrt_metric(self, primals, tangents):
         _, fn = vjp(self.transformation, primals)
         return fn(tangents)
 
     def right_sqrt_metric(self, primals, tangents):
-        # J_T t, the transpose of the left square root J_T^T; taken from the
-        # transformation's linearization at `primals`, so leading batch axes
-        # of `primals` carry over to the tangents
-        return linearize(self.transformation, primals)[1](tangents)
+        # the transpose of the left square root, linearized at `primals`, so
+        # leading batch axes of `primals` carry over to the tangents
+        return self.sqrt_metric_at(primals)[1](tangents)
 
     def sqrt_metric_at(self, primals):
         """``(lsm, rsm)`` matvecs at fixed ``primals``: the transformation is
-        linearized once, so each matvec is one linear pass."""
-        _, fwd, bwd = linearize(self.transformation, primals)
-        return bwd, fwd
+        linearized once, so each matvec is one linear pass.  Without a
+        transformation ``rsm`` is the transpose of ``t -> lsm(primals, t)``:
+        one backward pass of that linear map (``jax.linear_transpose`` in
+        the JAX package)."""
+        if (self.lsm_is_transformation_vjp
+                and type(self).transformation is not Likelihood.transformation):
+            _, fwd, bwd = linearize(self.transformation, primals)
+            return bwd, fwd
+
+        def lsm(t):
+            return self.left_sqrt_metric(primals, t)
+
+        _, rsm = vjp(lsm, self._lsm_zeros(primals))
+        return lsm, rsm
+
+    def _lsm_zeros(self, primals):
+        """Zero tangents of the left square root, with the leading batch
+        axes that ``primals`` has beyond the domain."""
+        leaves, like = tree_leaves(primals), tree_leaves(self.domain)
+        batch = ()
+        if leaves and like:
+            batch = tuple(leaves[0].shape[: leaves[0].ndim - len(like[0].shape)])
+        device = leaves[0].device if leaves else None
+        return tree_map(
+            lambda s: torch.zeros(batch + s.shape, dtype=s.dtype, device=device),
+            self.lsm_tangents_shape,
+        )
 
     @property
     def left_sqrt_metric_tangents_shape(self):
@@ -236,6 +271,9 @@ class Likelihood(LazyModel):
     def amend(self, f: Callable, /, *, domain=NoValue):
         """Compose a forward model to the right of this likelihood."""
         return LikelihoodWithModel(self, f, domain=domain)
+
+    def __add__(self, other):
+        return LikelihoodSum(self, other)
 
     def freeze(self, *, primals, point_estimates):
         """``(partial_likelihood, liquid_primals)`` with the point-estimated
@@ -261,6 +299,7 @@ class LikelihoodPartial(Likelihood):
             lsm_tangents_shape=likelihood.lsm_tangents_shape,
         )
         self.likelihood = likelihood
+        self.lsm_is_transformation_vjp = likelihood.lsm_is_transformation_vjp
         self.point_estimates = bool_tree
         self.primals_frozen = tuple(f.detach() for f in frozen)
         self._primals_like = shape_dtype_like(primals)
@@ -342,6 +381,7 @@ class LikelihoodWithModel(Likelihood):
             lsm_tangents_shape=likelihood.lsm_tangents_shape,
         )
         self.likelihood = likelihood
+        self.lsm_is_transformation_vjp = likelihood.lsm_is_transformation_vjp
         self.model = f
 
     def energy(self, primals):
@@ -365,17 +405,77 @@ class LikelihoodWithModel(Likelihood):
         y, bwd = vjp(self.model, primals)
         return bwd(self.likelihood.left_sqrt_metric(y, tangents))
 
-    def right_sqrt_metric(self, primals, tangents):
-        return self.sqrt_metric_at(primals)[1](tangents)
-
     def sqrt_metric_at(self, primals):
         y, fwd, bwd = linearize(self.model, primals)
         lsm, rsm = self.likelihood.sqrt_metric_at(y)
         return lambda t: bwd(lsm(t)), lambda t: rsm(fwd(t))
 
 
+class LikelihoodSum(Likelihood):
+    """Sum of two likelihoods over their united latent domain.
+
+    The data-space trees of the two summands (white noise, the
+    transformation, normalized residuals) are kept apart under the keys
+    ``lh_left`` / ``lh_right``; each summand keeps its own square roots of
+    the metric, and the latent-space results add.
+    """
+
+    _lkey, _rkey = "lh_left", "lh_right"
+
+    def __init__(self, left, right, /, domain=NoValue, init=NoValue):
+        if not (isinstance(left, Likelihood) and isinstance(right, Likelihood)):
+            raise TypeError("both summands must be Likelihoods")
+        joined_shape = {self._lkey: left.lsm_tangents_shape,
+                        self._rkey: right.lsm_tangents_shape}
+        if domain is NoValue and left.domain is not NoValue and right.domain is not NoValue:
+            lvec, rvec = isinstance(left.domain, Vector), isinstance(right.domain, Vector)
+            domain = {**(left.domain.tree if lvec else left.domain),
+                      **(right.domain.tree if rvec else right.domain)}
+            domain = Vector(domain) if lvec or rvec else domain
+        super().__init__(domain=domain, init=init, lsm_tangents_shape=joined_shape)
+        self.left_likelihood = left
+        self.right_likelihood = right
+        self.lsm_is_transformation_vjp = (left.lsm_is_transformation_vjp
+                                          and right.lsm_is_transformation_vjp)
+
+    def _both(self, fn):
+        return {self._lkey: fn(self.left_likelihood), self._rkey: fn(self.right_likelihood)}
+
+    def energy(self, primals):
+        return self.left_likelihood.energy(primals) + self.right_likelihood.energy(primals)
+
+    def transformation(self, primals):
+        return self._both(lambda lh: lh.transformation(primals))
+
+    def normalized_residual(self, primals):
+        return self._both(lambda lh: lh.normalized_residual(primals))
+
+    def metric(self, primals, tangents):
+        return tree_add(self.left_likelihood.metric(primals, tangents),
+                        self.right_likelihood.metric(primals, tangents))
+
+    def metric_at(self, primals):
+        lm = self.left_likelihood.metric_at(primals)
+        rm = self.right_likelihood.metric_at(primals)
+        return lambda t: tree_add(lm(t), rm(t))
+
+    def left_sqrt_metric(self, primals, tangents):
+        return tree_add(
+            self.left_likelihood.left_sqrt_metric(primals, tangents[self._lkey]),
+            self.right_likelihood.left_sqrt_metric(primals, tangents[self._rkey]),
+        )
+
+    def sqrt_metric_at(self, primals):
+        (l_lsm, l_rsm), (r_lsm, r_rsm) = (self.left_likelihood.sqrt_metric_at(primals),
+                                          self.right_likelihood.sqrt_metric_at(primals))
+        return (
+            lambda t: tree_add(l_lsm(t[self._lkey]), r_lsm(t[self._rkey])),
+            lambda t: {self._lkey: l_rsm(t), self._rkey: r_rsm(t)},
+        )
+
+
 __all__ = [
-    "Likelihood", "LikelihoodPartial", "LikelihoodWithModel",
+    "Likelihood", "LikelihoodPartial", "LikelihoodSum", "LikelihoodWithModel",
     "hessian_vector_product", "linearize",
     "parse_point_estimates", "value_and_grad", "vjp",
 ]

@@ -146,6 +146,15 @@ def wrap(call: Callable, name) -> Callable:
     return named_call
 
 
+def wrap_left(call: Callable, name) -> Callable:
+    """Wrap the output of ``call`` into ``{name: output}``."""
+
+    def named_call(*args, **kwargs):
+        return {name: call(*args, **kwargs)}
+
+    return named_call
+
+
 class WrappedCall(Model):
     """Model selecting ``name`` from its input before applying ``call``."""
 

@@ -127,6 +127,21 @@ def tree_unflatten(like, leaves):
 # Vector wrapper
 # --------------------------------------------------------------------------
 
+CORE_ARITHMETIC_ATTRIBUTES = (
+    "__neg__", "__pos__", "__abs__", "__add__", "__radd__", "__sub__",
+    "__rsub__", "__mul__", "__rmul__", "__truediv__", "__rtruediv__",
+    "__floordiv__", "__rfloordiv__", "__pow__", "__rpow__", "__mod__",
+    "__rmod__", "__matmul__", "__rmatmul__",
+)
+
+
+def has_arithmetics(obj, additional_attributes=()) -> bool:
+    """Whether ``obj`` supports the core arithmetic operators (a tensor or
+    a :class:`Vector` does, a plain dict does not)."""
+    attrs = CORE_ARITHMETIC_ATTRIBUTES + tuple(additional_attributes)
+    return all(hasattr(obj, a) for a in attrs)
+
+
 
 def _broadcast_binary(op):
     def binary(self, other):
@@ -185,8 +200,14 @@ class Vector:
     __rmul__ = _broadcast_rbinary(operator.mul)
     __truediv__ = _broadcast_binary(operator.truediv)
     __rtruediv__ = _broadcast_rbinary(operator.truediv)
+    __floordiv__ = _broadcast_binary(operator.floordiv)
+    __rfloordiv__ = _broadcast_rbinary(operator.floordiv)
     __pow__ = _broadcast_binary(operator.pow)
     __rpow__ = _broadcast_rbinary(operator.pow)
+    __mod__ = _broadcast_binary(operator.mod)
+    __rmod__ = _broadcast_rbinary(operator.mod)
+    __matmul__ = _broadcast_binary(operator.matmul)
+    __rmatmul__ = _broadcast_rbinary(operator.matmul)
 
     def __neg__(self):
         return Vector(tree_map(operator.neg, self._tree))
@@ -218,6 +239,11 @@ def tree_sub(a, b):
     return tree_map(operator.sub, a, b)
 
 
+def tree_scale(a, c):
+    """Every leaf of ``a`` times the scalar ``c``."""
+    return tree_map(lambda x: x * c, a)
+
+
 def tree_axpy(c, x, y):
     """``y + c * x`` leafwise with a scalar ``c``."""
     return tree_map(lambda xe, ye: ye + c * xe, x, y)
@@ -241,6 +267,27 @@ def vdot(a, b):
     if not tree_leaves(a):
         return torch.zeros(())
     return vdot_rows(add_row(a), add_row(b))[0]
+
+
+def dot(a, b):
+    """Tree-wide ``sum_i a_i * b_i`` without complex conjugation."""
+    acc = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        acc = acc + (x * y).sum()
+    return acc
+
+
+def tsum(tree):
+    """The sum of every entry of every leaf."""
+    acc = 0.0
+    for x in tree_leaves(tree):
+        acc = acc + x.sum()
+    return acc
+
+
+def conj(tree):
+    """The complex conjugate of every leaf, materialized (not a lazy view)."""
+    return tree_map(lambda x: x.conj().resolve_conj(), tree)
 
 
 def norm(tree, ord=2):
@@ -340,6 +387,17 @@ def first_row(tree):
     return tree_map(lambda x: x[0], tree)
 
 
+def mean(trees):
+    """Mean over a list of trees, or over the leading axis of a stacked
+    tree."""
+    if isinstance(trees, (list, tuple)):
+        acc = trees[0]
+        for t in trees[1:]:
+            acc = tree_add(acc, t)
+        return tree_scale(acc, 1.0 / len(trees))
+    return tree_map(lambda x: x.mean(dim=0), trees)
+
+
 def mean_and_std(trees, correct_bias=True):
     """Leafwise mean and standard deviation over a list of trees or the
     leading axis of a stacked tree."""
@@ -376,17 +434,26 @@ def tree_device(tree) -> torch.device:
     return config.default_device()
 
 
+def _filled_like(tree, value, device):
+    def fill(x):
+        if isinstance(x, ShapeWithDtype):
+            dev = device if device is not None else config.default_device()
+            return torch.full(x.shape, value, dtype=x.dtype, device=dev)
+        return torch.full_like(x, value)
+
+    return tree_map(fill, tree)
+
+
+def ones_like(tree, *, device=None):
+    """Ones shaped like ``tree``; shape-only leaves land on ``device``
+    (default: the configured device)."""
+    return _filled_like(tree, 1, device)
+
+
 def zeros_like(tree, *, device=None):
     """Zeros shaped like ``tree``; shape-only leaves land on ``device``
     (default: the configured device)."""
-
-    def zero(x):
-        if isinstance(x, ShapeWithDtype):
-            dev = device if device is not None else config.default_device()
-            return torch.zeros(x.shape, dtype=x.dtype, device=dev)
-        return torch.zeros_like(x)
-
-    return tree_map(zero, tree)
+    return _filled_like(tree, 0, device)
 
 
 def where(cond, a, b):
@@ -396,6 +463,24 @@ def where(cond, a, b):
     if isinstance(cond, torch.Tensor) and cond.ndim == 0:
         return tree_map(lambda x, y: torch.where(cond, x, y), a, b)
     return tree_map(torch.where, cond, a, b)
+
+
+def unite(x, y, op=operator.add):
+    """Key-wise union of two dict-like trees; keys in both are combined
+    with ``op``."""
+    if isinstance(x, Vector) or isinstance(y, Vector):
+        x = x.tree if isinstance(x, Vector) else x
+        y = y.tree if isinstance(y, Vector) else y
+        return Vector(unite(x, y, op=op))
+    if not hasattr(x, "keys") and not hasattr(y, "keys"):
+        return op(x, y)
+    out = {}
+    for k in set(x.keys()) | set(y.keys()):
+        if k in x and k in y:
+            out[k] = op(x[k], y[k])
+        else:
+            out[k] = x[k] if k in x else y[k]
+    return out
 
 
 def stack(trees, axis=0):
@@ -572,9 +657,10 @@ def get_map(map) -> Callable:
 
 __all__ = [
     "HostKey", "ShapeWithDtype", "Vector", "axpy_rows", "broadcast_rows",
-    "fold_in", "from_numpy", "get_map", "mean_and_std", "norm", "norm_rows",
-    "random_like", "result_type", "rows", "scale_rows", "shape_dtype_like",
-    "size", "split", "stack", "to_numpy", "tree_add", "tree_axpy",
-    "tree_device", "tree_leaves", "tree_map", "tree_sub", "tree_unflatten",
+    "conj", "dot", "fold_in", "from_numpy", "get_map", "has_arithmetics",
+    "mean", "mean_and_std", "norm", "norm_rows", "ones_like", "random_like",
+    "result_type", "rows", "scale_rows", "shape_dtype_like", "size", "split",
+    "stack", "to_numpy", "tree_add", "tree_axpy", "tree_device", "tree_leaves",
+    "tree_map", "tree_scale", "tree_sub", "tree_unflatten", "tsum", "unite",
     "unstack", "vdot", "vdot_rows", "where", "where_rows", "zeros_like",
 ]

@@ -318,6 +318,20 @@ def test_small_1d_maps(cuda, dtype, nrows, n):
     index, rows of 128 and 512 bytes in float64): every bin is short (one
     or two entries), a piece holds fewer bins than a warp has lanes, and
     the rows are those of the lockstep stages and of ``total_N`` fields."""
+    _check_1d_map(cuda, dtype, nrows, n)
+
+
+@pytest.mark.parametrize("nrows", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_density_estimator_1d_map(cuda, dtype, nrows):
+    """The 256-entry 1-D map of ``density_estimator(128, 1/128)`` (the
+    Matern field's padded grid: 129 bins, uint8 index, 2 KB a float64 row)
+    at the rows an update of 2 pairs gives it: 1 for a model call, 2 for
+    the lockstep draw, 4 for the curve and the stacked KL stage."""
+    _check_1d_map(cuda, dtype, nrows, 256)
+
+
+def _check_1d_map(cuda, dtype, nrows, n):
     from nifty_tpu_torch.models.correlated_field import make_grid
 
     hg = make_grid((n,), 1.0 / n).harmonic_grid
