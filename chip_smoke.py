@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's geoVI main path once on one NVIDIA card:
-Gaussian, Poisson-count, Bernoulli and density-estimation maps.
+Gaussian, Poisson-count, Bernoulli and density-estimation maps on
+correlated fields, and iterative charted refinement (ICR) fields on a
+deformed chart, the HEALPix sphere and sphere x radius.
 
     python3 chip_smoke.py
 
 Phases (one line each, with its seconds):
 
 1. require a CUDA device and print ``nvidia-smi``'s name and power limit;
-2. build the distributor kernels (``nvcc``, at first use);
+2. build the distributor kernels and the refinement kernels (``nvcc``, one
+   compiler a source, all started together) and the HEALPix core (the
+   host's C++ compiler);
 3. hold each kernel against its plain PyTorch version at the main path's
    shapes in float64 and float32 (gather bit-exact; segment sum within
    1e-12 / 1e-5 of the per-bin sum of |cot|, bitwise reproducible, and
@@ -39,7 +43,8 @@ Phases (one line each, with its seconds):
    32^2 non-parametric subgrid times an 8-channel Matern subgrid), for
    Poisson counts on the exp of a 32^2 field (``Poissonian``) and for a
    ``LikelihoodSum`` of those counts and a ``Gaussian`` on a second 32^2
-   field (a dict domain of both fields' latents);
+   field (a dict domain of both fields' latents), and for two ICR fields: a
+   deformed 2-D chart (20^2) and sphere x radius (192 x 8);
 5. the 128^2 unbinned config (``bench.py``'s headline, ``residual_map=
    "vmap"``: the residual stages run the lockstep batched solvers and the
    KL stage stacks the 8 samples): three updates;
@@ -84,13 +89,33 @@ Phases (one line each, with its seconds):
 16. ``demos/6_density_estimation.py``: 1500 events from two modes in 128
     bins, the rate ``density_estimator(128, 1/128)`` (a Matern field on the
     padded 256-entry 1-D grid), 6 iterations of 2 pairs: predicted events
-    within 25 % of those observed and the two modes found.
+    within 25 % of those observed and the two modes found;
+17. the ICR fields of phases 18-21 are built (host precompute, printed with
+    its seconds), and the refinement step (K9) and its transpose are held
+    against their plain versions at every (level, rows) shape those phases
+    launch, in float64 and float32 (within 1e-12 / 1e-5 of the largest
+    entry), bitwise reproducible and equal to a CUDA-graph replay, with
+    float64 device ms beside the bound, the plain versions' ms and, for the
+    2-D levels, ``conv2d`` + ``pixel_shuffle`` on an undeformed chart of the
+    same shape;
+18. ``demos/9_icr_refinement.py``: a log-deformed 1-D chart (14 pixels,
+    depth 5, Matern-3/2), exp(0.5 gp) on a third of the pixels with noise
+    0.05, ``optimize_kl`` with 6 iterations of 4 pairs: the truth within 3
+    (std + noise) of the posterior mean on at least 90 % of the pixels;
+19. a 4100^2 deformed chart ((20, 20), depth 8, demo 9's deformation on
+    axis 0; 22.4 M latent dof), demo 9's model on a third of the pixels,
+    ``BENCH_KWARGS``, the sample loop: one update;
+20. a HEALPix sphere from nside 4 to 256 (786,432 pixels), Gaussian data:
+    one update;
+21. sphere x radius (a 3-D dust-map geometry): nside 2 to 64 times a
+    log-spaced radial chart of 6 to 68 shells (3.34 M voxels): one update.
 
 The port places models, latents and data on the card by default; only
 phase 4's CPU run asks for the CPU (``config.update("device", "cpu")``).
 Phases 5 to 16 reset the kernels' launch counts just before they drive
 their path and fail unless both kernels launched (phases 11, 12 and 16: on
-every subgrid's map); they print each kernel's calls and the kernels those
+every subgrid's map); phases 18 to 21 do the same for the two refinement
+kernels at every level of their field.  Phases 5 to 16 print each kernel's calls and the kernels those
 calls launched (for the segment sum two a call where a bin is split, for
 the gather two where a large table is first copied rows-innermost), by
 rows and by map.  Any failure raises, so the exit code is nonzero and no
@@ -103,11 +128,16 @@ them from its C entry's return values in that run;
 ``ms``, ``plain_ms`` and ``library_ms`` are device times from CUDA-graph
 replays, ``bound_ms`` the bytes of the function's inputs and output over
 the card's published 3.35 TB/s); a shape the main path launched and phase
-3 did not check fails the run.
+3 did not check fails the run.  The refinement kernels' entries are one
+for each kernel, field level and number of rows phases 18 to 21 launched,
+with phase 17's numbers (a shape phase 17 did not check fails the run);
+their ``plain_ms`` is a CUDA-graph replay for the step and CUDA events for
+the transpose (an autograd pull-back), ``library_ms`` ``conv2d`` +
+``pixel_shuffle`` where the level is 2-D, else null.
 
     python3 chip_smoke.py --profile
 
-adds, after phases 5, 6, 8, 12 and 15, one more update of each config
+adds, after phases 5, 6, 8, 12, 15 and 19, one more update of each config
 under ``torch.profiler``: the device's busy share and the costliest
 kernels.
 """
@@ -239,6 +269,16 @@ def build_field_total_n(jt):
         renormalize_amplitude=True, prefix="freq",
     )
     return cfm.finalize(total_N=3, dofdex=[0, 0, 1])
+
+
+def matern32(scale=1.0):
+    """The Matern-3/2 covariance of a tensor of distances."""
+    return lambda r: (1.0 + r / scale) * torch.exp(-r / scale)
+
+
+def warp_2d(reg):
+    """Phase 4's deformation of a 2-D chart: a sine stretch of axis 0."""
+    return np.stack([reg[..., 0] + 0.3 * np.sin(reg[..., 0]), reg[..., 1]], axis=-1)
 
 
 def build_likelihood(jt, model, key, noise_std=NOISE_STD):
@@ -377,11 +417,12 @@ def captured(fn, n=1):
 
 
 def replayed(fn):
-    """`fn`'s output, computed by replaying a CUDA graph of one call."""
+    """`fn`'s output (a tensor or a tuple of them), computed by replaying a
+    CUDA graph of one call."""
     graph, out = captured(fn)
     graph.replay()
     torch.cuda.synchronize()
-    return out.clone()
+    return tuple(o.clone() for o in out) if isinstance(out, tuple) else out.clone()
 
 
 def device_ms(fn, n=50, replays=3):
@@ -418,14 +459,21 @@ def phase_device():
 
 @phase("2 build kernels")
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from nifty_tpu_torch.ops import bin_gather as bg
+    from nifty_tpu_torch.ops import healpix, icr_refine
     from nifty_tpu_torch.ops.cuda_build import BUILD_LOG
 
     t0 = time.perf_counter()
-    bg._kernels()
+    # one compiler a source, all started together: the two CUDA libraries
+    # and the host's HEALPix core
+    with ThreadPoolExecutor(3) as pool:
+        for job in [pool.submit(fn) for fn in (bg._kernels, icr_refine._kernels, healpix._lib)]:
+            job.result()
     print(f"kernel build+load {time.perf_counter() - t0:.3f} s", flush=True)
     for name, (secs, log) in BUILD_LOG.items():
-        print(f"nvcc {name}: {secs:.3f} s", flush=True)
+        print(f"build {name}: {secs:.3f} s", flush=True)
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print("  " + line.strip(), flush=True)
@@ -543,8 +591,8 @@ def phase_kernels(cases):
     return results
 
 
-@phase("4 32^2, 32^2 x Matern 8 (total_N=3), 32^2 Poissonian and a Poissonian + Gaussian sum: "
-       "updates, CPU vs card, sample loop and lockstep")
+@phase("4 32^2, 32^2 x Matern 8 (total_N=3), 32^2 Poissonian, a Poissonian + Gaussian sum and "
+       "two ICR fields: updates, CPU vs card, sample loop and lockstep")
 def phase_cpu_vs_card(jt):
     counts = {}  # each Poisson field's counts, drawn once (on the CPU's rates)
 
@@ -562,6 +610,18 @@ def phase_cpu_vs_card(jt):
         # a Gaussian on the other
         "32^2 Poissonian + 32^2 Gaussian": lambda: poisson("pois") + build_likelihood(
             jt, build_field(jt, (32, 32), prefix="gaus"), jt.HostKey(0)),
+        # ICR: a deformed 2-D chart (20^2) and sphere x radius (192 x 8).
+        # Kernel scales of a pixel or less: with smoother kernels the
+        # posterior is so ill-conditioned that five CG steps amplify
+        # rounding past 1e-8 (on the CPU alone, the sample loop and the
+        # lockstep stages end 4e-9 apart at scale 1 on the chart).
+        "20^2 deformed ICR chart": lambda: build_likelihood(jt, jt.RefinementField(
+            jt.CoordinateChart((8, 8), depth=2, distances0=1.0, nonlinear_map=warp_2d),
+            matern32(0.5)), jt.HostKey(0)),
+        "sphere x radius ICR (192 x 8)": lambda: build_likelihood(jt, jt.RefinementHPField(
+            jt.HEALPixChart(1, depth=2, radial_chart=jt.CoordinateChart(
+                5, depth=2, distances0=0.5, nonlinear_map=lambda x: 1.0 + x)),
+            matern32(0.3)), jt.HostKey(0)),
     }
     for name, build in likelihoods.items():
         for rmap in ("smap", "vmap"):
@@ -930,6 +990,371 @@ def phase_density(jt):
     return launches
 
 
+# -- iterative charted refinement (phases 17-21) ------------------------------
+
+ICR_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+# phase 18: `demos/9_icr_refinement.py`'s seeds (the truth, the mask) and
+# noise level
+DEMO9_SEED, DEMO9_MASK_SEED, DEMO9_NOISE = 33, 11, 0.05
+
+
+def level_like(level, dtype=None, olf=None, ker=None, matrix_grid=None):
+    """A refinement level of `level`'s geometry on its device, with its
+    matrices in `dtype` or the matrices given."""
+    from nifty_tpu_torch.ops.icr_refine import RefineLevel
+
+    dtype = dtype or level.olf.dtype
+    olf = level.olf if olf is None else olf
+    ker = level.ker if ker is None else ker
+    grid = level.matrix_grid if matrix_grid is None else matrix_grid
+    windows = [getattr(level, f"window{a}").cpu().numpy() for a in range(level.ndim)]
+    return RefineLevel(level.coarse_shape, windows, level.child_shape, olf.to("cpu", dtype),
+                       ker.to("cpu", dtype), grid).to(level.olf.device)
+
+
+def conv_route(level):
+    """For a 2-D level of 3 x 3 windows at stride 1 and 2 x 2 children: the
+    level on an undeformed chart of its shape (its first matrix pair shared
+    by every site) and the library's route for it, `conv2d` of the coarse
+    grid with the filter plus a 1 x 1 `conv2d` of the excitations (given as
+    channels) with `ker`, then `pixel_shuffle`; None for another geometry."""
+    if level.ndim != 2 or level.slots != (3, 3) or level.child_shape != (2, 2):
+        return None
+    for a in range(2):
+        w = getattr(level, f"window{a}").cpu().numpy()
+        if not np.array_equal(w, np.arange(w.shape[0])[:, None] + np.arange(3)[None, :]):
+            return None
+    shared = level_like(level, olf=level.olf[:1], ker=level.ker[:1], matrix_grid=(1, 1))
+    fn = torch.nn.functional
+    w_olf = shared.olf[0].reshape(4, 1, 3, 3)
+    w_ker = shared.ker[0].reshape(4, 4, 1, 1)
+
+    def route(coarse, xi_channels):
+        nrows = coarse.shape[0]
+        y = (fn.conv2d(coarse.reshape(nrows, 1, *level.coarse_shape), w_olf)
+             + fn.conv2d(xi_channels, w_ker))
+        return fn.pixel_shuffle(y, 2).reshape(nrows, -1)
+
+    return shared, route
+
+
+def icr_bound_ms(level, nrows, size, transpose):
+    """The least time of a step (or its transpose) on the card: its inputs
+    (values, matrices, window tables, for the transpose also their CSR
+    inverses) read once and its outputs written once over the memory rate,
+    or its multiply-adds over the arithmetic rate; and which of the two."""
+    read = level.tables() if transpose else level.tables()[:level.ndim]
+    tables = sum(t.numel() * t.element_size() for t in read)
+    values = nrows * (level.n_coarse + level.S * level.F + level.n_fine) * size
+    mats = (level.olf.numel() + level.ker.numel()) * size
+    by_bytes = 1e3 * (values + mats + tables) / PEAK_BYTES_PER_S
+    dtype = torch.float64 if size == 8 else torch.float32
+    by_ops = 1e3 * 2 * nrows * level.S * level.F * (level.W + level.F) / PEAK_OPS_PER_S[dtype]
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+@phase("17 the refinement kernels vs plain")
+def phase_icr_kernels(cases):
+    """`cases`: {label: (RefineLevel on the card, rows)}.  Each step and its
+    transpose against the plain versions in float64 and float32 (within
+    1e-12 / 1e-5 of the plain output's largest entry), bitwise reproducible
+    and bitwise equal when replayed from a CUDA graph; float64 device ms
+    (the kernels: 50 calls in a replayed CUDA graph; the plain forward too;
+    the plain transpose, an autograd pull-back, by CUDA events around 20
+    calls) beside the bound, and, for a 2-D level of the 3 x 3 / 2 x 2
+    stencil, the library route on an undeformed chart of the same shape
+    (`conv2d` + `pixel_shuffle`, held to the kernel on shared matrices)."""
+    from nifty_tpu_torch.ops import icr_refine as ir
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    results = {}
+    for label, (level, nrows) in cases.items():
+        for dtype in (torch.float64, torch.float32):
+            lv = level if dtype == level.olf.dtype else level_like(level, dtype)
+            coarse = torch.randn((nrows, lv.n_coarse), dtype=dtype, device=dev, generator=gen)
+            xi = torch.randn((nrows, lv.S * lv.F), dtype=dtype, device=dev, generator=gen)
+            cot = torch.randn((nrows, lv.n_fine), dtype=dtype, device=dev, generator=gen)
+            fine1, fine2 = ir.icr_refine(coarse, xi, lv), ir.icr_refine(coarse, xi, lv)
+            back1, back2 = ir.icr_refine_transpose(cot, lv), ir.icr_refine_transpose(cot, lv)
+            fine_p = ir.icr_refine_plain(coarse, xi, lv)
+            back_p = ir.icr_refine_transpose_plain(cot, lv)
+            torch.cuda.synchronize()
+            if not (torch.equal(fine1, fine2) and all(map(torch.equal, back1, back2))):
+                raise AssertionError(f"the refinement kernels do not repeat ({label}, {dtype})")
+            if not (torch.equal(fine1, replayed(lambda: ir.icr_refine(coarse, xi, lv)))
+                    and all(map(torch.equal, back1, replayed(
+                        lambda: ir.icr_refine_transpose(cot, lv))))):
+                raise AssertionError(
+                    f"the refinement kernels differ when replayed from a CUDA graph ({label}, "
+                    f"{dtype})")
+            errs = [float((got - want).abs().max()) / float(want.abs().max())
+                    for got, want in ((fine1, fine_p), (back1[0], back_p[0]),
+                                      (back1[1], back_p[1]))]
+            if max(errs) > ICR_RTOL[dtype]:
+                raise AssertionError(f"the refinement kernels are off their plain versions by "
+                                     f"{errs} of the largest entry ({label}, {dtype})")
+            if dtype != torch.float64:
+                continue
+            r = dict(refine_err=float((fine1 - fine_p).abs().max()),
+                     transpose_err=max(float((back1[0] - back_p[0]).abs().max()),
+                                       float((back1[1] - back_p[1]).abs().max())))
+            r["refine_device_ms"] = device_ms(lambda: ir.icr_refine(coarse, xi, lv))
+            r["transpose_device_ms"] = device_ms(lambda: ir.icr_refine_transpose(cot, lv))
+            r["refine_plain_device_ms"] = device_ms(lambda: ir.icr_refine_plain(coarse, xi, lv))
+            r["transpose_plain_ms"] = cuda_ms(lambda: ir.icr_refine_transpose_plain(cot, lv), n=20)
+            size = coarse.element_size()
+            r["refine_bound_ms"], r["refine_bound_by"] = icr_bound_ms(lv, nrows, size, False)
+            r["transpose_bound_ms"], r["transpose_bound_by"] = icr_bound_ms(lv, nrows, size, True)
+            r["refine_library_ms"] = r["transpose_library_ms"] = None
+            library = conv_route(lv)
+            if library is not None:
+                shared, route = library
+                xi_channels = xi.reshape(nrows, *lv.sites, lv.F).permute(0, 3, 1, 2).contiguous()
+                want = ir.icr_refine(coarse, xi, shared)
+                lib_err = float((route(coarse, xi_channels) - want).abs().max())
+                if lib_err > ICR_RTOL[dtype] * float(want.abs().max()):
+                    raise AssertionError(f"conv2d + pixel_shuffle is off the kernel by {lib_err} "
+                                         f"({label})")
+                r["refine_library_ms"] = device_ms(lambda: route(coarse, xi_channels))
+            results[label] = r
+            lib = r["refine_library_ms"]
+            print(
+                f"{label}: coarse {lv.coarse_shape} -> fine {lv.fine_shape}, W {lv.W}, F {lv.F}, "
+                f"{lv.n_matrices} matrix pairs, B={nrows} | float64 device ms: step "
+                f"{r['refine_device_ms']:.5f} (plain {r['refine_plain_device_ms']:.5f}"
+                + (f", conv2d + pixel_shuffle {lib:.5f}" if lib is not None else "")
+                + f"; bound {r['refine_bound_ms']:.5f} by {r['refine_bound_by']}) | transpose "
+                f"{r['transpose_device_ms']:.5f} (plain, events, {r['transpose_plain_ms']:.5f}; "
+                f"bound {r['transpose_bound_ms']:.5f} by {r['transpose_bound_by']}) | rel err "
+                f"float64 / float32 within {ICR_RTOL[torch.float64]} / "
+                f"{ICR_RTOL[torch.float32]}; max abs err float64 {r['refine_err']:.3e} / "
+                f"{r['transpose_err']:.3e}",
+                flush=True,
+            )
+    return results
+
+
+def icr_counts():
+    """The refinement wrappers' calls of the kernel route, by (level key,
+    rows)."""
+    from nifty_tpu_torch.ops import icr_refine as ir
+
+    return {"refine": dict(ir.icr_refine.launches_by_level),
+            "transpose": dict(ir.icr_refine_transpose.launches_by_level)}
+
+
+def require_icr_launches(label, counts, field):
+    """Both refinement kernels launched at every level of `field`."""
+    for kind in ("refine", "transpose"):
+        for level in field.levels:
+            if not any(key == level.key and n > 0 for (key, _), n in counts[kind].items()):
+                raise AssertionError(
+                    f"{label}: icr_{kind} never launched at the level {level.key}: {counts}")
+
+
+def icr_text(counts, field):
+    """Each level's calls of the two kernels by rows."""
+    return "; ".join(
+        f"L{lv} {level.fine_shape}: " + ", ".join(
+            f"{kind} " + "/".join(f"B={b} {n}" for (key, b), n in sorted(counts[kind].items())
+                                  if key == level.key)
+            for kind in ("refine", "transpose"))
+        for lv, level in enumerate(field.levels))
+
+
+def drive_icr(jt, label, lh, field, n_updates=1, kwargs=BENCH_KWARGS, **maps):
+    """`n_updates` updates of an ICR likelihood with the refinement launch
+    counts and the peak memory reset just before; fails unless both kernels
+    launched at every level.  Returns the counts."""
+    from nifty_tpu_torch.ops import icr_refine as ir
+
+    torch.cuda.reset_peak_memory_stats()
+    ir.reset_launch_counts()
+    _, state, secs = run_updates(jt, lh, n_updates, kwargs, **maps)
+    counts = icr_counts()
+    energy = float(state.minimization_state.fun)
+    med = sorted(secs)[len(secs) // 2]
+    print(f"{label}: s/update {[round(s, 3) for s in secs]} | geoVI samples/s "
+          f"{2 * N_SAMPLES / med:.4f} | KL energy {energy!r} | peak mem "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | last KL Newton steps "
+          f"{int(state.minimization_state.nit)}, geoVI steps per sample "
+          f"{state.sample_state.nit.tolist()} | launches by level: {icr_text(counts, field)}",
+          flush=True)
+    if not np.isfinite(energy):
+        raise AssertionError(f"{label}: non-finite KL energy {energy}")
+    require_icr_launches(label, counts, field)
+    return counts
+
+
+def masked_signal(jt, field, npix, seed, fraction=3):
+    """`demos/9_icr_refinement.py`'s signal exp(0.5 field) and response: the
+    signal at a sorted random third of the final pixels (numpy, from
+    `seed`)."""
+    rng = np.random.default_rng(seed)
+    idx = np.sort(rng.choice(npix, size=npix // fraction, replace=False))
+    signal = pointwise(jt, field, lambda f: torch.exp(0.5 * f))
+    flat = torch.from_numpy(idx).to(jt.config.default_device())
+    response = pointwise(jt, field, lambda f: torch.exp(0.5 * f).flatten(-field.chart.ndim)[
+        ..., flat])
+    return signal, response
+
+
+def icr_gaussian(jt, response, key, noise_seed, noise_std):
+    """Data of `response` at latents drawn from `key`, with numpy noise of
+    `noise_std` from `noise_seed`; returns the likelihood, the latents."""
+    with torch.no_grad():
+        truth_pos = response.init(key)
+        clean = response(truth_pos)
+    noise = np.random.default_rng(noise_seed).standard_normal(tuple(clean.shape))
+    data = clean + noise_std * torch.from_numpy(noise).to(clean)
+    lh = jt.Gaussian(data, noise_cov_inv=lambda x: x / noise_std ** 2).amend(response)
+    return lh, truth_pos
+
+
+@phase("18 demos/9_icr_refinement.py: optimize_kl on a log-deformed 1-D chart")
+def phase_demo9(jt, gp):
+    """The demo as written: chart (14,), depth 5, expm1(0.35 u), Matern-3/2;
+    exp(0.5 gp) observed on a third of the pixels with noise 0.05; 6
+    iterations of 4 pairs at the demo's budgets.  Its check: the truth
+    within 3 (std + noise) of the posterior mean on at least 90 % of the
+    pixels (a calibrated posterior leaves out about 0.3 %)."""
+    from nifty_tpu_torch.ops import icr_refine as ir
+
+    signal, response = masked_signal(jt, gp, gp.chart.shape[0], DEMO9_MASK_SEED)
+    k_truth, k_init, k_opt = jt.HostKey(DEMO9_SEED).split(3)
+    lh, truth_pos = icr_gaussian(jt, response, k_truth, DEMO9_SEED, DEMO9_NOISE)
+    with torch.no_grad():
+        truth = signal(truth_pos)
+    torch.cuda.reset_peak_memory_stats()
+    ir.reset_launch_counts()
+    marks = [time.perf_counter()]
+
+    def clock(samples, state):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    with tempfile.TemporaryDirectory() as odir:
+        samples, state = jt.optimize_kl(
+            lh, jt.random_like(k_init, lh.domain), key=k_opt, n_total_iterations=6,
+            n_samples=4, callback=clock,
+            draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=64)),
+            nonlinearly_update_kwargs=dict(minimize_kwargs=dict(
+                xtol=1e-3, maxiter=5, cg_kwargs=dict(maxiter=24))),
+            kl_kwargs=dict(minimize_kwargs=dict(xtol=1e-4, maxiter=12, cg_kwargs=dict(maxiter=32))),
+            sample_mode="nonlinear_resample", odir=odir)
+    counts = icr_counts()
+    with torch.no_grad():
+        post = signal(samples.samples)
+    mean, std = post.mean(0), post.std(0, correction=0)
+    inside = float(((mean - truth).abs() < 3 * (std + DEMO9_NOISE)).double().mean())
+    seconds = [b - a for a, b in zip(marks, marks[1:])]
+    energy = float(state.minimization_state.fun)
+    print(f"demo 9 optimize_kl: s/iteration {[round(s, 3) for s in seconds]} ({sum(seconds):.3f} "
+          f"s) | KL energy {energy!r} | posterior pixels within 3 sigma of the truth "
+          f"{inside:.4f} | {len(samples)} samples | peak mem "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | launches by level: "
+          f"{icr_text(counts, gp)}", flush=True)
+    if not np.isfinite(energy):
+        raise AssertionError(f"demo 9: non-finite KL energy {energy}")
+    require_icr_launches("demo 9", counts, gp)
+    if not inside >= 0.9:
+        raise AssertionError(f"demo 9: only {inside} of the pixels within 3 sigma of the truth")
+    return counts
+
+
+def chart_4100(jt):
+    """Phase 19's chart: (20, 20) refined 8 times to 4100 x 4100, demo 9's
+    log deformation on axis 0 rescaled to its 20 coarse pixels, axis 1
+    regular."""
+    def deform(reg):
+        return np.stack([np.expm1(0.245 * reg[..., 0]), reg[..., 1]], axis=-1)
+
+    return jt.CoordinateChart((20, 20), depth=8, distances0=1.0, nonlinear_map=deform,
+                              irregular_axes=(0,))
+
+
+def build_icr_fields(jt):
+    """The fields of phases 18-21 (demo 9's, phase 19's 4100^2 chart, a
+    HEALPix sphere from nside 4 to 256, sphere x radius from (48, 6) to
+    (49152, 68)), each printed with its host precompute's seconds."""
+    out = {}
+    builders = {
+        "demo9": lambda: jt.RefinementField(
+            jt.CoordinateChart(shape0=(14,), depth=5, distances0=(1.0,),
+                               nonlinear_map=lambda reg: np.expm1(0.35 * reg)), matern32()),
+        "4100^2": lambda: jt.RefinementField(chart_4100(jt), matern32()),
+        "sphere nside 256": lambda: jt.RefinementHPField(jt.HEALPixChart(4, depth=6),
+                                                         matern32(0.5)),
+        "sphere x radius": lambda: jt.RefinementHPField(jt.HEALPixChart(
+            2, depth=5, radial_chart=jt.CoordinateChart(6, depth=5, distances0=0.5,
+                                                        nonlinear_map=np.exp)), matern32()),
+    }
+    for name, build in builders.items():
+        t0 = time.perf_counter()
+        f = out[name] = build()
+        synchronize(jt)
+        seconds = time.perf_counter() - t0
+        mats = sum(lv.olf.numel() + lv.ker.numel() for lv in f.levels) * 8
+        print(f"ICR field {name}: levels {[lv.fine_shape for lv in f.levels]}, "
+              f"{sum(v.size for v in f.domain.values())} latent dof, matrices "
+              f"{mats / 2**20:.1f} MiB on the device, host precompute {seconds:.3f} s",
+              flush=True)
+    return out
+
+
+@phase("19 a 4100^2 deformed chart: exp(0.5 gp) on a third of the pixels, 1 update")
+def phase_4100(jt, gp, with_profile):
+    """Demo 9's model on phase 19's chart (22.4 M latent dof): exp(0.5 gp)
+    observed on a third of the 16.8 M pixels with noise 0.05, data from the
+    prior; `BENCH_KWARGS` with the sample loop for both stages."""
+    _, response = masked_signal(jt, gp, int(np.prod(gp.chart.shape)), DEMO9_MASK_SEED)
+    lh, _ = icr_gaussian(jt, response, jt.HostKey(19), 19, DEMO9_NOISE)
+    counts = drive_icr(jt, "4100^2 deformed chart", lh, gp, residual_map="smap", kl_map="smap")
+    if with_profile:
+        profile_update(jt, "4100^2 deformed chart", lh, residual_map="smap", kl_map="smap")
+    return counts
+
+
+def icr_kernel_entries(kres, paths):
+    """The `kernels` line's entries of the two refinement kernels: one for
+    each kernel, field level and number of rows that the runs in `paths`
+    ({field name: (field, {run: counts})}) launched, with phase 17's numbers
+    for that shape; fails on a shape that phase 17 did not check."""
+    src = "nifty_tpu_torch/csrc/icr_refine.cu"
+    entries = []
+    for name, (field, runs) in paths.items():
+        replaces = ("nifty_tpu/refine/charted_field.py:283" if hasattr(field.chart, "coarse_size")
+                    else "nifty_tpu/refine/healpix_field.py:190")
+        for lv, level in enumerate(field.levels):
+            for kind in ("refine", "transpose"):
+                by_run = {run: {b: n for (key, b), n in c[kind].items() if key == level.key}
+                          for run, c in runs.items()}
+                for nrows in sorted(set().union(*by_run.values())):
+                    label = f"{name} L{lv} B={nrows}"
+                    if label not in kres:
+                        raise AssertionError(
+                            f"the main path launched icr_{kind} at {label}, a shape that phase "
+                            f"17 did not hold against the plain version")
+                    r = kres[label]
+                    first = next(c[nrows] for c in by_run.values() if c.get(nrows))
+                    entries.append(dict(
+                        name=f"icr_{kind} (K9, {label}, {level.coarse_shape} -> "
+                             f"{level.fine_shape}, float64)",
+                        route="cuda", source=src,
+                        replaces=f"{replaces} (XLA in the JAX package, not Pallas)",
+                        launches=first,
+                        launches_by_run={run: c.get(nrows, 0) for run, c in by_run.items()},
+                        max_abs_err=r[f"{kind}_err"], ms=r[f"{kind}_device_ms"],
+                        plain_ms=r[f"{kind}_plain_device_ms" if kind == "refine"
+                                   else "transpose_plain_ms"],
+                        bound_ms=r[f"{kind}_bound_ms"], bound_by=r[f"{kind}_bound_by"],
+                        library_ms=r[f"{kind}_library_ms"],
+                    ))
+    return entries
+
+
 def profile_update(jt, label, lh, top=12, **maps):
     """One warm-up update, then one under ``torch.profiler``: its wall time
     (inflated by the profiler), the summed device time of its kernels and
@@ -1000,7 +1425,7 @@ def kernel_entries(kres, paths, src):
 
 
 def main(argv):
-    """``--profile``: after phases 5, 6, 8, 12 and 15, profile one more
+    """``--profile``: after phases 5, 6, 8, 12, 15 and 19, profile one more
     update of each config (device busy share and the costliest kernels)."""
     with_profile = "--profile" in argv
     phase_device()
@@ -1128,6 +1553,26 @@ def main(argv):
     del lh1024p
     c_density = phase_density(jt)
 
+    # iterative charted refinement: the fields' host precompute, the kernels
+    # at every (level, rows) shape phases 18-21 launch (demo 9's lockstep
+    # stages give 1, 4 and 8 rows; the sample loop of 19-21 one), then the
+    # four cells
+    icr = build_icr_fields(jt)
+    kres_icr = phase_icr_kernels({
+        f"{name} L{lv} B={rows}": (level, rows)
+        for name, field in icr.items() for lv, level in enumerate(field.levels)
+        for rows in ((1, 2, 4, 8) if name == "demo9" else (1,))})
+    c_demo9 = phase_demo9(jt, icr["demo9"])
+    c_4100 = phase_4100(jt, icr["4100^2"], with_profile)
+    sphere = icr["sphere nside 256"]
+    c_sphere = phase("20 a HEALPix sphere, nside 4 -> 256, Gaussian, 1 update")(drive_icr)(
+        jt, "sphere nside 256", build_likelihood(jt, sphere, jt.HostKey(20)), sphere,
+        residual_map="smap", kl_map="smap")
+    radial = icr["sphere x radius"]
+    c_radial = phase("21 sphere x radius, (48, 6) -> (49152, 68), Gaussian, 1 update")(drive_icr)(
+        jt, "sphere x radius", build_likelihood(jt, radial, jt.HostKey(21)), radial,
+        residual_map="smap", kl_map="smap")
+
     src = "nifty_tpu_torch/csrc/bin_gather.cu"
     tpu = "nifty_tpu/ops/pallas_gather.py"
     # each map with the TPU kernels its gather and segment sum replace and
@@ -1150,7 +1595,12 @@ def main(argv):
         ("512^2 unbinned", map512, *k5, {"space_x_frequency": c512}),
         ("256 (1-D)", map256, *k1k2, {"density": c_density}),
     ]
-    print(json.dumps({"kernels": kernel_entries(kres, paths, src)}))
+    icr_paths = {"demo9": (icr["demo9"], {"demo9": c_demo9}),
+                 "4100^2": (icr["4100^2"], {"4100^2": c_4100}),
+                 "sphere nside 256": (sphere, {"sphere": c_sphere}),
+                 "sphere x radius": (radial, {"sphere_x_radius": c_radial})}
+    print(json.dumps({"kernels": kernel_entries(kres, paths, src)
+                      + icr_kernel_entries(kres_icr, icr_paths)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -1,5 +1,6 @@
-"""PyTorch port of nifty_tpu: geoVI on correlated fields, with hand-written
-CUDA kernels for the power distributor.
+"""PyTorch port of nifty_tpu: geoVI on correlated fields and iterative
+charted refinement, with hand-written CUDA kernels for the power
+distributor and the refinement step.
 
 The package mirrors ``nifty_tpu``'s layout and public names and imports
 ``torch``, ``numpy`` and ``scipy`` only, never ``jax``.
@@ -58,6 +59,14 @@ from .models import (
 )
 from .optimize_kl import OptimizeVI, OptimizeVIState, optimize_kl
 from .probing import approximation2endo
+from .refine import (
+    CoordinateChart,
+    HEALPixChart,
+    RefinementField,
+    RefinementHPField,
+    coarse_windows,
+    refinement_matrices,
+)
 from .prior import (
     GammaPrior,
     InvGammaPrior,

@@ -7,3 +7,4 @@ from .bin_gather import (
     sorted_scatter_aux,
 )
 from .harmonic import hartley
+from .icr_refine import IcrRefine, IcrRefineTranspose, RefineLevel, refine_level

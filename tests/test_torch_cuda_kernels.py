@@ -352,3 +352,134 @@ def _check_1d_map(cuda, dtype, nrows, n):
     plain = bg.bin_segment_sum_plain(cot, dist.perm, dist.offsets)
     scale = bg.bin_segment_sum_plain(cot.abs(), dist.perm, dist.offsets)
     assert bool(torch.all((s1 - plain).abs() <= RTOL[dtype] * scale))
+
+
+# -- the refinement step (K9) ----------------------------------------------
+
+
+def _icr_fields():
+    """name -> (dtype, device -> field): every window route a level can
+    take (uniform, periodic, the 5 x 4 jump stencil, a deformed chart, three
+    axes), the HEALPix sphere (windows that repeat their centre) and sphere
+    x radius (27-point windows, 8 children)."""
+    from nifty_tpu_torch.refine import (
+        CoordinateChart,
+        HEALPixChart,
+        RefinementField,
+        RefinementHPField,
+    )
+
+    def matern(r):
+        return (1.0 + r) * torch.exp(-r)
+
+    def warp(reg):
+        return np.stack([reg[..., 0] + 0.3 * np.sin(reg[..., 0]), reg[..., 1]], axis=-1)
+
+    def charted(*args, **kw):
+        return lambda dtype, dev: RefinementField(CoordinateChart(*args, **kw), matern,
+                                                  dtype=dtype, device=dev)
+
+    def sphere(*args, **kw):
+        return lambda dtype, dev: RefinementHPField(HEALPixChart(*args, **kw), matern,
+                                                    dtype=dtype, device=dev)
+
+    return {
+        "periodic": charted((8, 8), depth=2, distances0=0.5, periodic=(True, False)),
+        "jump_5_4": charted((8, 7), depth=1, distances0=0.4, coarse_size=5, fine_size=4,
+                            fine_strategy="jump"),
+        "deformed": charted((8, 7), depth=2, distances0=0.4, nonlinear_map=warp),
+        "three_axes": charted((6, 5, 5), depth=1, distances0=0.4, coarse_size=5,
+                              periodic=(False, True, False)),
+        "sphere": sphere(2, depth=3),
+        "sphere_radius": sphere(1, depth=2, radial_chart=CoordinateChart(
+            5, depth=2, distances0=0.2, nonlinear_map=lambda x: 1.0 + x)),
+    }
+
+
+@pytest.mark.parametrize("case", ["periodic", "jump_5_4", "deformed", "three_axes", "sphere",
+                                  "sphere_radius"])
+@pytest.mark.parametrize("nrows", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_icr_kernels_match_plain_versions(cuda, case, nrows, dtype):
+    """Each level's step and transpose against the plain versions, within
+    1e-12 (float64) or 1e-5 (float32) of the plain output's largest entry
+    (the same products summed in another order), bitwise equal when run
+    twice (no atomics) and when replayed from a CUDA graph."""
+    from nifty_tpu_torch.ops import icr_refine as ir
+
+    field = _icr_fields()[case](dtype, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(nrows)
+    for level in field.levels:
+        coarse = torch.randn((nrows, level.n_coarse), dtype=dtype, device=cuda, generator=gen)
+        xi = torch.randn((nrows, level.S * level.F), dtype=dtype, device=cuda, generator=gen)
+        cot = torch.randn((nrows, level.n_fine), dtype=dtype, device=cuda, generator=gen)
+        before = (ir.icr_refine.launches, ir.icr_refine_transpose.launches,
+                  ir.icr_refine.launches_by_level[level.key, nrows])
+        y1, y2 = ir.icr_refine(coarse, xi, level), ir.icr_refine(coarse, xi, level)
+        t1, t2 = ir.icr_refine_transpose(cot, level), ir.icr_refine_transpose(cot, level)
+        torch.cuda.synchronize()
+        assert (ir.icr_refine.launches, ir.icr_refine_transpose.launches,
+                ir.icr_refine.launches_by_level[level.key, nrows]) == (
+            before[0] + 2, before[1] + 2, before[2] + 2)
+        assert torch.equal(y1, y2) and all(map(torch.equal, t1, t2))
+        assert torch.equal(_graph_replay(lambda: ir.icr_refine(coarse, xi, level)), y1)
+        want = ir.icr_refine_plain(coarse, xi, level)
+        torch.testing.assert_close(y1, want, rtol=0, atol=RTOL[dtype] * float(want.abs().max()))
+        for got, want in zip(t1, ir.icr_refine_transpose_plain(cot, level)):
+            torch.testing.assert_close(got, want, rtol=0,
+                                       atol=RTOL[dtype] * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("case", ["deformed", "sphere_radius"])
+def test_icr_field_derivatives_on_the_card_match_the_cpu(cuda, case):
+    """Forward, jvp, vjp and the recorded linearization of an ICR field with
+    a leading batch axis of 2 run the kernels on the card and agree with
+    the plain versions on the CPU (1e-12)."""
+    from nifty_tpu_torch.ops import icr_refine as ir
+
+    build = _icr_fields()[case]
+    rng = np.random.default_rng(2)
+    cpu = build(torch.float64, torch.device("cpu"))
+    lat = {k: rng.standard_normal((2,) + v.shape) for k, v in cpu.domain.items()}
+    tan = {k: rng.standard_normal((2,) + v.shape) for k, v in cpu.domain.items()}
+    cot = rng.standard_normal((2,) + tuple(cpu(
+        {k: torch.from_numpy(v) for k, v in lat.items()}).shape[1:]))
+
+    def run(field, device):
+        x, t = ({k: torch.from_numpy(v).to(device) for k, v in d.items()} for d in (lat, tan))
+        c = torch.from_numpy(cot).to(device)
+        y, jt_ = torch.func.jvp(field, (x,), (t,))
+        _, vjp_fn = torch.func.vjp(field, x)
+        _, jvp_lin, vjp_lin = linearize(field, x)
+        out = [y, jt_, jvp_lin(t)] + [v for g in (vjp_fn(c)[0], vjp_lin(c)) for v in g.values()]
+        return [r.cpu() for r in out]
+
+    launches = ir.icr_refine.launches
+    on_card, on_cpu = run(build(torch.float64, cuda), cuda), run(cpu, torch.device("cpu"))
+    assert ir.icr_refine.launches > launches
+    for got, want in zip(on_card, on_cpu):
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12 * float(want.abs().max()))
+
+
+def test_icr_wrappers_raise_on_bad_tables_and_inputs(cuda):
+    from nifty_tpu_torch.ops import icr_refine as ir
+
+    olf, ker = torch.ones((2, 1, 3), dtype=torch.float64), torch.ones((2, 1, 1), dtype=torch.float64)
+    with pytest.raises(ValueError, match="lie in"):  # a window entry off the coarse grid
+        ir.RefineLevel((3,), [np.array([[0, 1, 3], [1, 2, 2]])], (1,), olf, ker, (2,))
+    with pytest.raises(ValueError, match="neither 1 nor the sites"):
+        ir.RefineLevel((3,), [np.array([[0, 1, 2], [1, 2, 2]])], (1,), olf, ker, (3,))
+    level = ir.RefineLevel((3,), [np.array([[0, 0, 1], [1, 2, 2]])], (1,), olf, ker, (2,))
+    coarse, xi = torch.ones((1, 3), device=cuda, dtype=torch.float64), torch.ones(
+        (1, 2), device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError, match="on cpu"):  # the level stays on the CPU
+        ir.icr_refine(coarse, xi, level)
+    level = level.to(cuda)
+    with pytest.raises(TypeError, match="matrices"):
+        ir.icr_refine(coarse.float(), xi.float(), level)
+    with pytest.raises(ValueError, match="shape"):
+        ir.icr_refine_transpose(torch.ones((1, 3), device=cuda, dtype=torch.float64), level)
+    # repeated window entries add up on the card too
+    cot_c, cot_x = ir.icr_refine_transpose(torch.ones((1, 2), device=cuda, dtype=torch.float64),
+                                           level)
+    assert cot_c.tolist() == [[2.0, 2.0, 2.0]] and cot_x.tolist() == [[1.0, 1.0]]
