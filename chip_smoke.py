@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's geoVI main path once on one NVIDIA card:
 Gaussian, Poisson-count, Bernoulli and density-estimation maps on
-correlated fields, and iterative charted refinement (ICR) fields on a
-deformed chart, the HEALPix sphere and sphere x radius.
+correlated fields, iterative charted refinement (ICR) fields on a
+deformed chart, the HEALPix sphere and sphere x radius, and spherical
+correlated fields on HEALPix and Gauss-Legendre grids.
 
     python3 chip_smoke.py
 
 Phases (one line each, with its seconds):
 
 1. require a CUDA device and print ``nvidia-smi``'s name and power limit;
-2. build the distributor kernels and the refinement kernels (``nvcc``, one
-   compiler a source, all started together) and the HEALPix core (the
-   host's C++ compiler);
+2. build the distributor kernels, the refinement kernels and the HEALPix
+   longitude kernels (``nvcc``, one compiler a source, all started
+   together) and the HEALPix core (the host's C++ compiler);
 3. hold each kernel against its plain PyTorch version at the main path's
    shapes in float64 and float32 (gather bit-exact; segment sum within
    1e-12 / 1e-5 of the per-bin sum of |cot|, bitwise reproducible, and
@@ -33,8 +34,10 @@ Phases (one line each, with its seconds):
    bins and 9 block items) are among the shapes, as are the 1-D subgrid
    maps of 16 and 64 entries (9 and 33 bins, uint8 index) at 1, 4, 8, 12
    and 24 rows, the 512^2 unbinned full-grid map (22,026 bins, int16
-   index) and the 256-entry 1-D map of ``density_estimator(128, 1/128)``
-   (129 bins, uint8 index) at 1, 2 and 4 rows;
+   index), the 256-entry 1-D map of ``density_estimator(128, 1/128)``
+   (129 bins, uint8 index) at 1, 2 and 4 rows, and the l map of a
+   spherical field at lmax 511 (262,144 modes in 512 bins, int16 index: 16
+   short bins, the rest block items) at 1, 2, 4 and 8 rows;
 4. one 32^2 update on the CPU (plain versions) and on the card (kernels)
    from the same latents and host-drawn noise, once with the sample loop
    (``residual_map="smap"``) and once with the lockstep batched solvers
@@ -43,8 +46,10 @@ Phases (one line each, with its seconds):
    32^2 non-parametric subgrid times an 8-channel Matern subgrid), for
    Poisson counts on the exp of a 32^2 field (``Poissonian``) and for a
    ``LikelihoodSum`` of those counts and a ``Gaussian`` on a second 32^2
-   field (a dict domain of both fields' latents), and for two ICR fields: a
-   deformed 2-D chart (20^2) and sphere x radius (192 x 8);
+   field (a dict domain of both fields' latents), for two ICR fields: a
+   deformed 2-D chart (20^2) and sphere x radius (192 x 8), and for two
+   spherical fields (demo 16's priors): Gauss-Legendre at lmax 16 and
+   HEALPix at lmax 15, nside 8;
 5. the 128^2 unbinned config (``bench.py``'s headline, ``residual_map=
    "vmap"``: the residual stages run the lockstep batched solvers and the
    KL stage stacks the 8 samples): three updates;
@@ -108,14 +113,36 @@ Phases (one line each, with its seconds):
 20. a HEALPix sphere from nside 4 to 256 (786,432 pixels), Gaussian data:
     one update;
 21. sphere x radius (a 3-D dust-map geometry): nside 2 to 64 times a
-    log-spaced radial chart of 6 to 68 shells (3.34 M voxels): one update.
+    log-spaced radial chart of 6 to 68 shells (3.34 M voxels): one update;
+22. the HEALPix longitude stage (K10) and its adjoint against their plain
+    versions at every (nside, rows) shape phase 23 launches (nside 256,
+    mmax 511), in float64 and float32 (within 1e-12 / 1e-5 of the
+    per-output sum of |term|, a term's modulus taken as a complex number),
+    bitwise reproducible and equal to a CUDA-graph replay, with float64
+    device ms beside the bound (bytes and operations), the plain versions'
+    ms and the JAX formulation's with stored phase tables (``torch.einsum``
+    over 64-m chunks against the ``(npix, 512)`` cos and sin tables, built
+    once for the phase);
+23. ``demos/16_spherical_cf.py`` at its full width: the demo's HEALPix
+    sky at lmax 511, nside 256 (786,432 pixels, 262,144 harmonic dof),
+    observed directly as the demo does, with the demo's priors, noise 0.5
+    on the pixels within 0.1 of the middle of the ring order (the
+    equatorial band) and 0.1 elsewhere, data from the prior,
+    ``optimize_kl`` with the demo's schedule (4 iterations of 4 pairs, the
+    sample loop for both stages): the posterior mean's rms error below the
+    truth's rms, the demo's check; fails unless K10, K10^T and both
+    distributor kernels launched;
+24. a Gauss-Legendre sphere at grid scale: lmax 511 (512 x 1024 = 524,288
+    pixels), ``bench.py``'s amplitude priors, noise 0.1, ``BENCH_KWARGS``,
+    the sample loop: one update.
 
 The port places models, latents and data on the card by default; only
 phase 4's CPU run asks for the CPU (``config.update("device", "cpu")``).
-Phases 5 to 16 reset the kernels' launch counts just before they drive
-their path and fail unless both kernels launched (phases 11, 12 and 16: on
-every subgrid's map); phases 18 to 21 do the same for the two refinement
-kernels at every level of their field.  Phases 5 to 16 print each kernel's calls and the kernels those
+Phases 5 to 16 and 23 to 24 reset the kernels' launch counts just before
+they drive their path and fail unless both distributor kernels launched
+(phases 11, 12 and 16: on every subgrid's map; phase 23 also both K10
+kernels); phases 18 to 21 do the same for the two refinement kernels at
+every level of their field.  Phases 5 to 16 print each kernel's calls and the kernels those
 calls launched (for the segment sum two a call where a bin is split, for
 the gather two where a large table is first copied rows-innermost), by
 rows and by map.  Any failure raises, so the exit code is nonzero and no
@@ -133,13 +160,17 @@ for each kernel, field level and number of rows phases 18 to 21 launched,
 with phase 17's numbers (a shape phase 17 did not check fails the run);
 their ``plain_ms`` is a CUDA-graph replay for the step and CUDA events for
 the transpose (an autograd pull-back), ``library_ms`` ``conv2d`` +
-``pixel_shuffle`` where the level is 2-D, else null.
+``pixel_shuffle`` where the level is 2-D, else null.  K10's entries are one
+for each direction and number of rows phase 23 launched, with phase 22's
+numbers (a shape phase 22 did not check fails the run): ``plain_ms`` and
+``table_ms`` by CUDA events, ``library_ms`` null (no PyTorch call computes
+the stage).
 
     python3 chip_smoke.py --profile
 
-adds, after phases 5, 6, 8, 12, 15 and 19, one more update of each config
-under ``torch.profiler``: the device's busy share and the costliest
-kernels.
+adds, after phases 5, 6, 8, 12, 15, 19, 23 and 24, one more update of
+each config under ``torch.profiler``: the device's busy share and the
+costliest kernels.
 """
 
 import json
@@ -194,10 +225,10 @@ ADAPTIVE_KWARGS = dict(
     sample_mode="nonlinear_resample",
 )
 SEGSUM_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
-# NVIDIA's data sheet for the H100 SXM: device memory rate, and the float32
-# and float64 rates outside the tensor cores
+# NVIDIA's data sheet for the H100 SXM: device memory rate, the float32 rate
+# outside the tensor cores and the float64 rate on them (outside them 34e12)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 67e12}
 # launch counts of three 128^2 updates with the residual stages a loop over
 # samples (NVIDIA H100 80GB HBM3, 700.00 W), to print beside the lockstep ones
 LOOP_COUNTS_128 = dict(gather=1516, segsum=1454)
@@ -269,6 +300,28 @@ def build_field_total_n(jt):
         renormalize_amplitude=True, prefix="freq",
     )
     return cfm.finalize(total_N=3, dofdex=[0, 0, 1])
+
+
+def build_sphere(jt, lmax, harmonic_type, prefix="sky"):
+    """`demos/16_spherical_cf.py`'s field on a HEALPix (default nside (lmax +
+    1) // 2) or Gauss-Legendre grid: offset (0, (0.3, 0.1)), fluctuations
+    (1, 0.5), slope (-3, 0.2), flexibility (1, 0.5)."""
+    cfm = jt.CorrelatedFieldMaker(prefix)
+    cfm.set_amplitude_total_offset(offset_mean=0.0, offset_std=(3e-1, 1e-1))
+    cfm.add_fluctuations(lmax, distances=1.0, harmonic_type=harmonic_type,
+                         fluctuations=(1.0, 5e-1), loglogavgslope=(-3.0, 2e-1),
+                         flexibility=(1e0, 5e-1))
+    return cfm.finalize()
+
+
+def build_bench_sphere(jt, lmax):
+    """`bench.py`'s amplitude priors on a Gauss-Legendre sphere."""
+    cfm = jt.CorrelatedFieldMaker("cf")
+    cfm.set_amplitude_total_offset(offset_mean=1.0, offset_std=(1e-1, 3e-2))
+    cfm.add_fluctuations(lmax, distances=1.0, harmonic_type="spherical",
+                         fluctuations=(1.0, 5e-1), loglogavgslope=(-3.0, 2e-1),
+                         flexibility=(1e0, 5e-1), asperity=(5e-1, 5e-2))
+    return cfm.finalize()
 
 
 def matern32(scale=1.0):
@@ -462,14 +515,15 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from nifty_tpu_torch.ops import bin_gather as bg
-    from nifty_tpu_torch.ops import healpix, icr_refine
+    from nifty_tpu_torch.ops import healpix, hp_longitude, icr_refine
     from nifty_tpu_torch.ops.cuda_build import BUILD_LOG
 
     t0 = time.perf_counter()
-    # one compiler a source, all started together: the two CUDA libraries
+    # one compiler a source, all started together: the three CUDA libraries
     # and the host's HEALPix core
-    with ThreadPoolExecutor(3) as pool:
-        for job in [pool.submit(fn) for fn in (bg._kernels, icr_refine._kernels, healpix._lib)]:
+    builds = (bg._kernels, icr_refine._kernels, hp_longitude._kernels, healpix._lib)
+    with ThreadPoolExecutor(len(builds)) as pool:
+        for job in [pool.submit(fn) for fn in builds]:
             job.result()
     print(f"kernel build+load {time.perf_counter() - t0:.3f} s", flush=True)
     for name, (secs, log) in BUILD_LOG.items():
@@ -591,8 +645,8 @@ def phase_kernels(cases):
     return results
 
 
-@phase("4 32^2, 32^2 x Matern 8 (total_N=3), 32^2 Poissonian, a Poissonian + Gaussian sum and "
-       "two ICR fields: updates, CPU vs card, sample loop and lockstep")
+@phase("4 32^2, 32^2 x Matern 8 (total_N=3), 32^2 Poissonian, a Poissonian + Gaussian sum, "
+       "two ICR fields and two spherical fields: updates, CPU vs card, sample loop and lockstep")
 def phase_cpu_vs_card(jt):
     counts = {}  # each Poisson field's counts, drawn once (on the CPU's rates)
 
@@ -622,6 +676,12 @@ def phase_cpu_vs_card(jt):
             jt.HEALPixChart(1, depth=2, radial_chart=jt.CoordinateChart(
                 5, depth=2, distances0=0.5, nonlinear_map=lambda x: 1.0 + x)),
             matern32(0.3)), jt.HostKey(0)),
+        # spherical fields with demo 16's priors: Gauss-Legendre (17 x 34)
+        # and HEALPix (nside 8, 768 pixels; K10 on the card)
+        "Gauss-Legendre sphere lmax 16": lambda: build_likelihood(
+            jt, build_sphere(jt, 16, "spherical"), jt.HostKey(0)),
+        "HEALPix sphere lmax 15, nside 8": lambda: build_likelihood(
+            jt, build_sphere(jt, 15, "healpix"), jt.HostKey(0)),
     }
     for name, build in likelihoods.items():
         for rmap in ("smap", "vmap"):
@@ -1355,6 +1415,237 @@ def icr_kernel_entries(kres, paths):
     return entries
 
 
+# -- spherical correlated fields (phases 22-24) ---------------------------------
+
+HP_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+# phase 23: demo 16's seed (truth, noise, start)
+DEMO16_SEED = 33
+
+
+def hp_bound_ms(rings, nm, nrows, size, peak_ops_per_s):
+    """The least time of one K10 call (either direction) on the card, summed
+    directly: the planes (B, 2, nm, nrings) read or written once and the
+    maps (B, npix) written or read once, over the memory rate, or the sum's
+    two multiply-adds a (pixel, m), 4 operations, over the arithmetic rate;
+    which of the two is larger; and the bytes' time alone, the bound of a
+    ring-FFT form, whose operations are far fewer."""
+    by_bytes = 1e3 * nrows * (2 * nm * rings.nrings + rings.npix) * size / PEAK_BYTES_PER_S
+    by_ops = 1e3 * 4.0 * nrows * rings.npix * nm / peak_ops_per_s
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations", by_bytes
+
+
+@phase("22 the HEALPix longitude kernels (K10) vs plain")
+def phase_hp_kernels(cases):
+    """`cases`: {label: (HPRings on the card, nm, rows)}.  K10 and its
+    adjoint against the plain versions in float64 and float32 (within 1e-12
+    / 1e-5 of the per-output sum of |term|), bitwise reproducible and
+    bitwise equal when replayed from a CUDA graph; float64 device ms (50
+    calls in a replayed CUDA graph) beside the bound, the plain versions'
+    and the stored-table route's ms (CUDA events around 5 calls)."""
+    from nifty_tpu_torch.ops import hp_longitude as hl
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    results, tables = {}, {}
+    for label, (rings, nm, nrows) in cases.items():
+        for dtype in (torch.float64, torch.float32):
+            F = torch.randn((nrows, 2, nm, rings.nrings), dtype=dtype, device=dev, generator=gen)
+            ct = torch.randn((nrows, rings.npix), dtype=dtype, device=dev, generator=gen)
+            y1, y2 = hl.hp_longitude(F, rings), hl.hp_longitude(F, rings)
+            g1, g2 = hl.hp_longitude_adjoint(ct, rings, nm), hl.hp_longitude_adjoint(ct, rings, nm)
+            y_plain, g_plain = hl.hp_longitude_plain(F, rings), hl.hp_longitude_adjoint_plain(
+                ct, rings, nm)
+            torch.cuda.synchronize()
+            if not (torch.equal(y1, y2) and torch.equal(g1, g2)):
+                raise AssertionError(f"the K10 kernels do not repeat ({label}, {dtype})")
+            if not (torch.equal(y1, replayed(lambda: hl.hp_longitude(F, rings)))
+                    and torch.equal(g1, replayed(lambda: hl.hp_longitude_adjoint(ct, rings, nm)))):
+                raise AssertionError(
+                    f"the K10 kernels differ when replayed from a CUDA graph ({label}, {dtype})")
+            tiny = torch.finfo(dtype).tiny
+            rels = [float(((got - want).abs() / scale.clamp_min(tiny)).max())
+                    for got, want, scale in (
+                        (y1, y_plain, hl.sum_abs_terms(rings, F=F)),
+                        (g1, g_plain, hl.sum_abs_terms(rings, ct=ct)))]
+            if max(rels) > HP_RTOL[dtype]:
+                raise AssertionError(f"the K10 kernels are off their plain versions by {rels} of "
+                                     f"the per-output sum of |term| ({label}, {dtype})")
+            if dtype != torch.float64:
+                continue
+            key = (rings.npix, nm)
+            if key not in tables:
+                t0 = time.perf_counter()
+                tables[key] = hl.phase_tables(rings, nm, torch.float64)
+                torch.cuda.synchronize()
+                print(f"stored phase tables for npix {rings.npix}, nm {nm}: "
+                      f"{sum(t.numel() * t.element_size() for t in tables[key]) / 2**30:.2f} "
+                      f"GiB, built in {time.perf_counter() - t0:.3f} s",
+                      flush=True)
+            cs = tables[key]
+
+            def synth_t():
+                return hl.hp_longitude_plain(F, rings, cs)
+
+            def adjoint_t():
+                return hl.hp_longitude_adjoint_plain(ct, rings, nm, cs)
+
+            for got, want in ((synth_t(), y_plain), (adjoint_t(), g_plain)):
+                if float((got - want).abs().max()) > 1e-12 * float(want.abs().max()):
+                    raise AssertionError(f"the stored-table route disagrees ({label})")
+            r = dict(synth_err=float((y1 - y_plain).abs().max()),
+                     adjoint_err=float((g1 - g_plain).abs().max()),
+                     synth_rel=rels[0], adjoint_rel=rels[1])
+            r["synth_device_ms"] = device_ms(lambda: hl.hp_longitude(F, rings))
+            r["adjoint_device_ms"] = device_ms(lambda: hl.hp_longitude_adjoint(ct, rings, nm))
+            r["synth_plain_ms"] = cuda_ms(lambda: hl.hp_longitude_plain(F, rings), n=5)
+            r["adjoint_plain_ms"] = cuda_ms(
+                lambda: hl.hp_longitude_adjoint_plain(ct, rings, nm), n=5)
+            r["synth_table_ms"] = cuda_ms(synth_t, n=5)
+            r["adjoint_table_ms"] = cuda_ms(adjoint_t, n=5)
+            *bound, by_bytes = hp_bound_ms(rings, nm, nrows, F.element_size(),
+                                           PEAK_OPS_PER_S[dtype])
+            r["synth_bound_ms"], r["synth_bound_by"] = bound
+            r["adjoint_bound_ms"], r["adjoint_bound_by"] = bound
+            r["bytes_bound_ms"] = by_bytes
+            results[label] = r
+            print(
+                f"{label}: planes ({nrows}, 2, {nm}, {rings.nrings}) <-> maps ({nrows}, "
+                f"{rings.npix}) | float64 ms: synthesis {r['synth_device_ms']:.5f} (plain "
+                f"{r['synth_plain_ms']:.4f}, stored tables {r['synth_table_ms']:.4f}) | adjoint "
+                f"{r['adjoint_device_ms']:.5f} (plain {r['adjoint_plain_ms']:.4f}, stored tables "
+                f"{r['adjoint_table_ms']:.4f}) | bound of the direct sum {bound[0]:.5f} by {bound[1]} "
+                f"(bytes alone, a ring-FFT form's bound, {by_bytes:.5f}) | rel err of sum|term| {rels[0]:.2e} / {rels[1]:.2e}, max abs "
+                f"err {r['synth_err']:.3e} / {r['adjoint_err']:.3e}",
+                flush=True,
+            )
+    del tables
+    torch.cuda.empty_cache()
+    return results
+
+
+def hp_counts():
+    """K10's calls of the kernel route, by (npix, nm, rows)."""
+    from nifty_tpu_torch.ops import hp_longitude as hl
+
+    return {"synth": dict(hl.hp_longitude.launches_by_shape),
+            "adjoint": dict(hl.hp_longitude_adjoint.launches_by_shape)}
+
+
+def hp_text(counts):
+    return " ".join(f"{kind} " + ", ".join(f"npix {npix} nm {nm} B={b}: {n}"
+                                          for (npix, nm, b), n in sorted(c.items()))
+                    for kind, c in counts.items())
+
+
+def demo16_likelihood(jt, sky):
+    """`demos/16_spherical_cf.py`'s data: the truth from the prior (latents
+    drawn on the host from the seed), noise 0.5 on the pixels within 0.1 of
+    the middle of the ring order (the equatorial band) and 0.1 elsewhere
+    (numpy, from the seed).  Returns the likelihood, the truth and the keys
+    of the start and of `optimize_kl`."""
+    k_truth, k_init, k_opt = jt.HostKey(DEMO16_SEED).split(3)
+    with torch.no_grad():
+        truth = sky(sky.init(k_truth))
+    npix = truth.shape[-1]
+    ring = np.abs(np.arange(npix) / npix - 0.5)
+    noise_std = torch.from_numpy(np.where(ring < 0.1, 0.5, 0.1)).to(truth)
+    noise = np.random.default_rng(DEMO16_SEED).standard_normal(npix)
+    data = truth + noise_std * torch.from_numpy(noise).to(truth)
+    lh = jt.Gaussian(data, noise_cov_inv=lambda x: x / noise_std ** 2).amend(sky)
+    return lh, truth, (k_init, k_opt)
+
+
+@phase("23 demos/16_spherical_cf.py: optimize_kl on a HEALPix sky, nside 256, lmax 511")
+def phase_demo16(jt, sky, with_profile):
+    """`demos/16_spherical_cf.py` as written: the sky observed directly
+    (`demo16_likelihood`), `optimize_kl` with 4 iterations of 4 pairs from
+    0.1 times a latent draw, the sample loop for both stages.  The demo's
+    check: the posterior mean's rms error below the truth's rms."""
+    from nifty_tpu_torch.ops import bin_gather as bg
+    from nifty_tpu_torch.ops import hp_longitude as hl
+
+    lh, truth, (k_init, k_opt) = demo16_likelihood(jt, sky)
+    npix = truth.shape[-1]
+    position = {k: 0.1 * v for k, v in lh.init(k_init).items()}
+    n_iters, n_samples = 4, 4
+    torch.cuda.reset_peak_memory_stats()
+    bg.reset_launch_counts()
+    hl.reset_launch_counts()
+    marks = [time.perf_counter()]
+
+    def clock(samples, state):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    samples, state = jt.optimize_kl(
+        lh, position, key=k_opt, n_total_iterations=n_iters, n_samples=n_samples,
+        residual_map="smap", kl_map="smap", callback=clock,
+        draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=60)),
+        nonlinearly_update_kwargs=dict(minimize_kwargs=dict(
+            xtol=1e-3, maxiter=3, cg_kwargs=dict(maxiter=25))),
+        kl_kwargs=dict(minimize_kwargs=dict(xtol=1e-4, maxiter=8, cg_kwargs=dict(maxiter=40))),
+        sample_mode="nonlinear_resample")
+    counts, k10 = launch_counts(bg), hp_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with torch.no_grad():
+        post_mean = torch.stack([sky(s) for s in samples]).mean(0)
+    err = float(torch.sqrt(torch.mean((post_mean - truth) ** 2)))
+    prior_rms = float(truth.std(correction=0))
+    seconds = [b - a for a, b in zip(marks, marks[1:])]
+    energy = float(state.minimization_state.fun)
+    sht = sky.spherical_transform.sht
+    print(f"demo 16 optimize_kl (nside {sht.nside}, lmax {sht.lmax}, {npix} pixels): s/iteration "
+          f"{[round(x, 3) for x in seconds]} ({sum(seconds):.3f} s) | geoVI samples/s "
+          f"{2 * n_samples * n_iters / sum(seconds):.4f} | KL energy {energy!r} | peak mem "
+          f"{peak:.2f} GiB | posterior mean rms error {err:.4f} against the prior rms "
+          f"{prior_rms:.4f} | {len(samples)} samples | K10 calls: {hp_text(k10)} | distributor "
+          f"calls by rows: {rows_text(counts)}", flush=True)
+    if not np.isfinite(energy):
+        raise AssertionError(f"demo 16: non-finite KL energy {energy}")
+    if min(sum(c.values()) for c in k10.values()) <= 0:
+        raise AssertionError(f"demo 16: a K10 kernel never launched: {k10}")
+    require_launches("demo 16", counts, (sky.dist,))
+    if not err < prior_rms:
+        raise AssertionError(f"demo 16: the posterior mean (rms error {err}) is no better than "
+                             f"the prior ({prior_rms})")
+    if with_profile:
+        profile_update(jt, "demo 16 sky", lh, residual_map="smap", kl_map="smap")
+    return counts, k10
+
+
+def hp_kernel_entries(kres, runs, rings, nm, nside):
+    """The `kernels` line's entries of K10 and its adjoint: one for each
+    direction and number of rows that the runs ({run: K10 counts})
+    launched at this grid, with phase 22's numbers; fails on a shape that
+    phase 22 did not check."""
+    src = "nifty_tpu_torch/csrc/hp_longitude.cu"
+    tpu = "nifty_tpu/ops/healpix_sht.py"
+    entries = []
+    for kind, name, line in (("synth", "hp_longitude", 51),
+                             ("adjoint", "hp_longitude_adjoint", 78)):
+        by_run = {run: {b: n for (npix, m, b), n in c[kind].items()
+                        if (npix, m) == (rings.npix, nm)}
+                  for run, c in runs.items()}
+        for nrows in sorted(set().union(*by_run.values())):
+            label = f"nside {nside} mmax {nm - 1} B={nrows}"
+            if label not in kres:
+                raise AssertionError(f"the main path launched {name} at {label}, a shape that "
+                                     f"phase 22 did not hold against the plain version")
+            r = kres[label]
+            entries.append(dict(
+                name=f"{name} (K10, {label}, float64)", route="cuda", source=src,
+                replaces=f"{tpu}:{line} (XLA in the JAX package, not Pallas)",
+                launches=next(c[nrows] for c in by_run.values() if c.get(nrows)),
+                launches_by_run={run: c.get(nrows, 0) for run, c in by_run.items()},
+                max_abs_err=r[f"{kind}_err"], ms=r[f"{kind}_device_ms"],
+                plain_ms=r[f"{kind}_plain_ms"], table_ms=r[f"{kind}_table_ms"],
+                bound_ms=r[f"{kind}_bound_ms"], bound_by=r[f"{kind}_bound_by"],
+                bytes_bound_ms=r["bytes_bound_ms"], library_ms=None,
+            ))
+    return entries
+
+
 def profile_update(jt, label, lh, top=12, **maps):
     """One warm-up update, then one under ``torch.profiler``: its wall time
     (inflated by the profiler), the summed device time of its kernels and
@@ -1425,8 +1716,9 @@ def kernel_entries(kres, paths, src):
 
 
 def main(argv):
-    """``--profile``: after phases 5, 6, 8, 12, 15 and 19, profile one more
-    update of each config (device busy share and the costliest kernels)."""
+    """``--profile``: after phases 5, 6, 8, 12, 15, 19, 23 and 24, profile
+    one more update of each config (device busy share and the costliest
+    kernels)."""
     with_profile = "--profile" in argv
     phase_device()
     import nifty_tpu_torch as jt
@@ -1449,8 +1741,16 @@ def main(argv):
     # phase 16's map: the Matern field of `density_estimator(128, 1/128)` on
     # its padded 256-entry grid (129 bins, uint8 index)
     map256 = jt.density_estimator(128, 1.0 / 128)[0].field.dist
+    t3 = time.perf_counter()
+    # phase 23's sky: HEALPix nside 256, lmax 511 (the Legendre table, 2.15 GB
+    # in float64, and the ring table); its l map (262,144 modes, 512 bins)
+    sky = build_sphere(jt, 511, "healpix")
+    sky_sht = sky.spherical_transform.sht
     print(f"field set-up (host mode maps, CSR) {time.perf_counter() - t0:.3f} s, of which 4096^2 "
-          f"unbinned {t2 - t1:.3f} s, 512^2 x 64 {time.perf_counter() - t2:.3f} s", flush=True)
+          f"unbinned {t2 - t1:.3f} s, 512^2 x 64 {t3 - t2:.3f} s, the HEALPix sky (nside "
+          f"{sky_sht.nside}, {sky_sht.nrings} rings, Legendre table "
+          f"{sky_sht.lam.numel() * 8 / 2**30:.2f} GiB) {time.perf_counter() - t3:.3f} s",
+          flush=True)
     # the 1-D maps at the rows the lockstep stages give them (1 for an
     # unbatched call, 4 for the draw of 4 keys, 8 for the curve and the
     # stacked KL stage of 8 samples) and at those rows times total_N = 3
@@ -1461,6 +1761,9 @@ def main(argv):
     # ... and the 256-entry map at the rows of phase 16's 2 pairs: 1 for a
     # model call, 2 for the lockstep draw, 4 for the curve and the KL stage
     small_maps.update({f"256 (1-D) B={rows}": (map256, rows) for rows in (1, 2, 4)})
+    # ... and the l map of phases 23 and 24 (lmax 511) at 1 row for a model
+    # call and 2, 4 and 8 for stacked samples
+    small_maps.update({f"l map lmax 511 B={rows}": (sky.dist, rows) for rows in (1, 2, 4, 8)})
     kres = phase_kernels({
         "4096^2 nb128 quarter B=1": (cf4096.dist, 1),
         # an odd-length map: the second row starts misaligned
@@ -1573,6 +1876,24 @@ def main(argv):
         jt, "sphere x radius", build_likelihood(jt, radial, jt.HostKey(21)), radial,
         residual_map="smap", kl_map="smap")
 
+    # spherical correlated fields: K10 at the rows a model call (1) and
+    # stacked samples (2, 4, 8) give it, then the two cells
+    hp_rings = sky_sht.rings
+    kres_hp = phase_hp_kernels({f"nside 256 mmax 511 B={rows}": (hp_rings, 512, rows)
+                                for rows in (1, 2, 4, 8)})
+    c_demo16, k10_demo16 = phase_demo16(jt, sky, with_profile)
+    del sky, sky_sht
+    torch.cuda.empty_cache()
+    gl = build_bench_sphere(jt, 511)
+    lh_gl = build_likelihood(jt, gl, jt.HostKey(24))
+    c_gl, _ = phase("24 a Gauss-Legendre sphere, lmax 511 (512 x 1024), 1 update")(drive)(
+        jt, "Gauss-Legendre sphere lmax 511", lh_gl, 1, residual_map="smap", kl_map="smap")
+    if with_profile:
+        profile_update(jt, "Gauss-Legendre sphere lmax 511", lh_gl, residual_map="smap",
+                       kl_map="smap")
+    gl_dist = gl.dist
+    del gl, lh_gl
+
     src = "nifty_tpu_torch/csrc/bin_gather.cu"
     tpu = "nifty_tpu/ops/pallas_gather.py"
     # each map with the TPU kernels its gather and segment sum replace and
@@ -1594,13 +1915,15 @@ def main(argv):
         ("64 (1-D)", map64, *k1k2, {"multifrequency": c_mf, "space_x_frequency": c512}),
         ("512^2 unbinned", map512, *k5, {"space_x_frequency": c512}),
         ("256 (1-D)", map256, *k1k2, {"density": c_density}),
+        ("l map lmax 511", gl_dist, *k1k2, {"demo16": c_demo16, "gl_sphere": c_gl}),
     ]
     icr_paths = {"demo9": (icr["demo9"], {"demo9": c_demo9}),
                  "4100^2": (icr["4100^2"], {"4100^2": c_4100}),
                  "sphere nside 256": (sphere, {"sphere": c_sphere}),
                  "sphere x radius": (radial, {"sphere_x_radius": c_radial})}
     print(json.dumps({"kernels": kernel_entries(kres, paths, src)
-                      + icr_kernel_entries(kres_icr, icr_paths)}))
+                      + icr_kernel_entries(kres_icr, icr_paths)
+                      + hp_kernel_entries(kres_hp, {"demo16": k10_demo16}, hp_rings, 512, 256)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

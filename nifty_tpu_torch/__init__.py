@@ -1,13 +1,26 @@
-"""PyTorch port of nifty_tpu: geoVI on correlated fields and iterative
-charted refinement, with hand-written CUDA kernels for the power
-distributor and the refinement step.
+"""PyTorch port of nifty_tpu: geoVI on correlated fields (Fourier subgrids
+and the sphere) and iterative charted refinement, with hand-written CUDA
+kernels for the power distributor, the refinement step and the HEALPix
+longitude stage.
 
 The package mirrors ``nifty_tpu``'s layout and public names and imports
 ``torch``, ``numpy`` and ``scipy`` only, never ``jax``.
 """
 
 from . import config
+from . import domains
 from .custom_map import lmap, smap, vmap
+from .domains import (
+    DOFSpace,
+    Domain,
+    DomainTuple,
+    GLSpace,
+    HPSpace,
+    LMSpace,
+    PowerSpace,
+    RGSpace,
+    UnstructuredDomain,
+)
 from .evi import (
     Samples,
     draw_linear_residual,
@@ -42,6 +55,15 @@ from .likelihood_impl import (
     VariableCovarianceGaussian,
     VariableCovarianceStudentT,
 )
+from .field import (
+    Field,
+    create_power_operator,
+    dof_distributor,
+    from_random,
+    full,
+    makeField,
+    power_analyze,
+)
 from .logger import logger
 from .minisanity import minisanity, reduced_residual_stats
 from .model import Initializer, LazyModel, Model, WrappedCall, wrap, wrap_left
@@ -57,6 +79,8 @@ from .models import (
     matern_amplitude,
     non_parametric_amplitude,
 )
+from .ops.healpix_sht import HEALPixSHT
+from .ops.sht import SphericalHarmonicTransform, SphericalHarmonicTransformOnTheFly
 from .optimize_kl import OptimizeVI, OptimizeVIState, optimize_kl
 from .probing import approximation2endo
 from .refine import (

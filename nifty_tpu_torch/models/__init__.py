@@ -6,6 +6,7 @@ from .correlated_field import (
     SimpleCorrelatedField,
     adjust_variances,
     make_grid,
+    make_spherical_grid,
     matern_amplitude,
     non_parametric_amplitude,
 )

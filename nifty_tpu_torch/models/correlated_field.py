@@ -1,5 +1,6 @@
 """Correlated field model: a GP prior on a product of regular Fourier
-subgrids (counterpart of :mod:`nifty_tpu.models.correlated_field`).
+subgrids, or on the sphere (counterpart of
+:mod:`nifty_tpu.models.correlated_field`).
 
 A field is modeled as
 
@@ -16,8 +17,15 @@ subgrids' total volumes.
 Ported: ``make_grid`` with optional log binning, ``non_parametric_amplitude``,
 ``matern_amplitude``, ``CorrelatedFieldMaker`` with any number of Fourier
 subgrids, ``total_N`` / ``dofdex`` batching and the maker's read-outs,
-``SimpleCorrelatedField`` and ``adjust_variances``.  Spherical subgrids
-(``make_spherical_grid``) are still to be ported.
+``SimpleCorrelatedField`` and ``adjust_variances``.
+
+A spherical subgrid (:func:`make_spherical_grid`; ``harmonic_type``
+``"spherical"`` for a Gauss-Legendre grid, ``"healpix"`` for HEALPix) has
+``(lmax+1)^2`` real harmonic modes, power binned by multipole ``l``, and
+synthesizes the field with a spherical harmonic transform
+(:mod:`nifty_tpu_torch.ops.sht`, :mod:`nifty_tpu_torch.ops.healpix_sht`)
+scaled by ``1/sqrt(4π)``, with volume factor 1; it must be the field's
+only subgrid.
 """
 
 from __future__ import annotations
@@ -39,6 +47,8 @@ from ..ops.harmonic import (
     fourier_mode_index_quarter,
     hartley,
 )
+from ..ops.healpix_sht import HEALPixSHT
+from ..ops.sht import SphericalHarmonicTransform
 from ..stats import lognormal_moments, lognormal_prior, normal_prior
 from ..tree import ShapeWithDtype, random_like
 from .gauss_markov import IntegratedWienerProcess
@@ -65,18 +75,94 @@ RegularFourierGrid = namedtuple(
     defaults=(None,),
 )
 
+# the sphere's "grid": the modes are the (lmax+1)^2 real coefficients,
+# binned by l; `transform` is the spherical synthesis (a module holding the
+# transform's tables)
+SphericalHarmonicGrid = namedtuple(
+    "SphericalHarmonicGrid",
+    (
+        "shape",
+        "power_distributor",
+        "mode_multiplicity",
+        "mode_lengths",
+        "relative_log_mode_lengths",
+        "log_volume",
+        "lmax",
+        "transform",
+    ),
+)
+
+
+class SphericalSynthesis(nn.Module):
+    """The harmonic transform of a spherical subgrid: real coefficients
+    ``(..., (lmax+1)^2)`` -> maps, ``sht.synthesize_real(x) / sqrt(4π)``, so
+    that ``fluctuations`` is the pointwise std of the field."""
+
+    def __init__(self, sht):
+        super().__init__()
+        self.sht = sht
+
+    def forward(self, x):
+        return self.sht.synthesize_real(x) / np.sqrt(4.0 * np.pi)
+
+
+def make_spherical_grid(lmax, nlat=None, nphi=None, *, grid_type: str = "gl",
+                        nside=None) -> RegularCartesianGrid:
+    """Sphere 'grid' metadata (host precompute): l-binned power over
+    (lmax+1)^2 real coefficients; the transform is the exact Gauss-Legendre
+    synthesis (or HEALPix's two-stage synthesis for ``grid_type="healpix"``,
+    default ``nside = (lmax+1) // 2``).  The transform's tables are built on
+    the CPU; ``finalize`` moves them with the field."""
+    lmax = int(lmax)
+    if grid_type.lower() in ("healpix", "hp"):
+        nside = int(nside) if nside is not None else max(1, (lmax + 1) // 2)
+        sht = HEALPixSHT(lmax, nside, device="cpu")
+        sht_grid_shape = (sht.npix,)
+    else:
+        sht = SphericalHarmonicTransform(lmax, nlat=nlat, nphi=nphi, device="cpu")
+        sht_grid_shape = sht.grid_shape
+    ls = np.concatenate(
+        [np.arange(lmax + 1)] + [np.repeat(np.arange(m, lmax + 1), 2) for m in range(1, lmax + 1)]
+    ).astype(np.int32)
+    m_length = np.arange(lmax + 1, dtype=np.float64)
+    m_count = 2 * np.arange(lmax + 1) + 1
+    um = m_length.copy()
+    um[1:] = np.log(um[1:])
+    um[1:] -= um[1]
+    log_vol = um[2:] - um[1:-1]
+    harmonic_grid = SphericalHarmonicGrid(
+        shape=((lmax + 1) ** 2,),
+        power_distributor=ls,
+        mode_multiplicity=m_count,
+        mode_lengths=m_length,
+        relative_log_mode_lengths=um,
+        log_volume=log_vol,
+        lmax=lmax,
+        transform=SphericalSynthesis(sht),
+    )
+    return RegularCartesianGrid(
+        shape=sht_grid_shape, total_volume=4.0 * np.pi, distances=None,
+        harmonic_grid=harmonic_grid,
+    )
+
 
 def make_grid(shape, distances, harmonic_type="fourier",
               n_bins: Optional[int] = None) -> RegularCartesianGrid:
     """Grid metadata incl. the power distributor (host precompute).
 
     ``n_bins`` groups the nonzero modes into at most ``n_bins - 1``
-    log-uniform ``|k|`` bins (bin 0 is the zero mode).
+    log-uniform ``|k|`` bins (bin 0 is the zero mode).  For the spherical
+    types (``"spherical"`` / ``"sphere"`` / ``"sh"``: Gauss-Legendre;
+    ``"healpix"`` / ``"hp"``) ``shape`` is lmax and ``distances`` and
+    ``n_bins`` are not used.
     """
-    if harmonic_type.lower() != "fourier":
-        raise NotImplementedError(
-            f"harmonic_type {harmonic_type!r}: only 'fourier' grids are ported"
-        )
+    kind = harmonic_type.lower()
+    if kind in ("spherical", "sphere", "sh"):
+        return make_spherical_grid(shape)
+    if kind in ("healpix", "hp"):
+        return make_spherical_grid(shape, grid_type="healpix")
+    if kind != "fourier":
+        raise ValueError(f"invalid `harmonic_type` {harmonic_type!r}")
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
     distances = tuple(np.broadcast_to(distances, (len(shape),)).astype(float))
     totvol = float(np.prod(np.array(shape) * np.array(distances)))
@@ -327,6 +413,9 @@ class CorrelatedField(Model):
             for g, uq in zip(grids, self.use_quarters)
         )
         self.target_grids = tuple(grids)
+        # a spherical subgrid (only ever the sole one) has its own transform
+        spherical = isinstance(grids[0].harmonic_grid, SphericalHarmonicGrid)
+        self.spherical_transform = grids[0].harmonic_grid.transform if spherical else None
         self.hartley_fn = hartley if hartley_fn is None else hartley_fn
         self.register_buffer(
             "dofdex", None if dofdex is None else torch.as_tensor(dofdex, dtype=torch.int64)
@@ -405,6 +494,12 @@ class CorrelatedField(Model):
             xin = x
             if tcd is not None and x.is_floating_point() and x.dtype != torch.float32:
                 xin = x.to(torch.float32)
+            if self.spherical_transform is not None:
+                # the sphere's transform carries its own normalization
+                # (volume factor 1)
+                y = self.spherical_transform(xin)
+                x = y.to(x.dtype) if y.dtype != x.dtype else y
+                continue
             y = self.hartley_fn(xin, axes=axes)
             y = y.to(x.dtype) if y.dtype != x.dtype else y
             x = (1.0 / vol) * y
@@ -682,11 +777,16 @@ class CorrelatedFieldMaker:
         grids = tuple(self._target_grids)
         if not grids:
             raise ValueError("add a subgrid with `add_fluctuations*` first")
+        spherical = [isinstance(g.harmonic_grid, SphericalHarmonicGrid) for g in grids]
+        if any(spherical) and len(grids) > 1:
+            raise NotImplementedError(
+                "spherical subgrids are only supported as the sole subgrid")
         excitation_shape = sum((tuple(g.harmonic_grid.shape) for g in grids), ())
         xi_key = self._prefix + "xi"
         self._parameter_tree[xi_key] = ShapeWithDtype(excitation_shape)
         use_quarter = tuple(
-            int(np.prod(g.harmonic_grid.shape)) >= self.QUARTER_MIN_ENTRIES for g in grids
+            not sph and int(np.prod(g.harmonic_grid.shape)) >= self.QUARTER_MIN_ENTRIES
+            for g, sph in zip(grids, spherical)
         )
         domain, parameter_ndims = dict(self._parameter_tree), None
         if total_N > 0:

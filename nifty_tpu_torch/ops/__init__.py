@@ -7,4 +7,7 @@ from .bin_gather import (
     sorted_scatter_aux,
 )
 from .harmonic import hartley
+from .healpix_sht import HEALPixSHT
+from .hp_longitude import HpLongitude, HpLongitudeAdjoint, HPRings
 from .icr_refine import IcrRefine, IcrRefineTranspose, RefineLevel, refine_level
+from .sht import SphericalHarmonicTransform, SphericalHarmonicTransformOnTheFly
