@@ -114,15 +114,22 @@ Phases (one line each, with its seconds):
     one update;
 21. sphere x radius (a 3-D dust-map geometry): nside 2 to 64 times a
     log-spaced radial chart of 6 to 68 shells (3.34 M voxels): one update;
-22. the HEALPix longitude stage (K10) and its adjoint against their plain
-    versions at every (nside, rows) shape phase 23 launches (nside 256,
-    mmax 511), in float64 and float32 (within 1e-12 / 1e-5 of the
-    per-output sum of |term|, a term's modulus taken as a complex number),
-    bitwise reproducible and equal to a CUDA-graph replay, with float64
-    device ms beside the bound (bytes and operations), the plain versions'
-    ms and the JAX formulation's with stored phase tables (``torch.einsum``
-    over 64-m chunks against the ``(npix, 512)`` cos and sin tables, built
-    once for the phase);
+22. the HEALPix longitude stage (K10, ring FFTs) and its adjoint against
+    their plain versions at every (nside, rows) shape phase 23 launches
+    (nside 256, mmax 511), in float64 and float32 (within 1e-12 / 1e-5 of
+    the per-output sum of |term|, a term's modulus taken as a complex
+    number), bitwise reproducible and equal to a CUDA-graph replay, with
+    float64 device ms beside the bound (the bytes, or the ring FFTs'
+    operations where larger) and the share of it reached, the same ring FFT
+    form in ``torch.fft`` (the library route), the plain versions' ms and
+    the JAX formulation's with stored phase tables (the plain loop over
+    64-m chunks of the ``(512, npix)`` cos and sin tables, built once for
+    the phase), and each block's shared memory; then nside 2048 at mmax
+    511, one row (50,331,648 pixels; its 2046 polar rings of more than 4096
+    pixels transform in the workspace), held to the same tolerances against
+    the plain versions on 51 of its rings from pole to pole (the whole
+    grid's phase chunks would not fit the card), repeated and replayed,
+    timed beside the bound;
 23. ``demos/16_spherical_cf.py`` at its full width: the demo's HEALPix
     sky at lmax 511, nside 256 (786,432 pixels, 262,144 harmonic dof),
     observed directly as the demo does, with the demo's priors, noise 0.5
@@ -131,7 +138,8 @@ Phases (one line each, with its seconds):
     ``optimize_kl`` with the demo's schedule (4 iterations of 4 pairs, the
     sample loop for both stages): the posterior mean's rms error below the
     truth's rms, the demo's check; fails unless K10, K10^T and both
-    distributor kernels launched;
+    distributor kernels launched; prints the KL energy's change from the
+    one it ended at with K10 summed directly;
 24. a Gauss-Legendre sphere at grid scale: lmax 511 (512 x 1024 = 524,288
     pixels), ``bench.py``'s amplitude priors, noise 0.1, ``BENCH_KWARGS``,
     the sample loop: one update.
@@ -163,14 +171,21 @@ the transpose (an autograd pull-back), ``library_ms`` ``conv2d`` +
 ``pixel_shuffle`` where the level is 2-D, else null.  K10's entries are one
 for each direction and number of rows phase 23 launched, with phase 22's
 numbers (a shape phase 22 did not check fails the run): ``plain_ms`` and
-``table_ms`` by CUDA events, ``library_ms`` null (no PyTorch call computes
-the stage).
+``table_ms`` by CUDA events, ``library_ms`` the ``torch.fft`` route (one
+batched transform a distinct ring length) from a CUDA-graph replay.
 
     python3 chip_smoke.py --profile
 
 adds, after phases 5, 6, 8, 12, 15, 19, 23 and 24, one more update of
 each config under ``torch.profiler``: the device's busy share and the
 costliest kernels.
+
+    python3 chip_smoke.py --witness
+
+adds, after phase 23, the same fit with K10 and its adjoint replaced by
+their ``torch.fft`` route, and prints its KL energy beside the kernel's and
+the direct sum's (how far another rounding of the same ring FFTs moves the
+energy).
 """
 
 import json
@@ -529,7 +544,7 @@ def phase_build():
     for name, (secs, log) in BUILD_LOG.items():
         print(f"build {name}: {secs:.3f} s", flush=True)
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print("  " + line.strip(), flush=True)
 
 
@@ -1418,30 +1433,90 @@ def icr_kernel_entries(kres, paths):
 # -- spherical correlated fields (phases 22-24) ---------------------------------
 
 HP_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
-# phase 23: demo 16's seed (truth, noise, start)
+# phase 23: demo 16's seed (truth, noise, start), and the KL energy it ended
+# at on an NVIDIA H100 when K10 summed over m directly at every pixel (the
+# ring FFTs round otherwise, and CG carries that into the energy)
 DEMO16_SEED = 33
+DEMO16_DIRECT_SUM_ENERGY = 548180.5151734444
 
 
 def hp_bound_ms(rings, nm, nrows, size, peak_ops_per_s):
-    """The least time of one K10 call (either direction) on the card, summed
-    directly: the planes (B, 2, nm, nrings) read or written once and the
-    maps (B, npix) written or read once, over the memory rate, or the sum's
-    two multiply-adds a (pixel, m), 4 operations, over the arithmetic rate;
-    which of the two is larger; and the bytes' time alone, the bound of a
-    ring-FFT form, whose operations are far fewer."""
+    """The least time of one K10 call (either direction) on the card: the
+    planes (B, 2, nm, nrings) read or written once and the maps (B, npix)
+    written or read once, over the memory rate, or the ring FFT form's
+    operations, 2.5 n log2 n a ring of n pixels and row, over the arithmetic
+    rate, whichever is larger; and which of the two that is."""
     by_bytes = 1e3 * nrows * (2 * nm * rings.nrings + rings.npix) * size / PEAK_BYTES_PER_S
-    by_ops = 1e3 * 4.0 * nrows * rings.npix * nm / peak_ops_per_s
-    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations", by_bytes
+    n = rings.ring_len.astype(np.float64)
+    by_ops = 1e3 * nrows * float(np.sum(2.5 * n * np.log2(n))) / peak_ops_per_s
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def hp_ring_sample(rings, nside, count=48):
+    """An HPRings of a sample of the HEALPix grid's rings (`count` spread
+    from pole to pole, and the first, last and longest of those whose
+    transforms run in the workspace), on the host, with the indices of its
+    pixels and rings in the grid's (int64 tensors)."""
+    from nifty_tpu_torch.ops import healpix as hpx
+    from nifty_tpu_torch.ops import hp_longitude as hl
+
+    ws = np.flatnonzero(rings.ws_at.cpu().numpy() >= 0)
+    picks = set(np.linspace(0, rings.nrings - 1, count).round().astype(int).tolist())
+    if ws.size:
+        picks |= {int(ws[0]), int(ws[-1]), int(ws[np.argmax(rings.ring_len[ws])])}
+    rsel = np.array(sorted(picks), dtype=np.int64)
+    start = rings.ring_start.cpu().numpy()
+    pix = np.concatenate([np.arange(start[r], start[r + 1]) for r in rsel])
+    sub = hl.HPRings(*hpx.pix2ang(nside, pix))
+    return sub, torch.from_numpy(pix), torch.from_numpy(rsel)
+
+
+def check_k10(label, rings, nm, F, ct, want, against, select=None):
+    """K10 and its adjoint on planes `F` and cotangents `ct`: bitwise
+    repeats, bitwise equal when replayed from a CUDA graph, and within
+    HP_RTOL of the per-output sum of |term| of `want` (the synthesis's and
+    the adjoint's outputs of the reference named `against`; where `select`
+    is (pixels, rings), the reference's outputs at those pixels and rings).
+    Returns both outputs and both relative errors."""
+    from nifty_tpu_torch.ops import hp_longitude as hl
+
+    dtype = F.dtype
+    y1, y2 = hl.hp_longitude(F, rings), hl.hp_longitude(F, rings)
+    g1, g2 = hl.hp_longitude_adjoint(ct, rings, nm), hl.hp_longitude_adjoint(ct, rings, nm)
+    torch.cuda.synchronize()
+    if not (torch.equal(y1, y2) and torch.equal(g1, g2)):
+        raise AssertionError(f"the K10 kernels do not repeat ({label}, {dtype})")
+    if not (torch.equal(y1, replayed(lambda: hl.hp_longitude(F, rings)))
+            and torch.equal(g1, replayed(lambda: hl.hp_longitude_adjoint(ct, rings, nm)))):
+        raise AssertionError(
+            f"the K10 kernels differ when replayed from a CUDA graph ({label}, {dtype})")
+    tiny = torch.finfo(dtype).tiny
+    pix, rsel = select if select is not None else (slice(None), slice(None))
+    rels = [float(((got - ref).abs() / scale.clamp_min(tiny)).max())
+            for got, ref, scale in (
+                (y1[:, pix], want[0], hl.sum_abs_terms(rings, F=F)[:, pix]),
+                (g1[..., rsel], want[1], hl.sum_abs_terms(rings, ct=ct)[..., rsel]))]
+    if max(rels) > HP_RTOL[dtype]:
+        raise AssertionError(f"the K10 kernels are off {against} by {rels} of the per-output "
+                             f"sum of |term| ({label}, {dtype})")
+    return y1, g1, rels
 
 
 @phase("22 the HEALPix longitude kernels (K10) vs plain")
-def phase_hp_kernels(cases):
+def phase_hp_kernels(cases, wide):
     """`cases`: {label: (HPRings on the card, nm, rows)}.  K10 and its
     adjoint against the plain versions in float64 and float32 (within 1e-12
     / 1e-5 of the per-output sum of |term|), bitwise reproducible and
     bitwise equal when replayed from a CUDA graph; float64 device ms (50
-    calls in a replayed CUDA graph) beside the bound, the plain versions'
-    and the stored-table route's ms (CUDA events around 5 calls)."""
+    calls in a replayed CUDA graph) beside the bound, the ``torch.fft``
+    route's (5 calls in a replayed CUDA graph), the plain versions' and the
+    stored-table route's ms (CUDA events around 5 calls).  `wide`: {label:
+    (nside, nm, rows)}, the same for a HEALPix grid whose plain versions'
+    phase chunks would not fit the card (nside 2048, whose polar rings'
+    transforms run in the workspace): held against the plain versions on a
+    sample of its rings (:func:`hp_ring_sample`), timed beside the bound
+    (the ``torch.fft`` route would first build a cuFFT plan for each of
+    its 2048 ring lengths)."""
     from nifty_tpu_torch.ops import hp_longitude as hl
 
     dev = torch.device("cuda")
@@ -1452,25 +1527,10 @@ def phase_hp_kernels(cases):
         for dtype in (torch.float64, torch.float32):
             F = torch.randn((nrows, 2, nm, rings.nrings), dtype=dtype, device=dev, generator=gen)
             ct = torch.randn((nrows, rings.npix), dtype=dtype, device=dev, generator=gen)
-            y1, y2 = hl.hp_longitude(F, rings), hl.hp_longitude(F, rings)
-            g1, g2 = hl.hp_longitude_adjoint(ct, rings, nm), hl.hp_longitude_adjoint(ct, rings, nm)
             y_plain, g_plain = hl.hp_longitude_plain(F, rings), hl.hp_longitude_adjoint_plain(
                 ct, rings, nm)
-            torch.cuda.synchronize()
-            if not (torch.equal(y1, y2) and torch.equal(g1, g2)):
-                raise AssertionError(f"the K10 kernels do not repeat ({label}, {dtype})")
-            if not (torch.equal(y1, replayed(lambda: hl.hp_longitude(F, rings)))
-                    and torch.equal(g1, replayed(lambda: hl.hp_longitude_adjoint(ct, rings, nm)))):
-                raise AssertionError(
-                    f"the K10 kernels differ when replayed from a CUDA graph ({label}, {dtype})")
-            tiny = torch.finfo(dtype).tiny
-            rels = [float(((got - want).abs() / scale.clamp_min(tiny)).max())
-                    for got, want, scale in (
-                        (y1, y_plain, hl.sum_abs_terms(rings, F=F)),
-                        (g1, g_plain, hl.sum_abs_terms(rings, ct=ct)))]
-            if max(rels) > HP_RTOL[dtype]:
-                raise AssertionError(f"the K10 kernels are off their plain versions by {rels} of "
-                                     f"the per-output sum of |term| ({label}, {dtype})")
+            y1, g1, rels = check_k10(label, rings, nm, F, ct, (y_plain, g_plain),
+                                     "their plain versions")
             if dtype != torch.float64:
                 continue
             key = (rings.npix, nm)
@@ -1498,29 +1558,73 @@ def phase_hp_kernels(cases):
                      synth_rel=rels[0], adjoint_rel=rels[1])
             r["synth_device_ms"] = device_ms(lambda: hl.hp_longitude(F, rings))
             r["adjoint_device_ms"] = device_ms(lambda: hl.hp_longitude_adjoint(ct, rings, nm))
+            r["synth_library_ms"] = device_ms(lambda: hl.hp_longitude_fft_route(F, rings), n=5)
+            r["adjoint_library_ms"] = device_ms(
+                lambda: hl.hp_longitude_adjoint_fft_route(ct, rings, nm), n=5)
             r["synth_plain_ms"] = cuda_ms(lambda: hl.hp_longitude_plain(F, rings), n=5)
             r["adjoint_plain_ms"] = cuda_ms(
                 lambda: hl.hp_longitude_adjoint_plain(ct, rings, nm), n=5)
             r["synth_table_ms"] = cuda_ms(synth_t, n=5)
             r["adjoint_table_ms"] = cuda_ms(adjoint_t, n=5)
-            *bound, by_bytes = hp_bound_ms(rings, nm, nrows, F.element_size(),
-                                           PEAK_OPS_PER_S[dtype])
+            bound = hp_bound_ms(rings, nm, nrows, F.element_size(), PEAK_OPS_PER_S[dtype])
             r["synth_bound_ms"], r["synth_bound_by"] = bound
             r["adjoint_bound_ms"], r["adjoint_bound_by"] = bound
-            r["bytes_bound_ms"] = by_bytes
             results[label] = r
             print(
                 f"{label}: planes ({nrows}, 2, {nm}, {rings.nrings}) <-> maps ({nrows}, "
-                f"{rings.npix}) | float64 ms: synthesis {r['synth_device_ms']:.5f} (plain "
-                f"{r['synth_plain_ms']:.4f}, stored tables {r['synth_table_ms']:.4f}) | adjoint "
-                f"{r['adjoint_device_ms']:.5f} (plain {r['adjoint_plain_ms']:.4f}, stored tables "
-                f"{r['adjoint_table_ms']:.4f}) | bound of the direct sum {bound[0]:.5f} by {bound[1]} "
-                f"(bytes alone, a ring-FFT form's bound, {by_bytes:.5f}) | rel err of sum|term| {rels[0]:.2e} / {rels[1]:.2e}, max abs "
-                f"err {r['synth_err']:.3e} / {r['adjoint_err']:.3e}",
+                f"{rings.npix}) | float64 ms: synthesis {r['synth_device_ms']:.5f} "
+                f"({100 * bound[0] / r['synth_device_ms']:.1f} % of the bound; torch.fft route "
+                f"{r['synth_library_ms']:.4f}, plain {r['synth_plain_ms']:.4f}, stored tables "
+                f"{r['synth_table_ms']:.4f}) | adjoint {r['adjoint_device_ms']:.5f} "
+                f"({100 * bound[0] / r['adjoint_device_ms']:.1f} %; torch.fft route "
+                f"{r['adjoint_library_ms']:.4f}, plain {r['adjoint_plain_ms']:.4f}, stored tables "
+                f"{r['adjoint_table_ms']:.4f}) | bound {bound[0]:.5f} by {bound[1]} | shared "
+                f"memory a block {rings.smem_bytes(nm, False)} / {rings.smem_bytes(nm, True)} "
+                f"bytes | rel err of sum|term| {rels[0]:.2e} / {rels[1]:.2e}, max abs err "
+                f"{r['synth_err']:.3e} / {r['adjoint_err']:.3e}",
                 flush=True,
             )
     del tables
     torch.cuda.empty_cache()
+    for label, (nside, nm, nrows) in wide.items():
+        t0 = time.perf_counter()
+        rings = hl.healpix_rings(nside).to(dev)
+        sub, pix, rsel = hp_ring_sample(rings, nside)
+        print(f"the ring table of nside {nside} ({rings.npix} pixels, {rings.nrings} rings) "
+              f"and a sample of {sub.nrings} of its rings ({sub.npix} pixels) built in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        sub, pix, rsel = sub.to(dev), pix.to(dev), rsel.to(dev)
+        for dtype in (torch.float64, torch.float32):
+            F = torch.randn((nrows, 2, nm, rings.nrings), dtype=dtype, device=dev, generator=gen)
+            ct = torch.randn((nrows, rings.npix), dtype=dtype, device=dev, generator=gen)
+            want = (hl.hp_longitude_plain(F[..., rsel].contiguous(), sub),
+                    hl.hp_longitude_adjoint_plain(ct[:, pix].contiguous(), sub, nm))
+            _, _, rels = check_k10(label, rings, nm, F, ct, want,
+                                   f"their plain versions on {sub.nrings} rings", (pix, rsel))
+            del want
+            if dtype != torch.float64:
+                continue
+            r = dict(synth_rel=rels[0], adjoint_rel=rels[1])
+            r["synth_device_ms"] = device_ms(lambda: hl.hp_longitude(F, rings), n=10)
+            r["adjoint_device_ms"] = device_ms(lambda: hl.hp_longitude_adjoint(ct, rings, nm),
+                                               n=10)
+            bound = hp_bound_ms(rings, nm, nrows, F.element_size(), PEAK_OPS_PER_S[dtype])
+            r["bound_ms"], r["bound_by"] = bound
+            results[label] = r
+            print(
+                f"{label}: planes ({nrows}, 2, {nm}, {rings.nrings}) <-> maps ({nrows}, "
+                f"{rings.npix}), {int(np.sum(rings.ws_at.cpu().numpy() >= 0))} rings in the "
+                f"workspace ({rings.ws_row * 16 * nrows / 2**20:.0f} MiB) | float64 ms: "
+                f"synthesis {r['synth_device_ms']:.5f} ({100 * bound[0] / r['synth_device_ms']:.1f}"
+                f" % of the bound) | adjoint {r['adjoint_device_ms']:.5f} "
+                f"({100 * bound[0] / r['adjoint_device_ms']:.1f} %) | bound {bound[0]:.5f} by "
+                f"{bound[1]} | shared memory a block {rings.smem_bytes(nm, False)} / "
+                f"{rings.smem_bytes(nm, True)} bytes | rel err of sum|term| on the sample "
+                f"{rels[0]:.2e} / {rels[1]:.2e}",
+                flush=True,
+            )
+        del F, ct, rings
+        torch.cuda.empty_cache()
     return results
 
 
@@ -1556,29 +1660,16 @@ def demo16_likelihood(jt, sky):
     return lh, truth, (k_init, k_opt)
 
 
-@phase("23 demos/16_spherical_cf.py: optimize_kl on a HEALPix sky, nside 256, lmax 511")
-def phase_demo16(jt, sky, with_profile):
-    """`demos/16_spherical_cf.py` as written: the sky observed directly
-    (`demo16_likelihood`), `optimize_kl` with 4 iterations of 4 pairs from
-    0.1 times a latent draw, the sample loop for both stages.  The demo's
-    check: the posterior mean's rms error below the truth's rms."""
-    from nifty_tpu_torch.ops import bin_gather as bg
-    from nifty_tpu_torch.ops import hp_longitude as hl
-
-    lh, truth, (k_init, k_opt) = demo16_likelihood(jt, sky)
-    npix = truth.shape[-1]
+def demo16_fit(jt, lh, k_init, k_opt, n_iters, n_samples, marks):
+    """The demo's `optimize_kl` from 0.1 times a latent draw; `marks` gets
+    the time after each iteration."""
     position = {k: 0.1 * v for k, v in lh.init(k_init).items()}
-    n_iters, n_samples = 4, 4
-    torch.cuda.reset_peak_memory_stats()
-    bg.reset_launch_counts()
-    hl.reset_launch_counts()
-    marks = [time.perf_counter()]
 
     def clock(samples, state):
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
 
-    samples, state = jt.optimize_kl(
+    return jt.optimize_kl(
         lh, position, key=k_opt, n_total_iterations=n_iters, n_samples=n_samples,
         residual_map="smap", kl_map="smap", callback=clock,
         draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=60)),
@@ -1586,6 +1677,51 @@ def phase_demo16(jt, sky, with_profile):
             xtol=1e-3, maxiter=3, cg_kwargs=dict(maxiter=25))),
         kl_kwargs=dict(minimize_kwargs=dict(xtol=1e-4, maxiter=8, cg_kwargs=dict(maxiter=40))),
         sample_mode="nonlinear_resample")
+
+
+def demo16_witness(jt, lh, k_init, k_opt, n_iters, n_samples, energy):
+    """The same fit with K10 and its adjoint replaced by their ``torch.fft``
+    route (the same ring FFTs, rounded otherwise): its KL energy beside the
+    kernel's.  Fails if a K10 kernel launched in it."""
+    from nifty_tpu_torch.ops import hp_longitude as hl
+
+    kernels = hl.hp_longitude, hl.hp_longitude_adjoint
+    launches = [fn.launches for fn in kernels]
+    hl.hp_longitude = hl.hp_longitude_fft_route
+    hl.hp_longitude_adjoint = hl.hp_longitude_adjoint_fft_route
+    try:
+        marks = [time.perf_counter()]
+        _, state = demo16_fit(jt, lh, k_init, k_opt, n_iters, n_samples, marks)
+    finally:
+        hl.hp_longitude, hl.hp_longitude_adjoint = kernels
+    if [fn.launches for fn in kernels] != launches:
+        raise AssertionError("the witness fit launched a K10 kernel")
+    route = float(state.minimization_state.fun)
+    print(f"demo 16 witness, K10 as its torch.fft route: KL energy {route!r} in "
+          f"{marks[-1] - marks[0]:.3f} s; the kernel's {energy!r}, relative "
+          f"{(route - energy) / energy:.3e}; the direct sum's {DEMO16_DIRECT_SUM_ENERGY!r}, "
+          f"relative {(route - DEMO16_DIRECT_SUM_ENERGY) / DEMO16_DIRECT_SUM_ENERGY:.3e}",
+          flush=True)
+
+
+@phase("23 demos/16_spherical_cf.py: optimize_kl on a HEALPix sky, nside 256, lmax 511")
+def phase_demo16(jt, sky, with_profile, with_witness=False):
+    """`demos/16_spherical_cf.py` as written: the sky observed directly
+    (`demo16_likelihood`), `optimize_kl` with 4 iterations of 4 pairs from
+    0.1 times a latent draw, the sample loop for both stages.  The demo's
+    check: the posterior mean's rms error below the truth's rms.
+    `with_witness`: then :func:`demo16_witness`."""
+    from nifty_tpu_torch.ops import bin_gather as bg
+    from nifty_tpu_torch.ops import hp_longitude as hl
+
+    lh, truth, (k_init, k_opt) = demo16_likelihood(jt, sky)
+    npix = truth.shape[-1]
+    n_iters, n_samples = 4, 4
+    torch.cuda.reset_peak_memory_stats()
+    bg.reset_launch_counts()
+    hl.reset_launch_counts()
+    marks = [time.perf_counter()]
+    samples, state = demo16_fit(jt, lh, k_init, k_opt, n_iters, n_samples, marks)
     counts, k10 = launch_counts(bg), hp_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     with torch.no_grad():
@@ -1597,7 +1733,9 @@ def phase_demo16(jt, sky, with_profile):
     sht = sky.spherical_transform.sht
     print(f"demo 16 optimize_kl (nside {sht.nside}, lmax {sht.lmax}, {npix} pixels): s/iteration "
           f"{[round(x, 3) for x in seconds]} ({sum(seconds):.3f} s) | geoVI samples/s "
-          f"{2 * n_samples * n_iters / sum(seconds):.4f} | KL energy {energy!r} | peak mem "
+          f"{2 * n_samples * n_iters / sum(seconds):.4f} | KL energy {energy!r} (relative to the "
+          f"direct sum's {DEMO16_DIRECT_SUM_ENERGY!r}: "
+          f"{(energy - DEMO16_DIRECT_SUM_ENERGY) / DEMO16_DIRECT_SUM_ENERGY:.3e}) | peak mem "
           f"{peak:.2f} GiB | posterior mean rms error {err:.4f} against the prior rms "
           f"{prior_rms:.4f} | {len(samples)} samples | K10 calls: {hp_text(k10)} | distributor "
           f"calls by rows: {rows_text(counts)}", flush=True)
@@ -1611,6 +1749,8 @@ def phase_demo16(jt, sky, with_profile):
                              f"the prior ({prior_rms})")
     if with_profile:
         profile_update(jt, "demo 16 sky", lh, residual_map="smap", kl_map="smap")
+    if with_witness:
+        demo16_witness(jt, lh, k_init, k_opt, n_iters, n_samples, energy)
     return counts, k10
 
 
@@ -1641,7 +1781,7 @@ def hp_kernel_entries(kres, runs, rings, nm, nside):
                 max_abs_err=r[f"{kind}_err"], ms=r[f"{kind}_device_ms"],
                 plain_ms=r[f"{kind}_plain_ms"], table_ms=r[f"{kind}_table_ms"],
                 bound_ms=r[f"{kind}_bound_ms"], bound_by=r[f"{kind}_bound_by"],
-                bytes_bound_ms=r["bytes_bound_ms"], library_ms=None,
+                library_ms=r[f"{kind}_library_ms"],
             ))
     return entries
 
@@ -1718,8 +1858,11 @@ def kernel_entries(kres, paths, src):
 def main(argv):
     """``--profile``: after phases 5, 6, 8, 12, 15, 19, 23 and 24, profile
     one more update of each config (device busy share and the costliest
-    kernels)."""
+    kernels).  ``--witness``: run phase 23's fit once more with K10 replaced
+    by its ``torch.fft`` route, and print that fit's KL energy beside the
+    kernel's."""
     with_profile = "--profile" in argv
+    with_witness = "--witness" in argv
     phase_device()
     import nifty_tpu_torch as jt
 
@@ -1880,8 +2023,9 @@ def main(argv):
     # stacked samples (2, 4, 8) give it, then the two cells
     hp_rings = sky_sht.rings
     kres_hp = phase_hp_kernels({f"nside 256 mmax 511 B={rows}": (hp_rings, 512, rows)
-                                for rows in (1, 2, 4, 8)})
-    c_demo16, k10_demo16 = phase_demo16(jt, sky, with_profile)
+                                for rows in (1, 2, 4, 8)},
+                               {"nside 2048 mmax 511 B=1": (2048, 512, 1)})
+    c_demo16, k10_demo16 = phase_demo16(jt, sky, with_profile, with_witness)
     del sky, sky_sht
     torch.cuda.empty_cache()
     gl = build_bench_sphere(jt, 511)

@@ -6,8 +6,8 @@ a_lm`` for the 4·nside−1 iso-latitude rings as one m-batched ``torch.bmm``
 (:func:`~.sht.legendre`), and the longitude stage evaluates ``map[p] = Re
 Σ_m c_m F[m, ring(p)] e^{i m φ_p}`` (``c_0 = 1``, ``c_m = 2``: the ±m
 pairs of a real map folded) with the hand-written kernel pair K10
-(:mod:`.hp_longitude`), which makes the phases on the fly: no
-``(npix, mmax+1)`` phase table is stored.
+(:mod:`.hp_longitude`), one FFT a ring: no ``(npix, mmax+1)`` phase
+table is stored.
 
 ``map2alm_adjoint`` is the exact adjoint, quadrature-weighted, so an
 analysis is available by CG on ``adjoint ∘ synthesis`` (``map2alm``, the

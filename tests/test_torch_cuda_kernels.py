@@ -488,7 +488,29 @@ def test_icr_wrappers_raise_on_bad_tables_and_inputs(cuda):
 # -- the HEALPix longitude stage (K10) ------------------------------------------
 
 
-@pytest.mark.parametrize("nside,nm", [(4, 7), (8, 16), (16, 40), (32, 100)])
+def _synthetic_rings(lengths):
+    """Evenly spaced rings of the given lengths at made-up colatitudes."""
+    from nifty_tpu_torch.ops import hp_longitude as hl
+
+    theta = np.repeat(np.linspace(0.5, 2.5, len(lengths)), lengths)
+    phi = np.concatenate([0.1 * (i + 1) + 2 * np.pi * np.arange(n) / n
+                          for i, n in enumerate(lengths)])
+    return hl.HPRings(theta, phi)
+
+
+# HEALPix grids (power-of-two rings, and Bluestein's for nside 3 and 6 and
+# the polar rings), rings of prime lengths with nm below and above them,
+# rings whose transforms need more than 48 KB of shared memory (a Bluestein
+# transform of 8192 entries, 128 KB), and rings whose transforms run in the
+# workspace (Bluestein's L = 16384 for 4099 and 8188 pixels, as for the
+# polar rings of nside 2048; a power of two of 16384)
+SYNTHETIC_RINGS = {"primes": (7, 13, 97), "wide": (4093, 2048, 5),
+                   "long": (4099, 7, 8188, 16384, 8192)}
+
+
+@pytest.mark.parametrize("nside,nm", [(4, 7), (8, 16), (16, 40), (32, 100), (3, 10), (6, 30),
+                                      ("primes", 5), ("primes", 120), ("wide", 300),
+                                      ("long", 300)])
 @pytest.mark.parametrize("nrows", [1, 3])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 def test_hp_longitude_kernels_match_plain_versions(cuda, nside, nm, nrows, dtype):
@@ -497,8 +519,11 @@ def test_hp_longitude_kernels_match_plain_versions(cuda, nside, nm, nrows, dtype
     launch counts by rows and shape."""
     from nifty_tpu_torch.ops import hp_longitude as hl
 
-    rings = hl.healpix_rings(nside).to(cuda)
-    gen = torch.Generator(device=cuda).manual_seed(nside + nrows)
+    if nside in SYNTHETIC_RINGS:
+        rings, seed = _synthetic_rings(SYNTHETIC_RINGS[nside]).to(cuda), 117
+    else:
+        rings, seed = hl.healpix_rings(nside).to(cuda), nside
+    gen = torch.Generator(device=cuda).manual_seed(seed + nrows)
     F = torch.randn((nrows, 2, nm, rings.nrings), dtype=dtype, device=cuda, generator=gen)
     ct = torch.randn((nrows, rings.npix), dtype=dtype, device=cuda, generator=gen)
     before = (hl.hp_longitude.launches, hl.hp_longitude_adjoint.launches,
@@ -516,6 +541,32 @@ def test_hp_longitude_kernels_match_plain_versions(cuda, nside, nm, nrows, dtype
                           <= RTOL[dtype] * hl.sum_abs_terms(rings, F=F)))
     assert bool(torch.all((g1 - hl.hp_longitude_adjoint_plain(ct, rings, nm)).abs()
                           <= RTOL[dtype] * hl.sum_abs_terms(rings, ct=ct)))
+
+
+@pytest.mark.parametrize("nm", [5000, 9000])
+def test_hp_longitude_long_rings_match_the_fft_route(cuda, nm):
+    """Rings in the workspace with nm above their lengths: the synthesis
+    folds several slabs of FOLD_SLAB m into bins held in the workspace (and,
+    at nm 9000, into the ring of 8192 pixels in shared memory).  Held
+    against the ``torch.fft`` route within 1e-12 of the per-output sum of
+    |term| (the plain versions round m·φ_p to about that at these m); bitwise
+    repeats and CUDA-graph replay."""
+    from nifty_tpu_torch.ops import hp_longitude as hl
+
+    rings = _synthetic_rings(SYNTHETIC_RINGS["long"]).to(cuda)
+    assert rings.ws_row > 0
+    gen = torch.Generator(device=cuda).manual_seed(nm)
+    F = torch.randn((2, 2, nm, rings.nrings), dtype=torch.float64, device=cuda, generator=gen)
+    ct = torch.randn((2, rings.npix), dtype=torch.float64, device=cuda, generator=gen)
+    y, g = hl.hp_longitude(F, rings), hl.hp_longitude_adjoint(ct, rings, nm)
+    assert torch.equal(hl.hp_longitude(F, rings), y)
+    assert torch.equal(hl.hp_longitude_adjoint(ct, rings, nm), g)
+    assert torch.equal(_graph_replay(lambda: hl.hp_longitude(F, rings)), y)
+    assert torch.equal(_graph_replay(lambda: hl.hp_longitude_adjoint(ct, rings, nm)), g)
+    assert bool(torch.all((y - hl.hp_longitude_fft_route(F, rings)).abs()
+                          <= RTOL[torch.float64] * hl.sum_abs_terms(rings, F=F)))
+    assert bool(torch.all((g - hl.hp_longitude_adjoint_fft_route(ct, rings, nm)).abs()
+                          <= RTOL[torch.float64] * hl.sum_abs_terms(rings, ct=ct)))
 
 
 def test_hp_longitude_rows_and_adjoint_identity(cuda):
