@@ -100,9 +100,13 @@ Phases (one line each, with its seconds):
     against their plain versions at every (level, rows) shape those phases
     launch, in float64 and float32 (within 1e-12 / 1e-5 of the largest
     entry), bitwise reproducible and equal to a CUDA-graph replay, with
-    float64 device ms beside the bound, the plain versions' ms and, for the
-    2-D levels, ``conv2d`` + ``pixel_shuffle`` on an undeformed chart of the
-    same shape;
+    float64 device ms beside the bound (and the share of it), the plain
+    versions' ms, each level's routes, and each kernel's registers, spilled
+    bytes and shared memory a block, and, for the 2-D levels of the 3 x 3 /
+    2 x 2 stencil, the library's routes on an undeformed chart of the same
+    shape (``conv2d`` + ``pixel_shuffle``; ``pixel_unshuffle`` +
+    ``conv_transpose2d`` + ``conv2d``), held to the kernels on shared
+    matrices;
 18. ``demos/9_icr_refinement.py``: a log-deformed 1-D chart (14 pixels,
     depth 5, Matern-3/2), exp(0.5 gp) on a third of the pixels with noise
     0.05, ``optimize_kl`` with 6 iterations of 4 pairs: the truth within 3
@@ -167,8 +171,11 @@ the card's published 3.35 TB/s); a shape the main path launched and phase
 for each kernel, field level and number of rows phases 18 to 21 launched,
 with phase 17's numbers (a shape phase 17 did not check fails the run);
 their ``plain_ms`` is a CUDA-graph replay for the step and CUDA events for
-the transpose (an autograd pull-back), ``library_ms`` ``conv2d`` +
-``pixel_shuffle`` where the level is 2-D, else null.  K10's entries are one
+the transpose (an autograd pull-back), ``library_ms`` the library's
+route where the level is the 2-D stencil (the step ``conv2d`` +
+``pixel_shuffle``, the transpose ``pixel_unshuffle`` +
+``conv_transpose2d`` + ``conv2d``), else null: no PyTorch call computes
+the HEALPix or radial levels' function.  K10's entries are one
 for each direction and number of rows phase 23 launched, with phase 22's
 numbers (a shape phase 22 did not check fails the run): ``plain_ms`` and
 ``table_ms`` by CUDA events, ``library_ms`` the ``torch.fft`` route (one
@@ -1090,9 +1097,12 @@ def level_like(level, dtype=None, olf=None, ker=None, matrix_grid=None):
 def conv_route(level):
     """For a 2-D level of 3 x 3 windows at stride 1 and 2 x 2 children: the
     level on an undeformed chart of its shape (its first matrix pair shared
-    by every site) and the library's route for it, `conv2d` of the coarse
-    grid with the filter plus a 1 x 1 `conv2d` of the excitations (given as
-    channels) with `ker`, then `pixel_shuffle`; None for another geometry."""
+    by every site) and the library's routes for it.  The step: `conv2d` of
+    the coarse grid with the filter plus a 1 x 1 `conv2d` of the excitations
+    (given as channels) with `ker`, then `pixel_shuffle`.  The transpose:
+    `pixel_unshuffle` of the cotangent, `conv_transpose2d` with the filter
+    (the coarse cotangent) and a 1 x 1 `conv2d` with `ker` transposed (the
+    excitations' cotangent, as channels).  None for another geometry."""
     if level.ndim != 2 or level.slots != (3, 3) or level.child_shape != (2, 2):
         return None
     for a in range(2):
@@ -1103,6 +1113,7 @@ def conv_route(level):
     fn = torch.nn.functional
     w_olf = shared.olf[0].reshape(4, 1, 3, 3)
     w_ker = shared.ker[0].reshape(4, 4, 1, 1)
+    w_ker_t = w_ker.transpose(0, 1).contiguous()
 
     def route(coarse, xi_channels):
         nrows = coarse.shape[0]
@@ -1110,7 +1121,22 @@ def conv_route(level):
              + fn.conv2d(xi_channels, w_ker))
         return fn.pixel_shuffle(y, 2).reshape(nrows, -1)
 
-    return shared, route
+    def route_t(cot):
+        nrows = cot.shape[0]
+        y = fn.pixel_unshuffle(cot.reshape(nrows, 1, *level.fine_shape), 2)
+        return fn.conv_transpose2d(y, w_olf).reshape(nrows, -1), fn.conv2d(y, w_ker_t)
+
+    return shared, route, route_t
+
+
+def kernel_text(level, transpose):
+    """Registers, spilled bytes and shared memory a block of each kernel a
+    call on `level` launches."""
+    from nifty_tpu_torch.ops import icr_refine as ir
+
+    return " + ".join(f"{k['registers']} regs, {k['local_bytes']} B spilled, "
+                      f"{k['static_smem'] + k['dynamic_smem']} B smem"
+                      for k in ir.describe_kernels(level, transpose))
 
 
 def icr_bound_ms(level, nrows, size, transpose):
@@ -1138,7 +1164,9 @@ def phase_icr_kernels(cases):
     the plain transpose, an autograd pull-back, by CUDA events around 20
     calls) beside the bound, and, for a 2-D level of the 3 x 3 / 2 x 2
     stencil, the library route on an undeformed chart of the same shape
-    (`conv2d` + `pixel_shuffle`, held to the kernel on shared matrices)."""
+    (`conv2d` + `pixel_shuffle`; for the transpose `pixel_unshuffle` +
+    `conv_transpose2d` + `conv2d`), held to the kernels on shared
+    matrices."""
     from nifty_tpu_torch.ops import icr_refine as ir
 
     dev = torch.device("cuda")
@@ -1185,27 +1213,40 @@ def phase_icr_kernels(cases):
             r["refine_library_ms"] = r["transpose_library_ms"] = None
             library = conv_route(lv)
             if library is not None:
-                shared, route = library
+                shared, route, route_t = library
                 xi_channels = xi.reshape(nrows, *lv.sites, lv.F).permute(0, 3, 1, 2).contiguous()
                 want = ir.icr_refine(coarse, xi, shared)
                 lib_err = float((route(coarse, xi_channels) - want).abs().max())
-                if lib_err > ICR_RTOL[dtype] * float(want.abs().max()):
-                    raise AssertionError(f"conv2d + pixel_shuffle is off the kernel by {lib_err} "
-                                         f"({label})")
+                want_c, want_x = ir.icr_refine_transpose(cot, shared)
+                got_c, got_x = route_t(cot)
+                got_x = got_x.permute(0, 2, 3, 1).reshape(nrows, -1)
+                lib_err_t = max(float((got_c - want_c).abs().max()) / float(want_c.abs().max()),
+                                float((got_x - want_x).abs().max()) / float(want_x.abs().max()))
+                if (lib_err > ICR_RTOL[dtype] * float(want.abs().max())
+                        or lib_err_t > ICR_RTOL[dtype]):
+                    raise AssertionError(f"the conv2d routes are off the kernels by {lib_err} / "
+                                         f"{lib_err_t} relative ({label})")
                 r["refine_library_ms"] = device_ms(lambda: route(coarse, xi_channels))
+                r["transpose_library_ms"] = device_ms(lambda: route_t(cot))
             results[label] = r
-            lib = r["refine_library_ms"]
+            lib, lib_t = r["refine_library_ms"], r["transpose_library_ms"]
             print(
                 f"{label}: coarse {lv.coarse_shape} -> fine {lv.fine_shape}, W {lv.W}, F {lv.F}, "
-                f"{lv.n_matrices} matrix pairs, B={nrows} | float64 device ms: step "
-                f"{r['refine_device_ms']:.5f} (plain {r['refine_plain_device_ms']:.5f}"
+                f"{lv.n_matrices} matrix pairs, B={nrows}, routes {lv.step_route} / "
+                f"{lv.transpose_route} | float64 device ms: step "
+                f"{r['refine_device_ms']:.5f} ({r['refine_bound_ms'] / r['refine_device_ms']:.1%} "
+                f"of the bound {r['refine_bound_ms']:.5f} by {r['refine_bound_by']}; plain "
+                f"{r['refine_plain_device_ms']:.5f}"
                 + (f", conv2d + pixel_shuffle {lib:.5f}" if lib is not None else "")
-                + f"; bound {r['refine_bound_ms']:.5f} by {r['refine_bound_by']}) | transpose "
-                f"{r['transpose_device_ms']:.5f} (plain, events, {r['transpose_plain_ms']:.5f}; "
-                f"bound {r['transpose_bound_ms']:.5f} by {r['transpose_bound_by']}) | rel err "
-                f"float64 / float32 within {ICR_RTOL[torch.float64]} / "
-                f"{ICR_RTOL[torch.float32]}; max abs err float64 {r['refine_err']:.3e} / "
-                f"{r['transpose_err']:.3e}",
+                + f"; {kernel_text(lv, False)}) | transpose {r['transpose_device_ms']:.5f} "
+                f"({r['transpose_bound_ms'] / r['transpose_device_ms']:.1%} of the bound "
+                f"{r['transpose_bound_ms']:.5f} by {r['transpose_bound_by']}; plain, events, "
+                f"{r['transpose_plain_ms']:.5f}"
+                + (f", pixel_unshuffle + conv_transpose2d + conv2d {lib_t:.5f}"
+                   if lib_t is not None else "")
+                + f"; {kernel_text(lv, True)}) | rel err float64 / float32 within "
+                f"{ICR_RTOL[torch.float64]} / {ICR_RTOL[torch.float32]}; max abs err float64 "
+                f"{r['refine_err']:.3e} / {r['transpose_err']:.3e}",
                 flush=True,
             )
     return results

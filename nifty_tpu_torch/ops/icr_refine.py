@@ -30,13 +30,20 @@ chart makes them differ and are broadcast along the rest (stride 0).
 :func:`icr_refine` and :func:`icr_refine_transpose` run the kernels for a
 CUDA tensor and their plain versions (:func:`icr_refine_plain`, the window
 gather / einsum / interleave route, and its autograd pull-back) for a CPU
-tensor only.  The transpose first pulls each site's children back onto
-its window slots and excitations, then sums each coarse entry's slots
-over a CSR inverse of each axis's window table, built here, in a fixed
-order and with no atomics.  ``icr_refine.launches`` and ``icr_refine_transpose.launches``
-count the calls that take the kernel route (never plain runs), in total,
-by rows (``launches_by_rows``) and by level and rows
-(``launches_by_level``, keyed by :attr:`RefineLevel.key`).
+tensor only.  The transpose pulls each site's children back onto its
+window slots and excitations, then sums each coarse entry's slots over a
+CSR inverse of each axis's window table, built here, in a fixed order and
+with no atomics.  Each level takes a route for each direction, chosen
+here from its tables alone (:func:`choose_routes`,
+:attr:`RefineLevel.routes`): for the compiled shapes
+(:data:`COMPILED_SHAPES`) the step a thread a site (matrices shared along
+the last axis) or a lane group a site, else a thread a fine entry; the
+transpose in one pass over boxes of coarse entries (:func:`box_schedule`)
+where every box's halo of reading sites is compact, else in two passes
+through scratch.  ``icr_refine.launches`` and
+``icr_refine_transpose.launches`` count the calls that take the kernel
+route (never plain runs), in total, by rows (``launches_by_rows``) and by
+level and rows (``launches_by_level``, keyed by :attr:`RefineLevel.key`).
 
 :class:`IcrRefine` and :class:`IcrRefineTranspose` are the
 ``torch.autograd.Function`` pair: each one's derivative is the other, with
@@ -61,6 +68,27 @@ _MAX_ROWS = 65535  # gridDim.y
 #: Axes a level may have on the card (``kMaxAxes`` in ``csrc/icr_refine.cu``;
 #: :func:`_kernels` checks that they agree).
 MAX_AXES = 16
+#: The (slots, children) an axis of the levels with compiled kernels
+#: (``Line3``, ``Nest9``, ``Plane``, ``Shell`` in ``csrc/icr_refine.cu``;
+#: :func:`_kernels` checks that they agree): a 1-D chart, a HEALPix level,
+#: a 2-D chart, sphere x radius.
+COMPILED_SHAPES = (((3, 2),), ((9, 4),), ((3, 2), (3, 2)), ((9, 4), (3, 2)))
+#: Threads a block (``kThreads``): the lane-group routes' tiles hold
+#: ``THREADS // F`` sites.
+THREADS = 256
+#: Coarse entries a box of the one-pass transpose along each axis, by axis
+#: count; the last box of an axis is ragged.
+BOX = {1: (1024,), 2: (8, 32)}
+#: The one-pass transpose is taken where its boxes' halos hold at most this
+#: many sites for every site of the level (the rest are computed twice) ...
+BOX_MAX_WORK = 1.5
+#: ... and a box's slot cotangents fit in this much shared memory (float64),
+#: and there are enough boxes to fill an H100 (two an SM), or the level's
+#: sites are no more than a block's threads.
+BOX_MAX_SMEM = 96 * 1024
+BOX_MIN_BOXES = 2 * 132
+_ROUTE_CODES = {"entry": 0, "group": 1, "box": 2, "thread": 3}
+_INDEX_LIMIT = 2**31
 
 
 def window_inverse(table, extent: int):
@@ -75,6 +103,87 @@ def window_inverse(table, extent: int):
     if offsets[-1] >= 2**31:
         raise ValueError("window tables of 2^31 entries or more are not supported")
     return offsets.astype(np.int32), positions
+
+
+def box_schedule(tables, coarse_shape, box):
+    """The one-pass transpose's boxes along each axis: for window tables
+    ``(sites[a], slots[a])`` over ``coarse_shape`` and boxes of ``box[a]``
+    coarse entries (the last one ragged), per axis the halo ``(boxes, 2)``
+    (int32: the sites ``[lo, hi)`` whose windows meet box ``k``; ``[0, 0)``
+    where none does) and the owner ``(sites,)`` (int32: the box that holds
+    the site's first window entry, which writes its excitations'
+    cotangents).  A box of the grid is a product of one box an axis, so
+    every (site, slot) pair that reads one of its coarse entries lies in
+    its halo."""
+    halos, owners = [], []
+    for tab, n, size in zip(tables, coarse_shape, box):
+        tab = np.asarray(tab, dtype=np.int64)
+        nbox = -(-int(n) // int(size))
+        tile = (tab // size).ravel()
+        site = np.repeat(np.arange(tab.shape[0]), tab.shape[1])
+        lo = np.full(nbox, tab.shape[0], dtype=np.int64)
+        hi = np.zeros(nbox, dtype=np.int64)
+        np.minimum.at(lo, tile, site)
+        np.maximum.at(hi, tile, site + 1)
+        lo = np.minimum(lo, hi)
+        halos.append(np.stack([lo, hi], axis=1).astype(np.int32))
+        owners.append((tab[:, 0] // size).astype(np.int32))
+    return halos, owners
+
+
+def _box_smem_values(level, halo_max):
+    """float64 values of a box's shared memory (``box_smem_bytes`` in
+    ``csrc/icr_refine.cu``): its slot cotangents, and the matrix pairs of
+    its halo's rows where they vary by row alone."""
+    up = lambda n: -(-n // 2) * 2  # noqa: E731
+    values = up(level.W * int(np.prod(halo_max)))
+    if level.ndim == 1 or level.mstrides[-1] == 0:
+        nm = level.mstrides[0] * (halo_max[0] - 1) + 1
+        values += up(nm * level.F * level.W + 2) + nm * level.F * level.F + 2
+    return values
+
+
+def choose_routes(level):
+    """The routes of ``level`` (a :class:`RefineLevel` being built), from
+    its tables alone: ``(step, transpose, schedule)``.  Compiled shapes
+    (:data:`COMPILED_SHAPES`) whose rows fit 32-bit indices take a compiled
+    route.  The step takes ``"thread"`` (a thread a site) on a 2-D level
+    with pairs of children along its last axis and matrices shared along
+    it, ``"group"`` (a lane group a site, the tile's matrices in one
+    contiguous range: the axes along which they vary come first) on the
+    other compiled levels, and ``"entry"`` (a thread a fine entry)
+    elsewhere.  The transpose takes ``"box"`` (one pass,
+    :func:`box_schedule` with boxes of :data:`BOX`) where the halos are
+    compact (:data:`BOX_MAX_WORK`, :data:`BOX_MAX_SMEM`) and the boxes fill
+    the card (:data:`BOX_MIN_BOXES`) or one block takes every site, else
+    ``"group"`` or ``"entry"`` (two passes); ``schedule`` is the box
+    schedule on the box route, else None."""
+    shape = tuple(zip(level.slots, level.child_shape))
+    mats = sum(m * (s - 1) for m, s in zip(level.mstrides, level.sites)) + 1
+    narrow = (level.n_fine < _INDEX_LIMIT and level.n_coarse < _INDEX_LIMIT
+              and level.S * (level.W + level.F) < _INDEX_LIMIT
+              and mats * level.F * (level.W + level.F) < _INDEX_LIMIT)
+    compiled = shape in COMPILED_SHAPES and narrow
+    varying = [m != 0 for m in level.mstrides]
+    prefix = varying == sorted(varying, reverse=True)
+    group = compiled and prefix
+    if compiled and level.ndim == 2 and level.child_shape[1] == 2 and not varying[1]:
+        step = "thread"
+    else:
+        step = "group" if group else "entry"
+    if not compiled:
+        return step, "entry", None
+    box = BOX[level.ndim]
+    tables = [level._buffers[f"window{a}"].cpu().numpy() for a in range(level.ndim)]
+    halos, owners = box_schedule(tables, level.coarse_shape, box)
+    extents = [h[:, 1] - h[:, 0] for h in halos]
+    work = np.prod([float(e.sum()) for e in extents])
+    smem = 8 * _box_smem_values(level, [int(e.max()) for e in extents])
+    enough = int(np.prod([len(h) for h in halos])) >= BOX_MIN_BOXES
+    if (work <= BOX_MAX_WORK * level.S and smem <= BOX_MAX_SMEM
+            and (enough or level.S <= THREADS)):
+        return step, "box", (box, halos, owners)
+    return step, "group" if group else "entry", None
 
 
 class RefineLevel(nn.Module):
@@ -131,17 +240,43 @@ class RefineLevel(nn.Module):
             self.register_buffer(f"inverse_offsets{a}", torch.from_numpy(offsets),
                                  persistent=False)
             self.register_buffer(f"inverse{a}", torch.from_numpy(positions), persistent=False)
+        self.step_route, self.transpose_route, schedule = choose_routes(self)
+        box, nbox, halo_max = (0,) * self.ndim, (0,) * self.ndim, (0,) * self.ndim
+        if schedule is not None:
+            box, halos, owners = schedule
+            nbox = tuple(len(h) for h in halos)
+            halo_max = tuple(int((h[:, 1] - h[:, 0]).max()) for h in halos)
+            for a, (h, o) in enumerate(zip(halos, owners)):
+                self.register_buffer(f"box_halo{a}", torch.from_numpy(h), persistent=False)
+                self.register_buffer(f"box_owner{a}", torch.from_numpy(o), persistent=False)
+        self.box, self.box_counts, self.halo_max = tuple(box), nbox, halo_max
         # the C entries' geometry: ndim, then sites, slots, children, coarse
-        # extents and matrix strides, one an axis
-        self._geometry = (ctypes.c_longlong * (1 + 5 * self.ndim))(
+        # extents and matrix strides, one an axis, the two routes, then the
+        # box extents, boxes and largest halo an axis
+        self._geometry = (ctypes.c_longlong * (3 + 8 * self.ndim))(
             self.ndim, *self.sites, *self.slots, *self.child_shape, *self.coarse_shape,
-            *self.mstrides)
+            *self.mstrides, _ROUTE_CODES[self.step_route], _ROUTE_CODES[self.transpose_route],
+            *box, *nbox, *halo_max)
 
     @property
     def key(self):
         """The level's shape, by which launches are counted: (coarse shape,
         fine shape, W, F)."""
         return (self.coarse_shape, self.fine_shape, self.W, self.F)
+
+    @property
+    def routes(self):
+        """(step route, transpose route): the step's ``"thread"``,
+        ``"group"`` or ``"entry"``, the transpose's ``"box"``, ``"group"`` or
+        ``"entry"`` (:func:`choose_routes`)."""
+        return self.step_route, self.transpose_route
+
+    def schedule_tables(self):
+        """The box route's halos and owners an axis (None elsewhere), in the
+        order the C entries take their pointers after :meth:`tables`."""
+        b = self._buffers
+        return ([b.get(f"box_halo{a}") for a in range(self.ndim)]
+                + [b.get(f"box_owner{a}") for a in range(self.ndim)])
 
     def tables(self):
         """The per-axis window tables, inverse offsets and inverses, in the
@@ -159,7 +294,7 @@ class RefineLevel(nn.Module):
 
     def extra_repr(self):
         return (f"coarse={self.coarse_shape}, fine={self.fine_shape}, W={self.W}, F={self.F}, "
-                f"matrices={self.matrix_grid}")
+                f"matrices={self.matrix_grid}, routes={self.routes}")
 
 
 # -- plain versions -------------------------------------------------------
@@ -240,6 +375,16 @@ def _kernels():
         raise RuntimeError(f"icr_refine built for {lib.icr_refine_max_axes()} axes; the host "
                            f"uses {MAX_AXES}")
     vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.icr_refine_threads.argtypes, lib.icr_refine_threads.restype = [], ci
+    lib.icr_refine_shapes.argtypes, lib.icr_refine_shapes.restype = [vp, ci], ci
+    out = (ctypes.c_int * (5 * 16))()
+    shapes = tuple(
+        tuple(zip(out[5 * i + 1:5 * i + 5:2], out[5 * i + 2:5 * i + 5:2]))[:out[5 * i]]
+        for i in range(lib.icr_refine_shapes(out, 16)))
+    if shapes != COMPILED_SHAPES or lib.icr_refine_threads() != THREADS:
+        raise RuntimeError(f"icr_refine built for the shapes {shapes} and "
+                           f"{lib.icr_refine_threads()} threads; the host uses "
+                           f"{COMPILED_SHAPES} and {THREADS}")
     for dtype, sfx in _FLOAT_DTYPES.items():
         fwd = getattr(lib, f"icr_refine_{sfx}")
         fwd.argtypes = [vp] * 7 + [ci, ci, vp]
@@ -247,8 +392,12 @@ def _kernels():
         tr = getattr(lib, f"icr_refine_transpose_{sfx}")
         tr.argtypes = [vp] * 8 + [ci, ci, vp]
         tr.restype = ci
+        desc = getattr(lib, f"icr_refine_describe_{sfx}")
+        desc.argtypes = [vp, vp, ci, vp, ci]
+        desc.restype = ci
         _KERNELS["refine", dtype] = fwd
         _KERNELS["transpose", dtype] = tr
+        _KERNELS["describe", dtype] = desc
     return _KERNELS
 
 
@@ -272,9 +421,25 @@ def _check(x, level: RefineLevel, width: int, what: str):
 def _launch_args(level: RefineLevel, dev: int):
     if level.ndim > MAX_AXES:
         raise ValueError(f"the kernel takes at most {MAX_AXES} axes; the level has {level.ndim}")
-    tables = level.tables()
-    ptrs = (ctypes.c_void_p * len(tables))(*(t.data_ptr() for t in tables))
+    tables = level.tables() + level.schedule_tables()
+    ptrs = (ctypes.c_void_p * len(tables))(*(None if t is None else t.data_ptr()
+                                             for t in tables))
     return level._geometry, ptrs, torch._C._cuda_getCurrentRawStream(dev)
+
+
+def describe_kernels(level: RefineLevel, transpose: bool):
+    """What the card made of the kernels a call on ``level`` launches (one
+    row): for each, a dict of its registers, local (spill) bytes, static
+    and dynamic shared memory a block, blocks and threads a block."""
+    olf = level._buffers["olf"]
+    fn = _kernels()["describe", olf.dtype]
+    geom, tables, _ = _launch_args(level, olf.get_device())
+    info = (ctypes.c_longlong * 12)()
+    n = fn(geom, tables, int(transpose), info, olf.get_device())
+    if n < 0:
+        raise RuntimeError(f"describing the kernels failed with cudaError {-n}")
+    keys = ("registers", "local_bytes", "static_smem", "dynamic_smem", "blocks", "threads")
+    return [dict(zip(keys, info[6 * k:6 * k + 6])) for k in range(n)]
 
 
 def _count(wrapper, level: RefineLevel, nrows: int):
@@ -309,8 +474,9 @@ def icr_refine(coarse, xi, level: RefineLevel):
 
 def icr_refine_transpose(cot, level: RefineLevel):
     """The transpose of the refinement step, ``(B, n_fine)`` -> ``(cot_coarse
-    (B, n_coarse), cot_xi (B, S * F))``: two kernels for a CUDA tensor, the
-    plain version for a CPU tensor."""
+    (B, n_coarse), cot_xi (B, S * F))``: the kernel (one pass on the box
+    route, two through scratch on the others) for a CUDA tensor, the plain
+    version for a CPU tensor."""
     _check(cot, level, level.n_fine, "cotangent")
     if not cot.is_cuda:
         if cot.device.type == "cpu":
@@ -320,15 +486,17 @@ def icr_refine_transpose(cot, level: RefineLevel):
     nrows = cot.shape[0]
     cot_coarse = cot.new_empty((nrows, level.n_coarse))
     cot_xi = cot.new_empty((nrows, level.S * level.F))
-    # the site pass's slot cotangents, read back by the gather pass: scratch
+    # the two passes' slot cotangents, read back by the gather pass: scratch
     # from the caching allocator (so the call can be captured in a CUDA
-    # graph)
-    scratch = cot.new_empty((nrows, level.S * level.W))
+    # graph); the box route keeps them in shared memory
+    scratch = (None if level.transpose_route == "box"
+               else cot.new_empty((nrows, level.S * level.W)))
     dev = cot.get_device()
     geom, tables, stream = _launch_args(level, dev)
     b = level._buffers
-    rc = fn(cot.data_ptr(), b["olf"].data_ptr(), b["ker"].data_ptr(), scratch.data_ptr(),
-            cot_coarse.data_ptr(), cot_xi.data_ptr(), geom, tables, nrows, dev, stream)
+    rc = fn(cot.data_ptr(), b["olf"].data_ptr(), b["ker"].data_ptr(),
+            None if scratch is None else scratch.data_ptr(), cot_coarse.data_ptr(),
+            cot_xi.data_ptr(), geom, tables, nrows, dev, stream)
     if rc < 0:
         raise RuntimeError(f"CUDA kernel launch failed with cudaError {-rc}")
     _count(icr_refine_transpose, level, nrows)

@@ -290,9 +290,9 @@ def conj(tree):
     return tree_map(lambda x: x.conj().resolve_conj(), tree)
 
 
-def norm(tree, ord=2):
-    """Tree-wide vector norm of order 1, 2 or ``inf``."""
-    return norm_rows(add_row(tree), ord=ord)[0]
+def norm(tree, ord=2, *, ravel=False):
+    """Tree-wide vector norm of order ``ord``: see :func:`norm_rows`."""
+    return norm_rows(add_row(tree), ord=ord, ravel=ravel)[0]
 
 
 # --------------------------------------------------------------------------
@@ -338,8 +338,22 @@ def vdot_rows(a, b):
     return acc
 
 
-def norm_rows(tree, ord=2):
-    """:func:`norm` of each row of a batched tree: a (B,) tensor."""
+def norm_rows(tree, ord=2, *, ravel=False):
+    """:func:`norm` of each row of a batched tree: a (B,) tensor.
+
+    Orders 1, 2 and ``inf`` take the tree-wide norm directly (with the
+    fold-halving sums of ``deterministic_reductions``); any other order,
+    or ``ravel=True``, takes ``(sum over leaves of ||leaf||_ord^ord)^(1 /
+    ord)`` as the JAX package does, so ``ord=inf, ravel=True`` gives
+    ``inf ** 0 = 1``."""
+    if ravel or ord not in (1, 2, np.inf):
+        acc = None
+        for x in tree_leaves(tree):
+            v = torch.linalg.vector_norm(x.reshape(x.shape[0], -1), ord=ord, dim=1) ** ord
+            acc = v if acc is None else acc + v
+        if acc is None:
+            raise ValueError("`norm_rows` of a tree without leaves")
+        return acc ** (1.0 / ord)
     if ord == 2:
         return torch.sqrt(vdot_rows(tree, tree).real)
     leaves = tree_leaves(tree)
@@ -353,7 +367,6 @@ def norm_rows(tree, ord=2):
         return torch.stack(
             [x.abs().reshape(x.shape[0], -1).amax(dim=1) for x in leaves]
         ).amax(dim=0)
-    raise ValueError(f"unsupported norm order {ord!r}")
 
 
 def axpy_rows(c, x, y):
@@ -569,35 +582,59 @@ def fold_in(key, data: int):
     return int(state[0] >> np.uint64(1))
 
 
-def _draw_normal(gen: torch.Generator, primals, device):
+def normal(generator, shape, dtype, device):
+    """Standard-normal draws, the default ``rng`` of :func:`random_like`."""
+    return torch.randn(shape, dtype=dtype, device=device, generator=generator)
+
+
+def rademacher(generator, shape, dtype, device):
+    """-1 or +1 with equal probability (``jax.random.rademacher``), an
+    ``rng`` for :func:`random_like`: the probes of trace and diagonal
+    estimators."""
+    bits = torch.randint(0, 2, tuple(shape), device=device, generator=generator)
+    return (2 * bits - 1).to(dtype)
+
+
+def _draw(gen: torch.Generator, primals, device, rng=normal):
     def draw(x):
         dtype = x.dtype
         if dtype.is_complex:
             rdt = torch.empty((), dtype=dtype).real.dtype
-            re = torch.randn(x.shape, dtype=rdt, device=gen.device, generator=gen)
-            im = torch.randn(x.shape, dtype=rdt, device=gen.device, generator=gen)
+            re = rng(gen, x.shape, rdt, gen.device)
+            im = rng(gen, x.shape, rdt, gen.device)
             out = torch.complex(re, im) / np.sqrt(2.0)
         else:
-            out = torch.randn(x.shape, dtype=dtype, device=gen.device, generator=gen)
+            out = rng(gen, x.shape, dtype, gen.device)
         return out.to(device)
 
     return tree_map(draw, primals)
 
 
-def random_like(key, primals, *, device=None):
-    """Standard-normal tree shaped like ``primals`` (tensors or
-    :class:`ShapeWithDtype`), drawn from ``key`` (see module docstring).
+def random_like(key, primals, rng=None, *, device=None):
+    """A tree shaped like ``primals`` (tensors or :class:`ShapeWithDtype`) of
+    draws from ``key`` (see module docstring): standard normal, or
+    ``rng(generator, shape, dtype, device)`` (e.g. :func:`rademacher`), a
+    complex leaf as ``(re + i im) / sqrt(2)`` of two real draws.
 
-    ``device`` defaults to the device of ``primals``' tensor leaves.
+    ``device`` defaults to the device of ``primals``' tensor leaves.  A
+    noise provider draws through its ``normal(primals, device=)`` or, with
+    ``rng``, its ``draw(primals, rng, device=)``: :class:`HostKey` calls
+    ``rng`` with its host generator and ``device`` cpu, then copies, so an
+    ``rng`` written with torch calls serves the host and the card alike.
     """
     if _is_noise_provider(key):
-        return key.normal(primals, device=device)
+        if rng is None:
+            return key.normal(primals, device=device)
+        if not hasattr(key, "draw"):
+            raise TypeError(f"noise provider {key!r} has no `draw` for an `rng`")
+        return key.draw(primals, rng, device=device)
+    rng = normal if rng is None else rng
     device = torch.device(device) if device is not None else tree_device(primals)
     if isinstance(key, torch.Generator):
-        return _draw_normal(key, primals, device)
+        return _draw(key, primals, device, rng)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(key))
-    return _draw_normal(gen, primals, device)
+    return _draw(gen, primals, device, rng)
 
 
 class HostKey:
@@ -614,10 +651,15 @@ class HostKey:
         return HostKey(fold_in(self.seed, data))
 
     def normal(self, primals, device=None):
+        return self.draw(primals, normal, device=device)
+
+    def draw(self, primals, rng, device=None):
+        """``rng`` draws (see :func:`random_like`) on the host, copied to
+        ``device``."""
         device = torch.device(device) if device is not None else tree_device(primals)
         gen = torch.Generator()
         gen.manual_seed(self.seed)
-        return _draw_normal(gen, primals, device)
+        return _draw(gen, primals, device, rng)
 
     def __repr__(self):
         return f"HostKey({self.seed})"
@@ -658,8 +700,8 @@ def get_map(map) -> Callable:
 __all__ = [
     "HostKey", "ShapeWithDtype", "Vector", "axpy_rows", "broadcast_rows",
     "conj", "dot", "fold_in", "from_numpy", "get_map", "has_arithmetics",
-    "mean", "mean_and_std", "norm", "norm_rows", "ones_like", "random_like",
-    "result_type", "rows", "scale_rows", "shape_dtype_like", "size", "split",
+    "mean", "mean_and_std", "norm", "norm_rows", "normal", "ones_like", "rademacher",
+    "random_like", "result_type", "rows", "scale_rows", "shape_dtype_like", "size", "split",
     "stack", "to_numpy", "tree_add", "tree_axpy", "tree_device", "tree_leaves",
     "tree_map", "tree_scale", "tree_sub", "tree_unflatten", "tsum", "unite",
     "unstack", "vdot", "vdot_rows", "where", "where_rows", "zeros_like",

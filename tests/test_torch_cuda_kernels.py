@@ -461,6 +461,78 @@ def test_icr_field_derivatives_on_the_card_match_the_cpu(cuda, case):
         torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12 * float(want.abs().max()))
 
 
+def _runs(n, k=3):
+    return np.arange(n)[:, None] + np.arange(k)[None, :]
+
+
+def _hp_windows(nside0, level):
+    from nifty_tpu_torch.refine import HEALPixChart
+
+    return HEALPixChart(nside0, depth=level + 1).neighbor_windows(level)
+
+
+# name -> (coarse shape, window tables, children, matrix grid, routes): every
+# route, with boxes and tiles ragged at the grid's edges
+ICR_LEVELS = {
+    "thread_box": ((260, 300), lambda: [_runs(258), _runs(298)], (2, 2), (258, 1),
+                   ("thread", "box")),
+    "thread_group": ((37, 101), lambda: [_runs(35), _runs(99)], (2, 2), (35, 1),
+                     ("thread", "group")),
+    "group_2d": ((37, 101), lambda: [_runs(35), _runs(99)], (2, 2), (35, 99),
+                 ("group", "group")),
+    "line_box": ((300001,), lambda: [_runs(299999)], (2,), (1,), ("group", "box")),
+    "line_one_box": ((101,), lambda: [_runs(99)], (2,), (99,), ("group", "box")),
+    "healpix_box": ((48,), lambda: [_hp_windows(2, 0)], (4,), (48,), ("group", "box")),
+    "healpix_group": ((3072,), lambda: [_hp_windows(4, 2)], (4,), (3072,), ("group", "group")),
+    "shell": ((768, 12), lambda: [_hp_windows(2, 2), _runs(10)], (4, 2), (768, 10),
+              ("group", "group")),
+    "five_axes": ((5, 4, 4, 3, 4), lambda: [_runs(3), _runs(2), _runs(2), _runs(1), _runs(2)],
+                  (2, 1, 2, 1, 2), (3, 1, 2, 1, 1), ("entry", "entry")),
+}
+
+
+@pytest.mark.parametrize("case", list(ICR_LEVELS))
+@pytest.mark.parametrize("nrows", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_icr_routes_match_plain_versions(cuda, case, nrows, dtype):
+    """Each route on levels whose boxes and tiles are ragged, HEALPix windows
+    that name their centre twice and a five-axis level: the step and the
+    transpose within 1e-12 (float64) or 1e-5 (float32) of the plain
+    versions' largest entry, bitwise equal when run twice, replayed from a
+    CUDA graph, and given inputs one value off the vectors' alignment."""
+    from nifty_tpu_torch.ops import icr_refine as ir
+
+    coarse_shape, windows, children, grid, routes = ICR_LEVELS[case]
+    windows = windows()
+    if case.startswith("healpix"):
+        assert any(len(set(row)) < len(row) for row in windows[0])
+    gen = torch.Generator().manual_seed(nrows)
+    F, W = int(np.prod(children)), int(np.prod([w.shape[1] for w in windows]))
+    M = int(np.prod(grid))
+    level = ir.RefineLevel(coarse_shape, windows, children,
+                           torch.randn((M, F, W), generator=gen, dtype=dtype),
+                           torch.randn((M, F, F), generator=gen, dtype=dtype), grid).to(cuda)
+    assert level.routes == routes
+    coarse, xi, cot = (torch.randn((nrows, n), generator=gen, dtype=dtype).to(cuda)
+                       for n in (level.n_coarse, level.S * level.F, level.n_fine))
+    y1, y2 = ir.icr_refine(coarse, xi, level), ir.icr_refine(coarse, xi, level)
+    t1, t2 = ir.icr_refine_transpose(cot, level), ir.icr_refine_transpose(cot, level)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and all(map(torch.equal, t1, t2))
+    assert torch.equal(_graph_replay(lambda: ir.icr_refine(coarse, xi, level)), y1)
+    off = torch.empty(xi.numel() + 1, dtype=dtype, device=cuda)[1:].view_as(xi).copy_(xi)
+    off_t = torch.empty(cot.numel() + 1, dtype=dtype, device=cuda)[1:].view_as(cot).copy_(cot)
+    assert torch.equal(ir.icr_refine(coarse, off, level), y1)
+    assert all(map(torch.equal, ir.icr_refine_transpose(off_t, level), t1))
+    want = ir.icr_refine_plain(coarse, xi, level)
+    torch.testing.assert_close(y1, want, rtol=0, atol=RTOL[dtype] * float(want.abs().max()))
+    for got, want in zip(t1, ir.icr_refine_transpose_plain(cot, level)):
+        torch.testing.assert_close(got, want, rtol=0, atol=RTOL[dtype] * float(want.abs().max()))
+    for kind in (False, True):
+        for k in ir.describe_kernels(level, kind):
+            assert k["threads"] == ir.THREADS and k["blocks"] > 0
+
+
 def test_icr_wrappers_raise_on_bad_tables_and_inputs(cuda):
     from nifty_tpu_torch.ops import icr_refine as ir
 
@@ -483,6 +555,21 @@ def test_icr_wrappers_raise_on_bad_tables_and_inputs(cuda):
     cot_c, cot_x = ir.icr_refine_transpose(torch.ones((1, 2), device=cuda, dtype=torch.float64),
                                            level)
     assert cot_c.tolist() == [[2.0, 2.0, 2.0]] and cot_x.tolist() == [[1.0, 1.0]]
+
+
+@pytest.mark.parametrize("rng", ["normal", "rademacher"])
+def test_host_key_draws_the_same_for_the_card(cuda, rng):
+    """A HostKey draws on the host and copies: the card gets the CPU's
+    numbers, with the default draw and with an `rng`."""
+    from nifty_tpu_torch import tree as tt
+
+    shape = {"a": tt.ShapeWithDtype((300,), torch.float64),
+             "z": tt.ShapeWithDtype((7, 5), torch.complex128)}
+    fn = getattr(tt, rng)
+    on_cpu = tt.random_like(tt.HostKey(5), shape, fn, device="cpu")
+    on_card = tt.random_like(tt.HostKey(5), shape, fn, device=cuda)
+    for k in shape:
+        assert on_card[k].device.type == "cuda" and torch.equal(on_card[k].cpu(), on_cpu[k])
 
 
 # -- the HEALPix longitude stage (K10) ------------------------------------------

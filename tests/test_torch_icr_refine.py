@@ -332,3 +332,198 @@ def test_level_buffers_move_and_stay_out_of_the_state_dict(fields):
                                                    nonlinear_map=_warp, irregular_axes=(0,)),
                                _matern_t)
     assert half.levels[0].matrix_grid == (6, 1) and half.levels[0].mstrides == (1, 0)
+
+
+# -- the kernels' routes and the one-pass transpose's schedule ------------------
+
+
+def _demo9_like():
+    """Demo 9's chart: (14,), depth 3, the log deformation (matrices by site)."""
+    return tcf.RefinementField(tc.CoordinateChart(shape0=(14,), depth=3, distances0=(1.0,),
+                                                  nonlinear_map=lambda reg: np.expm1(0.35 * reg)),
+                               _matern_t)
+
+
+def _schedule_levels(fields):
+    """(name, level, boxes): a 1-D deformed chart, a deformed 2-D chart at odd
+    extents and a sphere x radius level, with boxes that leave every axis's
+    last box ragged."""
+    out = [("demo9", lv, (5,)) for lv in _demo9_like().levels]
+    out += [("deformed", lv, (3, 4)) for lv in fields["deformed"][1].levels]
+    out += [("sphere_radius", lv, (7, 3)) for lv in fields["sphere_radius"][1].levels]
+    return out
+
+
+def _site_axes(level, s):
+    return np.unravel_index(s, level.sites)
+
+
+def _inverse_pairs(level, c):
+    """Coarse entry c's (site, slot) pairs in the CSR order: the product of
+    its axes' inverse lists, the last axis fastest."""
+    d = level.ndim
+    ca = np.unravel_index(c, level.coarse_shape)
+    lists = []
+    for a in range(d):
+        off = getattr(level, f"inverse_offsets{a}").numpy()
+        inv = getattr(level, f"inverse{a}").numpy()
+        lists.append(inv[off[ca[a]]:off[ca[a] + 1]])
+    for combo in np.array(np.meshgrid(*lists, indexing="ij")).reshape(d, -1).T:
+        sa = [int(k) // level.slots[a] for a, k in enumerate(combo)]
+        wa = [int(k) % level.slots[a] for a, k in enumerate(combo)]
+        yield sa, wa
+
+
+def _boxes(level, box):
+    """Every box of the schedule: (box coordinates, its coarse ranges, its
+    halo ranges), from :func:`ir.box_schedule`."""
+    tables = [getattr(level, f"window{a}").numpy() for a in range(level.ndim)]
+    halos, owners = ir.box_schedule(tables, level.coarse_shape, box)
+    for k in np.ndindex(*[len(h) for h in halos]):
+        crange = [(k[a] * box[a], min((k[a] + 1) * box[a], level.coarse_shape[a]))
+                  for a in range(level.ndim)]
+        hrange = [tuple(halos[a][k[a]]) for a in range(level.ndim)]
+        yield k, crange, hrange, owners
+
+
+@pytest.mark.parametrize("index", range(7))
+def test_box_schedule_covers_every_pair_once(fields, index):
+    """Every coarse entry lies in one box, every (site, slot) pair of its
+    inverse lies in that box's halo (so the box's shared memory holds it),
+    and every site has one owner, whose halo holds it."""
+    name, level, box = _schedule_levels(fields)[index]
+    assert any(level.coarse_shape[a] % box[a] for a in range(level.ndim))  # ragged
+    seen = np.zeros(level.n_coarse, dtype=np.int64)
+    pairs = 0
+    owned = np.zeros(level.S, dtype=np.int64)
+    for k, crange, hrange, owners in _boxes(level, box):
+        for ca in np.ndindex(*[hi - lo for lo, hi in crange]):
+            c = np.ravel_multi_index([lo + i for (lo, _), i in zip(crange, ca)],
+                                     level.coarse_shape)
+            seen[c] += 1
+            for sa, _ in _inverse_pairs(level, c):
+                assert all(lo <= s < hi for s, (lo, hi) in zip(sa, hrange)), (name, k, c, sa)
+                pairs += 1
+        for sa in np.ndindex(*[hi - lo for lo, hi in hrange]):
+            sa = [lo + i for (lo, _), i in zip(hrange, sa)]
+            if all(owners[a][sa[a]] == k[a] for a in range(level.ndim)):
+                owned[np.ravel_multi_index(sa, level.sites)] += 1
+    assert (seen == 1).all() and (owned == 1).all()
+    assert pairs == level.S * level.W  # every slot of every site reads one coarse entry
+
+
+def _slot_cotangents(level, cot):
+    """t[b, s, w] = sum_f olf[m(s), f, w] cot[b, i(s, f)] and x[b, s, e], summed
+    in child order from 0 (the kernels' site pass)."""
+    olf, ker = level.matrices()
+    d = level.ndim
+    c = cot.reshape((cot.shape[0],) + tuple(
+        x for a in range(d) for x in (level.sites[a], level.child_shape[a])))
+    c = c.permute([0] + [1 + 2 * a for a in range(d)] + [2 + 2 * a for a in range(d)])
+    c = c.reshape(cot.shape[0], level.S, level.F)
+    o = olf.expand(*level.sites, level.F, level.W).reshape(level.S, level.F, level.W)
+    k = ker.expand(*level.sites, level.F, level.F).reshape(level.S, level.F, level.F)
+    t = torch.zeros(cot.shape[0], level.S, level.W, dtype=cot.dtype)
+    x = torch.zeros(cot.shape[0], level.S, level.F, dtype=cot.dtype)
+    for f in range(level.F):
+        t = t + o[None, :, f, :] * c[:, :, f, None]
+        x = x + k[None, :, f, :] * c[:, :, f, None]
+    return t, x
+
+
+def _two_pass(level, t):
+    """The gather pass: each coarse entry's sum of the scratch t over its CSR
+    product, in order."""
+    out = torch.zeros(t.shape[0], level.n_coarse, dtype=t.dtype)
+    for c in range(level.n_coarse):
+        acc = torch.zeros(t.shape[0], dtype=t.dtype)
+        for sa, wa in _inverse_pairs(level, c):
+            acc = acc + t[:, np.ravel_multi_index(sa, level.sites),
+                          np.ravel_multi_index(wa, level.slots)]
+        out[:, c] = acc
+    return out
+
+
+def _one_pass(level, t, x, box):
+    """The box route as the kernel runs it: each box copies its halo's slot
+    cotangents into its shared memory (t_sh[w * n_halo + h], h row-major over
+    the halo), writes the excitations' cotangents of the sites it owns, and
+    sums each of its coarse entries over the CSR product from t_sh."""
+    nrows = t.shape[0]
+    cot_c = torch.full((nrows, level.n_coarse), float("nan"), dtype=t.dtype)
+    cot_x = torch.full_like(x, float("nan"))
+    for k, crange, hrange, owners in _boxes(level, box):
+        hn = [hi - lo for lo, hi in hrange]
+        n_halo = int(np.prod(hn))
+        t_sh = torch.empty(nrows, level.W * n_halo, dtype=t.dtype)
+        for h in range(n_halo):
+            sa = [lo + i for (lo, _), i in zip(hrange, np.unravel_index(h, hn))]
+            s = np.ravel_multi_index(sa, level.sites)
+            for w in range(level.W):
+                t_sh[:, w * n_halo + h] = t[:, s, w]
+            if all(owners[a][sa[a]] == k[a] for a in range(level.ndim)):
+                cot_x[:, s] = x[:, s]
+        for ca in np.ndindex(*[hi - lo for lo, hi in crange]):
+            c = np.ravel_multi_index([lo + i for (lo, _), i in zip(crange, ca)],
+                                     level.coarse_shape)
+            acc = torch.zeros(nrows, dtype=t.dtype)
+            for sa, wa in _inverse_pairs(level, c):
+                h = np.ravel_multi_index([s - lo for s, (lo, _) in zip(sa, hrange)], hn)
+                acc = acc + t_sh[:, np.ravel_multi_index(wa, level.slots) * n_halo + h]
+            cot_c[:, c] = acc
+    return cot_c, cot_x.reshape(nrows, -1)
+
+
+@pytest.mark.parametrize("index", range(7))
+def test_one_pass_transpose_sums_in_the_two_pass_order(fields, index):
+    """The box route's order gives the two-pass order's bits, and both are
+    within 1e-12 of the plain version (autograd's pull-back)."""
+    _, level, box = _schedule_levels(fields)[index]
+    cot = torch.from_numpy(_inputs(level, 2, seed=30 + index)[2])
+    t, x = _slot_cotangents(level, cot)
+    two = _two_pass(level, t)
+    one_c, one_x = _one_pass(level, t, x, box)
+    assert torch.equal(one_c, two) and torch.equal(one_x, x.reshape(2, -1))
+    want_c, want_x = ir.icr_refine_transpose_plain(cot, level)
+    _close(two, want_c.numpy(), RTOL)
+    _close(one_x, want_x.numpy(), RTOL)
+
+
+def _level(coarse, windows, children, grid, seed=0):
+    rng = np.random.default_rng(seed)
+    F, M = int(np.prod(children)), int(np.prod(grid))
+    W = int(np.prod([w.shape[1] for w in windows]))
+    return ir.RefineLevel(coarse, windows, children,
+                          torch.from_numpy(rng.standard_normal((M, F, W))),
+                          torch.from_numpy(rng.standard_normal((M, F, F))), grid)
+
+
+def _runs(n, k=3):
+    return np.arange(n)[:, None] + np.arange(k)[None, :]
+
+
+def test_routes_follow_from_the_tables():
+    # the 4100^2 chart's geometry: matrices by row; a thread a site, and
+    # the one pass where the boxes fill the card, two passes below that
+    big = _level((516, 516), [_runs(514), _runs(514)], (2, 2), (514, 1))
+    small = _level((68, 68), [_runs(66), _runs(66)], (2, 2), (66, 1))
+    assert big.routes == ("thread", "box") and small.routes == ("thread", "group")
+    assert big.box == ir.BOX[2] and big.box_counts == (65, 17) and big.halo_max == (10, 34)
+    # matrices by site: lane groups; a level one block covers takes the box
+    per_site = _level((40, 70), [_runs(38), _runs(68)], (2, 2), (38, 68))
+    assert per_site.routes == ("group", "group")
+    assert _level((164,), [_runs(162)], (2,), (162,)).routes == ("group", "box")
+    # matrices varying along the last axis alone, a shape with no compiled
+    # kernel, three axes: a thread a fine entry, two passes
+    assert _level((40, 70), [_runs(38), _runs(68)], (2, 2), (1, 68)).routes[0] == "entry"
+    assert _level((9, 9), [_runs(5, 5), _runs(5, 5)], (4, 4), (1, 1)).routes == ("entry", "entry")
+    assert _level((9, 8, 7), [_runs(7), _runs(6), _runs(5)], (2, 2, 2), (7, 1, 1)).routes == (
+        "entry", "entry")
+    # a periodic axis wraps its windows: its halos span the axis, so two
+    # passes where the boxes are many
+    wrap = (np.arange(600)[:, None] + np.arange(3) - 1) % 600
+    assert _level((600, 600), [wrap, _runs(598)], (2, 2), (1, 1)).routes == ("thread", "group")
+    # every box tables' entries
+    halo0 = big._buffers["box_halo0"]
+    assert halo0.dtype == torch.int32 and tuple(halo0.shape) == (65, 2)
+    assert big._buffers["box_owner1"].tolist()[:40] == [0] * 32 + [1] * 8
