@@ -2,17 +2,19 @@
 """Drive the PyTorch port's geoVI main path once on one NVIDIA card:
 Gaussian, Poisson-count, Bernoulli and density-estimation maps on
 correlated fields, iterative charted refinement (ICR) fields on a
-deformed chart, the HEALPix sphere and sphere x radius, and spherical
-correlated fields on HEALPix and Gauss-Legendre grids.
+deformed chart, the HEALPix sphere and sphere x radius, spherical
+correlated fields on HEALPix and Gauss-Legendre grids, and line-of-sight
+tomography of 3-D fields with a NUTS cross-check.
 
     python3 chip_smoke.py
 
 Phases (one line each, with its seconds):
 
 1. require a CUDA device and print ``nvidia-smi``'s name and power limit;
-2. build the distributor kernels, the refinement kernels and the HEALPix
-   longitude kernels (``nvcc``, one compiler a source, all started
-   together) and the HEALPix core (the host's C++ compiler);
+2. build the distributor kernels, the refinement kernels, the HEALPix
+   longitude kernels and the ray integral kernels (``nvcc``, one compiler
+   a source, all started together) and the HEALPix core (the host's C++
+   compiler);
 3. hold each kernel against its plain PyTorch version at the main path's
    shapes in float64 and float32 (gather bit-exact; segment sum within
    1e-12 / 1e-5 of the per-bin sum of |cot|, bitwise reproducible, and
@@ -37,7 +39,10 @@ Phases (one line each, with its seconds):
    index), the 256-entry 1-D map of ``density_estimator(128, 1/128)``
    (129 bins, uint8 index) at 1, 2 and 4 rows, and the l map of a
    spherical field at lmax 511 (262,144 modes in 512 bins, int16 index: 16
-   short bins, the rest block items) at 1, 2, 4 and 8 rows;
+   short bins, the rest block items) at 1, 2, 4 and 8 rows, and the
+   tomography fields' maps: the 16^3 and 64^3 unbinned full-grid maps at 1,
+   4 and 8 rows and the 129^3 quarter map of 256^3 with ``n_bins=128``
+   (2,146,689 entries) at 1 and 2;
 4. one 32^2 update on the CPU (plain versions) and on the card (kernels)
    from the same latents and host-drawn noise, once with the sample loop
    (``residual_map="smap"``) and once with the lockstep batched solvers
@@ -49,7 +54,8 @@ Phases (one line each, with its seconds):
    field (a dict domain of both fields' latents), for two ICR fields: a
    deformed 2-D chart (20^2) and sphere x radius (192 x 8), and for two
    spherical fields (demo 16's priors): Gauss-Legendre at lmax 16 and
-   HEALPix at lmax 15, nside 8;
+   HEALPix at lmax 15, nside 8, and for a 16^3 tomography (32 rays x 32
+   points, K11 on the card);
 5. the 128^2 unbinned config (``bench.py``'s headline, ``residual_map=
    "vmap"``: the residual stages run the lockstep batched solvers and the
    KL stage stacks the 8 samples): three updates;
@@ -133,7 +139,10 @@ Phases (one line each, with its seconds):
     pixels transform in the workspace), held to the same tolerances against
     the plain versions on 51 of its rings from pole to pole (the whole
     grid's phase chunks would not fit the card), repeated and replayed,
-    timed beside the bound;
+    timed beside the bound and beside the ``torch.fft`` route (its
+   ``library_ms``: CUDA events around 3 calls, after 3 that build its
+   cuFFT plans, one a distinct ring length), which is held to the kernels
+   on the whole grid;
 23. ``demos/16_spherical_cf.py`` at its full width: the demo's HEALPix
     sky at lmax 511, nside 256 (786,432 pixels, 262,144 harmonic dof),
     observed directly as the demo does, with the demo's priors, noise 0.5
@@ -147,13 +156,40 @@ Phases (one line each, with its seconds):
 24. a Gauss-Legendre sphere at grid scale: lmax 511 (512 x 1024 = 524,288
     pixels), ``bench.py``'s amplitude priors, noise 0.1, ``BENCH_KWARGS``,
     the sample loop: one update.
+25. the ray integral of line-of-sight tomography (K11) and its adjoint
+    against their plain versions at every (grid, rays, points, rows) shape
+    phases 26-28 launch, in float64 and float32 (within 1e-12 / 1e-5 of the
+    per-output sum of |term|), bitwise reproducible and equal to a
+    CUDA-graph replay, with float64 device ms beside the bound (the tables,
+    the touched cells' values or the cotangents, and the output, once
+    each) and the share of it reached, the plain versions' and the library
+    routes' ms (``torch.sparse.mm`` of the rays' CSR matrix; ``index_add_``);
+26. ``demos/1_tomography.py``'s ``main()`` as written: a 64^3 field, 128
+    rays x 128 points, ``optimize_kl`` with 5 iterations of 4 pairs,
+    ``linear_resample``, draw CG 60, KL 15 x ``xtol`` 1e-4: the mean
+    reduced chi^2 of the normalized data residual in [0.5, 2] and the
+    posterior mean of exp(cf) finite everywhere;
+27. its ``main_at_scale()`` at full width: 256^3 (16.8 M dof) with
+    ``n_bins=128``, 1024 rays x 256 points, 2 samples,
+    ``nonlinear_resample`` at the demo's budgets from 0.1 times a prior
+    draw, the sample loop, 3 iterations, each printed with its seconds,
+    samples/s, KL energy, reduced chi^2 and peak device memory: every latent
+    finite and the reduced chi^2 in [0.5, 3];
+28. ``tests/test_tomography_3d.py``'s NUTS cross-check as written: a 16^3
+    field under 48 rays, geoVI (4 iterations of 4 pairs), then
+    ``NUTSChain`` on the same log-probability (step 0.02, depth 8, 80
+    transitions from the geoVI mean, the last 40 kept): fewer than 5 % of
+    the voxels' posterior means apart by more than 3 (geoVI std + NUTS std
+    + 1e-3); prints s/transition, the mean depth, the acceptance and the
+    divergences.
 
 The port places models, latents and data on the card by default; only
 phase 4's CPU run asks for the CPU (``config.update("device", "cpu")``).
-Phases 5 to 16 and 23 to 24 reset the kernels' launch counts just before
+Phases 5 to 16 and 23 to 28 reset the kernels' launch counts just before
 they drive their path and fail unless both distributor kernels launched
 (phases 11, 12 and 16: on every subgrid's map; phase 23 also both K10
-kernels); phases 18 to 21 do the same for the two refinement kernels at
+kernels, phases 26 to 28 both K11 kernels, phase 28 in its geoVI run and
+in its chain); phases 18 to 21 do the same for the two refinement kernels at
 every level of their field.  Phases 5 to 16 print each kernel's calls and the kernels those
 calls launched (for the segment sum two a call where a bin is split, for
 the gather two where a large table is first copied rows-innermost), by
@@ -180,10 +216,14 @@ for each direction and number of rows phase 23 launched, with phase 22's
 numbers (a shape phase 22 did not check fails the run): ``plain_ms`` and
 ``table_ms`` by CUDA events, ``library_ms`` the ``torch.fft`` route (one
 batched transform a distinct ring length) from a CUDA-graph replay.
+K11's entries are one for each direction, table and number of rows phases
+26 to 28 launched (``launches_by_run`` names the run), with phase 25's
+numbers (a shape phase 25 did not check fails the run): ``plain_ms`` and
+``library_ms`` by CUDA events.
 
     python3 chip_smoke.py --profile
 
-adds, after phases 5, 6, 8, 12, 15, 19, 23 and 24, one more update of
+adds, after phases 5, 6, 8, 12, 15, 19, 23, 24 and 27, one more update of
 each config under ``torch.profiler``: the device's busy share and the
 costliest kernels.
 
@@ -537,13 +577,14 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from nifty_tpu_torch.ops import bin_gather as bg
-    from nifty_tpu_torch.ops import healpix, hp_longitude, icr_refine
+    from nifty_tpu_torch.ops import healpix, hp_longitude, icr_refine, los_interp
     from nifty_tpu_torch.ops.cuda_build import BUILD_LOG
 
     t0 = time.perf_counter()
-    # one compiler a source, all started together: the three CUDA libraries
+    # one compiler a source, all started together: the four CUDA libraries
     # and the host's HEALPix core
-    builds = (bg._kernels, icr_refine._kernels, hp_longitude._kernels, healpix._lib)
+    builds = (bg._kernels, icr_refine._kernels, hp_longitude._kernels, los_interp._kernels,
+              healpix._lib)
     with ThreadPoolExecutor(len(builds)) as pool:
         for job in [pool.submit(fn) for fn in builds]:
             job.result()
@@ -668,7 +709,8 @@ def phase_kernels(cases):
 
 
 @phase("4 32^2, 32^2 x Matern 8 (total_N=3), 32^2 Poissonian, a Poissonian + Gaussian sum, "
-       "two ICR fields and two spherical fields: updates, CPU vs card, sample loop and lockstep")
+       "two ICR fields, two spherical fields and a 16^3 tomography: updates, CPU vs card, "
+       "sample loop and lockstep")
 def phase_cpu_vs_card(jt):
     counts = {}  # each Poisson field's counts, drawn once (on the CPU's rates)
 
@@ -704,6 +746,9 @@ def phase_cpu_vs_card(jt):
             jt, build_sphere(jt, 16, "spherical"), jt.HostKey(0)),
         "HEALPix sphere lmax 15, nside 8": lambda: build_likelihood(
             jt, build_sphere(jt, 15, "healpix"), jt.HostKey(0)),
+        # line-of-sight tomography (K11 on the card)
+        "16^3 tomography, 32 rays x 32 points": lambda: build_tomography(
+            jt, (16, 16, 16), 32, 32, NUTS_SEED, 4)[0],
     }
     for name, build in likelihoods.items():
         for rmap in ("smap", "vmap"):
@@ -1649,6 +1694,21 @@ def phase_hp_kernels(cases, wide):
             r["synth_device_ms"] = device_ms(lambda: hl.hp_longitude(F, rings), n=10)
             r["adjoint_device_ms"] = device_ms(lambda: hl.hp_longitude_adjoint(ct, rings, nm),
                                                n=10)
+            # the torch.fft route, one cuFFT plan a distinct ring length (2048
+            # at nside 2048), held to the kernels on the whole grid; CUDA
+            # events around 3 calls after 3 more that build the plans
+            lib = (lambda: hl.hp_longitude_fft_route(F, rings),
+                   lambda: hl.hp_longitude_adjoint_fft_route(ct, rings, nm))
+            lib_rels = [float(((route() - got).abs() / scale.clamp_min(torch.finfo(dtype).tiny))
+                              .max())
+                        for route, got, scale in zip(
+                            lib, (hl.hp_longitude(F, rings), hl.hp_longitude_adjoint(ct, rings, nm)),
+                            (hl.sum_abs_terms(rings, F=F), hl.sum_abs_terms(rings, ct=ct)))]
+            if max(lib_rels) > HP_RTOL[dtype]:
+                raise AssertionError(f"the torch.fft route is off the K10 kernels by {lib_rels} "
+                                     f"of the per-output sum of |term| ({label})")
+            r["synth_library_ms"] = cuda_ms(lib[0], n=3)
+            r["adjoint_library_ms"] = cuda_ms(lib[1], n=3)
             bound = hp_bound_ms(rings, nm, nrows, F.element_size(), PEAK_OPS_PER_S[dtype])
             r["bound_ms"], r["bound_by"] = bound
             results[label] = r
@@ -1659,7 +1719,10 @@ def phase_hp_kernels(cases, wide):
                 f"synthesis {r['synth_device_ms']:.5f} ({100 * bound[0] / r['synth_device_ms']:.1f}"
                 f" % of the bound) | adjoint {r['adjoint_device_ms']:.5f} "
                 f"({100 * bound[0] / r['adjoint_device_ms']:.1f} %) | bound {bound[0]:.5f} by "
-                f"{bound[1]} | shared memory a block {rings.smem_bytes(nm, False)} / "
+                f"{bound[1]} | torch.fft route {r['synth_library_ms']:.3f} / "
+                f"{r['adjoint_library_ms']:.3f} (CUDA events; off the kernels by "
+                f"{lib_rels[0]:.2e} / {lib_rels[1]:.2e} of sum|term|) | shared memory a block "
+                f"{rings.smem_bytes(nm, False)} / "
                 f"{rings.smem_bytes(nm, True)} bytes | rel err of sum|term| on the sample "
                 f"{rels[0]:.2e} / {rels[1]:.2e}",
                 flush=True,
@@ -1827,19 +1890,399 @@ def hp_kernel_entries(kres, runs, rings, nm, nside):
     return entries
 
 
+# -- line-of-sight tomography (phases 25-28) -------------------------------
+
+LOS_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+# `demos/1_tomography.py`'s seeds (its rays come from numpy's generator 5);
+# phase 28's are `tests/test_tomography_3d.py`'s (rays from 7)
+DEMO1_SEED = 87
+NUTS_SEED = 7
+# phase 28: NUTS transitions, of which the last half are kept
+NUTS_TRANSITIONS = 80
+
+
+def build_tomography(jt, dims, n_rays, n_points, ray_seed, key, flexible=True, n_bins=None):
+    """The tomography model of `demos/1_tomography.py` (`main()`: no
+    flexibility or asperity; `main_at_scale()`: both, and `n_bins`) and of
+    `tests/test_tomography_3d.py` (both): a correlated field `cf` on `dims`,
+    `n_rays` rays between uniform points in [0.05, 0.95]^3 (numpy, from
+    `ray_seed`) sampled at `n_points` points, the model x -> los(exp(cf(x))),
+    data from a prior draw (latents drawn on the host from `key`) plus white
+    noise of 5 % of the mean |truth|.  Returns the likelihood, `cf` and the
+    response."""
+    cfm = jt.CorrelatedFieldMaker("cf")
+    cfm.set_amplitude_total_offset(offset_mean=0.0, offset_std=(1e-1, 3e-2))
+    kw = dict(flexibility=(1e0, 5e-1), asperity=(5e-1, 5e-2)) if flexible else {}
+    if n_bins is not None:
+        kw["n_bins"] = n_bins
+    cfm.add_fluctuations(dims, distances=1.0 / dims[0], fluctuations=(1.0, 5e-1),
+                         loglogavgslope=(-4.0, 5e-1), **kw)
+    cf = cfm.finalize()
+    rng = np.random.default_rng(ray_seed)
+    start = rng.uniform(0.05, 0.95, size=(n_rays, 3))
+    end = rng.uniform(0.05, 0.95, size=(n_rays, 3))
+    los = jt.SamplingCartesianGridLOS(start, end, shape=dims,
+                                      distances=tuple(1.0 / d for d in dims),
+                                      n_sampling_points=n_points)
+    fwd = jt.Model(lambda x: los(torch.exp(cf(x))), domain=cf.domain, init=cf.init)
+    k_truth, k_noise = jt.HostKey(key).split(2)
+    with torch.no_grad():
+        truth = fwd(fwd.init(k_truth))
+        noise_std = 0.05 * float(truth.abs().mean())
+        data = truth + noise_std * jt.random_like(k_noise, truth)
+    lh = jt.Gaussian(data, noise_cov_inv=lambda x: x / noise_std ** 2).amend(fwd)
+    return lh, cf, los
+
+
+def reduced_chi2(lh, samples):
+    """The mean over samples of the mean squared normalized data residual."""
+    with torch.no_grad():
+        return float(torch.stack([torch.mean(lh.normalized_residual(s) ** 2)
+                                  for s in samples]).mean())
+
+
+def los_counts():
+    """K11's calls of the kernel route, by (table key, rows)."""
+    from nifty_tpu_torch.ops import los_interp as li
+
+    return {"forward": dict(li.los_integrate.launches_by_shape),
+            "adjoint": dict(li.los_integrate_adjoint.launches_by_shape)}
+
+
+def los_text(counts):
+    return " ".join(f"{kind} " + ", ".join(
+        f"{shape[0][0]}^{len(shape[0])} x {shape[1]} rays x {shape[2]} entries B={b}: {n}"
+        for (shape, b), n in sorted(c.items())) for kind, c in counts.items())
+
+
+def require_los_launches(label, counts):
+    if min(sum(c.values()) for c in counts.values()) <= 0:
+        raise AssertionError(f"{label}: a K11 kernel never launched: {counts}")
+
+
+def los_bound_ms(tab, nrows, size, adjoint):
+    """The least time of one K11 call: every input the function needs read
+    once (the index and weight tables, the rays' scales, and the touched
+    cells' values or the cotangents) and its output written once, over the
+    memory rate, or its multiply-adds over the arithmetic rate, whichever is
+    larger; and which of the two that is."""
+    entries = tab.nrays * tab.nent
+    tables = entries * (4 + size) + tab.nrays * size
+    values = nrows * (tab.nrays if adjoint else tab.n_touched) * size
+    out = nrows * (tab.ncells if adjoint else tab.nrays) * size
+    by_bytes = 1e3 * (tables + values + out) / PEAK_BYTES_PER_S
+    by_ops = 1e3 * 2 * nrows * tab.n_valid / PEAK_OPS_PER_S[torch.float64]
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def los_library_routes(tab, f, ybar):
+    """One PyTorch call for each direction on the same inputs, which the
+    port never calls: the forward as ``torch.sparse.mm`` of the rays' CSR
+    matrix (the valid entries' weights) times the scales, the adjoint as
+    ``index_add_`` of the entries' terms."""
+    valid = (tab.idx >= 0).reshape(-1)
+    cols = tab.idx.reshape(-1)[valid]
+    crow = torch.zeros(tab.nrays + 1, dtype=torch.int64, device=f.device)
+    crow[1:] = torch.cumsum((tab.idx >= 0).sum(1), 0)
+    matrix = torch.sparse_csr_tensor(crow, cols.long(), tab.w.reshape(-1)[valid],
+                                     (tab.nrays, tab.ncells))
+
+    def forward():
+        return torch.sparse.mm(matrix, f.T).T * tab.scale
+
+    def adjoint():
+        terms = (tab.w * (ybar * tab.scale)[:, :, None]).reshape(ybar.shape[0], -1)[:, valid]
+        return ybar.new_zeros((ybar.shape[0], tab.ncells)).index_add_(1, cols, terms)
+
+    return forward, adjoint
+
+
+@phase("25 the ray integral kernels (K11) vs plain")
+def phase_los_kernels(cases):
+    """`cases`: {label: (SamplingCartesianGridLOS, rows)}.  K11 and its
+    adjoint against their plain versions in float64 and float32 (within
+    1e-12 / 1e-5 of the per-output sum of |term|), bitwise reproducible and
+    bitwise equal when replayed from a CUDA graph; float64 device ms (50
+    calls in a replayed CUDA graph) beside the bound and the share of it
+    reached, the plain versions' and the library routes' ms (CUDA events
+    around 5 calls).  Returns the results by (table key, rows)."""
+    from nifty_tpu_torch.ops import los_interp as li
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    results = {}
+    for label, (los, nrows) in cases.items():
+        for dtype in (torch.float64, torch.float32):
+            tab = los.table(dtype)
+            f = torch.randn((nrows, tab.ncells), dtype=dtype, device=dev, generator=gen)
+            ybar = torch.randn((nrows, tab.nrays), dtype=dtype, device=dev, generator=gen)
+            y1, y2 = li.los_integrate(f, tab), li.los_integrate(f, tab)
+            g1, g2 = li.los_integrate_adjoint(ybar, tab), li.los_integrate_adjoint(ybar, tab)
+            torch.cuda.synchronize()
+            if not (torch.equal(y1, y2) and torch.equal(g1, g2)):
+                raise AssertionError(f"the K11 kernels do not repeat ({label}, {dtype})")
+            if not (torch.equal(y1, replayed(lambda: li.los_integrate(f, tab)))
+                    and torch.equal(g1, replayed(lambda: li.los_integrate_adjoint(ybar, tab)))):
+                raise AssertionError(
+                    f"the K11 kernels differ when replayed from a CUDA graph ({label}, {dtype})")
+            tiny = torch.finfo(dtype).tiny
+            plain = li.los_integrate_plain(f, tab), li.los_integrate_adjoint_plain(ybar, tab)
+            scales = li.sum_abs_terms(tab, f=f), li.sum_abs_terms(tab, ybar=ybar)
+            rels = [float(((got - want).abs() / scale.clamp_min(tiny)).max())
+                    for got, want, scale in zip((y1, g1), plain, scales)]
+            if max(rels) > LOS_RTOL[dtype]:
+                raise AssertionError(f"the K11 kernels are off their plain versions by {rels} "
+                                     f"of the per-output sum of |term| ({label}, {dtype})")
+            if dtype != torch.float64:
+                continue
+            lib_fwd, lib_adj = los_library_routes(tab, f, ybar)
+            for got, want, scale in zip((lib_fwd(), lib_adj()), plain, scales):
+                if float(((got - want).abs() / scale.clamp_min(tiny)).max()) > 1e-10:
+                    raise AssertionError(f"a library route disagrees with the plain version "
+                                         f"({label})")
+            r = dict(forward_err=float((y1 - plain[0]).abs().max()),
+                     adjoint_err=float((g1 - plain[1]).abs().max()),
+                     forward_rel=rels[0], adjoint_rel=rels[1])
+            r["forward_device_ms"] = device_ms(lambda: li.los_integrate(f, tab))
+            r["adjoint_device_ms"] = device_ms(lambda: li.los_integrate_adjoint(ybar, tab))
+            r["forward_plain_ms"] = cuda_ms(lambda: li.los_integrate_plain(f, tab), n=5)
+            r["adjoint_plain_ms"] = cuda_ms(lambda: li.los_integrate_adjoint_plain(ybar, tab), n=5)
+            r["forward_library_ms"] = cuda_ms(lib_fwd, n=5)
+            r["adjoint_library_ms"] = cuda_ms(lib_adj, n=5)
+            for kind in ("forward", "adjoint"):
+                r[f"{kind}_bound_ms"], r[f"{kind}_bound_by"] = los_bound_ms(
+                    tab, nrows, f.element_size(), kind == "adjoint")
+            results[tab.key, nrows] = r
+            print(
+                f"{label}: {tab.nrays} rays x {tab.nent} entries ({tab.n_valid} valid, "
+                f"{tab.n_touched} cells touched) over {tab.ncells} cells | float64 ms: forward "
+                f"{r['forward_device_ms']:.5f} "
+                f"({100 * r['forward_bound_ms'] / r['forward_device_ms']:.1f} % of its bound "
+                f"{r['forward_bound_ms']:.5f}; plain {r['forward_plain_ms']:.4f}, torch.sparse.mm "
+                f"{r['forward_library_ms']:.4f}) | adjoint {r['adjoint_device_ms']:.5f} "
+                f"({100 * r['adjoint_bound_ms'] / r['adjoint_device_ms']:.1f} % of "
+                f"{r['adjoint_bound_ms']:.5f}; plain {r['adjoint_plain_ms']:.4f}, index_add_ "
+                f"{r['adjoint_library_ms']:.4f}) | rel err of sum|term| {rels[0]:.2e} / "
+                f"{rels[1]:.2e}, max abs err {r['forward_err']:.3e} / {r['adjoint_err']:.3e}",
+                flush=True,
+            )
+    return results
+
+
+def los_kernel_entries(kres, runs):
+    """The `kernels` line's entries of K11 and its adjoint: one for each
+    direction, table and number of rows that the runs ({run: K11 counts})
+    launched, with phase 25's numbers; fails on a shape that phase 25 did
+    not check."""
+    entries = []
+    for kind, name in (("forward", "los_integrate"), ("adjoint", "los_integrate_adjoint")):
+        by_run = {run: c[kind] for run, c in runs.items()}
+        for shape in sorted(set().union(*by_run.values())):
+            if shape not in kres:
+                raise AssertionError(f"the main path launched {name} at {shape}, a shape that "
+                                     f"phase 25 did not hold against the plain version")
+            r = kres[shape]
+            (dims, nrays, nent), nrows = shape
+            entries.append(dict(
+                name=f"{name} (K11, {dims[0]}^{len(dims)} x {nrays} rays x {nent} entries "
+                     f"B={nrows}, float64)",
+                route="cuda", source="nifty_tpu_torch/csrc/los_interp.cu",
+                replaces="nifty_tpu/responses/los.py:39 (XLA in the JAX package, not Pallas)",
+                launches=next(c[shape] for c in by_run.values() if c.get(shape)),
+                launches_by_run={run: c.get(shape, 0) for run, c in by_run.items()},
+                max_abs_err=r[f"{kind}_err"], ms=r[f"{kind}_device_ms"],
+                plain_ms=r[f"{kind}_plain_ms"], bound_ms=r[f"{kind}_bound_ms"],
+                bound_by=r[f"{kind}_bound_by"], library_ms=r[f"{kind}_library_ms"],
+            ))
+    return entries
+
+
+def reset_counts():
+    from nifty_tpu_torch.ops import bin_gather as bg
+    from nifty_tpu_torch.ops import los_interp as li
+
+    bg.reset_launch_counts()
+    li.reset_launch_counts()
+
+
+@phase("26 demos/1_tomography.py main(): 64^3, 128 rays x 128 points, optimize_kl, 5 iterations")
+def phase_demo1(jt, lh, cf):
+    """`demos/1_tomography.py`'s `main()` as written: `optimize_kl` with 5
+    iterations of 4 pairs, `linear_resample`, draw CG 60, KL 15 x `xtol`
+    1e-4, `odir` in a temporary directory, the maps left at "auto".  The
+    check: the mean reduced chi^2 of the normalized data residual in [0.5,
+    2] and the posterior mean of exp(cf) finite everywhere; fails unless
+    K11, K11^T and both distributor kernels launched."""
+    from nifty_tpu_torch.ops import bin_gather as bg
+
+    k_init, k_opt = jt.HostKey(DEMO1_SEED).split(2)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    marks = [time.perf_counter()]
+
+    def clock(samples, state):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    with tempfile.TemporaryDirectory() as odir:
+        samples, state = jt.optimize_kl(
+            lh, jt.random_like(k_init, lh.domain), key=k_opt, n_total_iterations=5,
+            n_samples=4, draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=60)),
+            kl_kwargs=dict(minimize_kwargs=dict(xtol=1e-4, maxiter=15)),
+            sample_mode="linear_resample", odir=odir, callback=clock)
+    counts, k11 = launch_counts(bg), los_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with torch.no_grad():
+        post_mean = torch.stack([torch.exp(cf(s)) for s in samples]).mean(0)
+    chi2 = reduced_chi2(lh, samples)
+    _, table = jt.minisanity(samples, lh.normalized_residual)
+    seconds = [b - a for a, b in zip(marks, marks[1:])]
+    energy = float(state.minimization_state.fun)
+    print(f"demo 1 optimize_kl (64^3, 128 rays x 128 points): s/iteration "
+          f"{[round(x, 3) for x in seconds]} ({sum(seconds):.3f} s) | KL energy {energy!r} | "
+          f"reduced chi^2 {chi2:.4f} | post-mean cube {tuple(post_mean.shape)} | peak mem "
+          f"{peak:.2f} GiB | {len(samples)} samples | K11 calls: {los_text(k11)} | "
+          f"distributor calls by rows: {rows_text(counts)}\n{table}", flush=True)
+    if not bool(torch.isfinite(post_mean).all()):
+        raise AssertionError("demo 1: the posterior mean of exp(cf) is not finite everywhere")
+    if not 0.5 <= chi2 <= 2.0:
+        raise AssertionError(f"demo 1: reduced chi^2 {chi2} outside [0.5, 2]")
+    require_los_launches("demo 1", k11)
+    require_launches("demo 1", counts, (cf.dist,))
+    return counts, k11
+
+
+@phase("27 demos/1_tomography.py main_at_scale(): 256^3 n_bins=128, 1024 rays x 256 points, "
+       "3 iterations")
+def phase_tomography_256(jt, lh, cf, with_profile):
+    """`main_at_scale()` at its full width: `OptimizeVI` with the sample loop
+    for both stages, 2 samples, `nonlinear_resample` at the demo's budgets
+    (draw CG 40; geoVI 3 x CG 15, `xtol` 1e-3; KL 6 x CG 20, `xtol` 1e-4),
+    from 0.1 times a latent draw, 3 updates.  Prints each iteration's
+    seconds, samples/s, KL energy, reduced chi^2 and peak device memory.
+    The check: every latent finite and the reduced chi^2 in [0.5, 3]; fails
+    unless all four kernels launched."""
+    from nifty_tpu_torch.ops import bin_gather as bg
+
+    opt = jt.OptimizeVI(lh, n_total_iterations=3, residual_map="smap", kl_map="smap")
+    k_state, k_pos = jt.HostKey(DEMO1_SEED + 1).split(2)
+    state = opt.init_state(
+        k_state, n_samples=2, draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=40)),
+        nonlinearly_update_kwargs=dict(minimize_kwargs=dict(
+            xtol=1e-3, maxiter=3, cg_kwargs=dict(maxiter=15))),
+        kl_kwargs=dict(minimize_kwargs=dict(xtol=1e-4, maxiter=6, cg_kwargs=dict(maxiter=20))),
+        sample_mode="nonlinear_resample")
+    samples = jt.Samples(pos={k: 0.1 * v for k, v in jt.random_like(k_pos, lh.domain).items()},
+                         samples=None, keys=None)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    seconds = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samples, state = opt.update(samples, state)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        chi2 = reduced_chi2(lh, samples)
+        print(f"256^3 iteration {i + 1}: {seconds[-1]:.3f} s | geoVI samples/s "
+              f"{2 * 2 / seconds[-1]:.4f} | KL energy {float(state.minimization_state.fun)!r} | "
+              f"reduced chi^2 {chi2:.4f} | peak mem "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    counts, k11 = launch_counts(bg), los_counts()
+    print(f"256^3: {len(samples)} samples | K11 calls: {los_text(k11)} | distributor calls by "
+          f"rows: {rows_text(counts)}", flush=True)
+    finite = all(bool(torch.isfinite(leaf).all()) for s in samples for leaf in s.values())
+    if not finite:
+        raise AssertionError("256^3: a latent is not finite")
+    if not 0.5 <= chi2 <= 3.0:
+        raise AssertionError(f"256^3: reduced chi^2 {chi2} outside [0.5, 3]")
+    require_los_launches("256^3", k11)
+    require_launches("256^3", counts, (cf.dist,))
+    if with_profile:
+        profile_window("256^3 tomography", lambda: opt.update(samples, state))
+    return counts, k11
+
+
+@phase("28 the NUTS cross-check of tests/test_tomography_3d.py: 16^3, geoVI then NUTS")
+def phase_nuts(jt, lh, cf):
+    """`tests/test_tomography_3d.py`'s cross-check as written: geoVI
+    (`optimize_kl`, 4 iterations of 4 pairs, `nonlinear_resample`), then
+    `NUTSChain` on the same log-probability lh(x) + |x|^2 / 2 with step 0.02,
+    depth 8, `NUTS_TRANSITIONS` transitions from the geoVI mean, the last
+    half kept.  The check: fewer than 5 % of the voxels' posterior means
+    differ by more than 3 (geoVI std + NUTS std + 1e-3).  Prints
+    s/transition, the mean depth, the acceptance and the divergences.
+    Returns the launch counts of the geoVI run and of the chain."""
+    from nifty_tpu_torch.ops import bin_gather as bg
+
+    reset_counts()
+    samples, _ = jt.optimize_kl(
+        lh, jt.random_like(jt.HostKey(1), lh.domain), key=jt.HostKey(11),
+        n_total_iterations=4, n_samples=4, draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=40)),
+        nonlinearly_update_kwargs=dict(minimize_kwargs=dict(
+            xtol=1e-4, maxiter=4, cg_kwargs=dict(maxiter=20))),
+        kl_kwargs=dict(minimize_kwargs=dict(xtol=1e-5, maxiter=8, cg_kwargs=dict(maxiter=30))),
+        sample_mode="nonlinear_resample")
+    geo = launch_counts(bg), los_counts()
+    with torch.no_grad():
+        cf_geo = torch.stack([cf(s) for s in samples])
+    geo_mean, geo_std = cf_geo.mean(0), cf_geo.std(0, correction=0)
+
+    def ham(x):
+        return lh(x) + 0.5 * jt.vdot(x, x)
+
+    chain = jt.NUTSChain(potential_energy=ham, inverse_mass_matrix=1.0,
+                         position_proto=samples.pos, step_size=0.02, max_tree_depth=8)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nuts, _ = chain.generate_n_samples(42, samples.pos, NUTS_TRANSITIONS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    nuts_counts = launch_counts(bg), los_counts()
+    keep = range(NUTS_TRANSITIONS // 2, NUTS_TRANSITIONS)
+    with torch.no_grad():
+        cf_nuts = torch.stack([cf({k: v[i] for k, v in nuts.samples.items()}) for i in keep])
+    spread = geo_std + cf_nuts.std(0, correction=0) + 1e-3
+    frac_off = float(((geo_mean - cf_nuts.mean(0)).abs() > 3.0 * spread).double().mean())
+    leaves = int((2 ** nuts.depths - 1).sum())
+    print(f"NUTS cross-check (16^3, 48 rays): {NUTS_TRANSITIONS} transitions in {seconds:.3f} s "
+          f"({seconds / NUTS_TRANSITIONS:.4f} s/transition, {leaves} leapfrog leaves, "
+          f"{1e3 * seconds / max(leaves, 1):.3f} ms a leaf) | mean depth "
+          f"{float(nuts.depths.double().mean()):.3f} | acceptance "
+          f"{float(nuts.acceptance.mean()):.4f} | divergences {int(nuts.divergences.sum())} | "
+          f"voxels off {frac_off:.4f} | mean geoVI std {float(geo_std.mean()):.4f}, NUTS std "
+          f"{float(cf_nuts.std(0, correction=0).mean()):.4f} | K11 calls: geoVI "
+          f"{los_text(geo[1])}; NUTS {los_text(nuts_counts[1])}", flush=True)
+    for label, (counts, k11) in (("NUTS cross-check geoVI", geo), ("NUTS chain", nuts_counts)):
+        require_los_launches(label, k11)
+        require_launches(label, counts, (cf.dist,))
+    if not frac_off < 0.05:
+        raise AssertionError(f"NUTS and geoVI disagree on {frac_off:.4f} of the voxels")
+    return geo, nuts_counts
+
+
 def profile_update(jt, label, lh, top=12, **maps):
-    """One warm-up update, then one under ``torch.profiler``: its wall time
-    (inflated by the profiler), the summed device time of its kernels and
-    the device's busy share, the kernel launches, the costliest kernels."""
+    """One warm-up update from bench.py's start, then one under
+    :func:`profile_window`."""
+    opt, samples, state = start(jt, lh, BENCH_KWARGS, **maps)
+    samples, state = opt.update(samples, state)
+    profile_window(label, lambda: opt.update(samples, state), top)
+
+
+def profile_window(label, update, top=12):
+    """`update()` (one `OptimizeVI.update`) under ``torch.profiler``: its
+    wall time (inflated by the profiler), the summed device time of its
+    kernels and the device's busy share, the kernel launches, the costliest
+    kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    opt, samples, state = start(jt, lh, BENCH_KWARGS, **maps)
-    samples, state = opt.update(samples, state)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        samples, state = opt.update(samples, state)
+        _, state = update()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -1897,7 +2340,7 @@ def kernel_entries(kres, paths, src):
 
 
 def main(argv):
-    """``--profile``: after phases 5, 6, 8, 12, 15, 19, 23 and 24, profile
+    """``--profile``: after phases 5, 6, 8, 12, 15, 19, 23, 24 and 27, profile
     one more update of each config (device busy share and the costliest
     kernels).  ``--witness``: run phase 23's fit once more with K10 replaced
     by its ``torch.fft`` route, and print that fit's KL energy beside the
@@ -1930,11 +2373,20 @@ def main(argv):
     # in float64, and the ring table); its l map (262,144 modes, 512 bins)
     sky = build_sphere(jt, 511, "healpix")
     sky_sht = sky.spherical_transform.sht
+    t4 = time.perf_counter()
+    # phases 26-28's tomography models (their ray tables and data): demo 1's
+    # 64^3 (unbinned full-grid map), its 256^3 at scale (n_bins=128: the
+    # 129^3 quarter map) and the NUTS cross-check's 16^3
+    lh64, cf64, los64 = build_tomography(jt, (64,) * 3, 128, 128, 5, DEMO1_SEED, flexible=False)
+    lh256, cf256, los256 = build_tomography(jt, (256,) * 3, 1024, 256, 5, DEMO1_SEED,
+                                            n_bins=128)
+    lh16, cf16, los16 = build_tomography(jt, (16,) * 3, 48, 64, NUTS_SEED, NUTS_SEED + 1)
     print(f"field set-up (host mode maps, CSR) {time.perf_counter() - t0:.3f} s, of which 4096^2 "
           f"unbinned {t2 - t1:.3f} s, 512^2 x 64 {t3 - t2:.3f} s, the HEALPix sky (nside "
           f"{sky_sht.nside}, {sky_sht.nrings} rings, Legendre table "
-          f"{sky_sht.lam.numel() * 8 / 2**30:.2f} GiB) {time.perf_counter() - t3:.3f} s",
-          flush=True)
+          f"{sky_sht.lam.numel() * 8 / 2**30:.2f} GiB) {t4 - t3:.3f} s, the tomography models "
+          f"(ray tables, data; 256^3: the {cf256.dist.shape} quarter map) "
+          f"{time.perf_counter() - t4:.3f} s", flush=True)
     # the 1-D maps at the rows the lockstep stages give them (1 for an
     # unbatched call, 4 for the draw of 4 keys, 8 for the curve and the
     # stacked KL stage of 8 samples) and at those rows times total_N = 3
@@ -1971,6 +2423,14 @@ def main(argv):
         # 22,026 modes on the full 512^2 map: int16 index, a 176 KB table a
         # float64 row
         "512^2 unbinned B=1": (map512, 1),
+        # the tomography maps: 16^3 and 64^3 unbinned full-grid maps at the
+        # rows of a model call (1), the lockstep draw of 4 keys (4) and the
+        # stacked KL stage of 8 samples (8); 256^3's 129^3 quarter map
+        # (2,146,689 entries, 128 bins) at 1 and, misaligned, 2 rows
+        **{f"{n}^3 unbinned B={rows}": (dist, rows)
+           for n, dist in ((16, cf16.dist), (64, cf64.dist)) for rows in (1, 4, 8)},
+        "256^3 nb128 quarter B=1": (cf256.dist, 1),
+        "256^3 nb128 quarter B=2": (cf256.dist, 2),
     })
 
     phase_cpu_vs_card(jt)
@@ -2078,6 +2538,21 @@ def main(argv):
                        kl_map="smap")
     gl_dist = gl.dist
     del gl, lh_gl
+    torch.cuda.empty_cache()
+
+    # line-of-sight tomography: K11 at every (table, rows) shape phases 26-28
+    # launch (the lockstep stages give 1, 4 and 8 rows; the sample loop and
+    # the chain one), then the three cells
+    kres_los = phase_los_kernels({
+        **{f"{n}^3 x {los.target.shape[0]} rays B={rows}": (los, rows)
+           for n, los in ((16, los16), (64, los64)) for rows in (1, 4, 8)},
+        "256^3 x 1024 rays B=1": (los256, 1)})
+    c_demo1, k11_demo1 = phase_demo1(jt, lh64, cf64)
+    del lh64, los64
+    c_256, k11_256 = phase_tomography_256(jt, lh256, cf256, with_profile)
+    del lh256, los256
+    torch.cuda.empty_cache()
+    (c_geo16, k11_geo16), (c_nuts, k11_nuts) = phase_nuts(jt, lh16, cf16)
 
     src = "nifty_tpu_torch/csrc/bin_gather.cu"
     tpu = "nifty_tpu/ops/pallas_gather.py"
@@ -2087,10 +2562,11 @@ def main(argv):
     # leaves to its sorted XLA route (K5, `sorted_bin_gather`); the 1-D maps
     # of 16, 64 and 256 entries are K1/K2's (at most 1024 bins).
     k1k2 = ("K1", f"{tpu}:184"), ("K2", f"{tpu}:228")
+    k3k4 = ("K3", f"{tpu}:369"), ("K4", f"{tpu}:406")
     k5 = ("K5 route", f"{tpu}:1013"), ("K5 route", f"{tpu}:1013")
     paths = [
         ("4096^2 nb128 quarter", cf4096.dist, *k1k2, {"fixed": c4096}),
-        ("128^2 unbinned", cf128.dist, ("K3", f"{tpu}:369"), ("K4", f"{tpu}:406"),
+        ("128^2 unbinned", cf128.dist, *k3k4,
          {"fixed": c128, "adaptive": c_adaptive, "optimize_kl": c_loop,
           "poisson_counts": c_poisson, "bernoulli_map": c_bernoulli_map,
           "bernoulli_geovi": c_bernoulli_vi}),
@@ -2101,6 +2577,9 @@ def main(argv):
         ("512^2 unbinned", map512, *k5, {"space_x_frequency": c512}),
         ("256 (1-D)", map256, *k1k2, {"density": c_density}),
         ("l map lmax 511", gl_dist, *k1k2, {"demo16": c_demo16, "gl_sphere": c_gl}),
+        ("64^3 unbinned", cf64.dist, *k3k4, {"demo1": c_demo1}),
+        ("256^3 nb128 quarter", cf256.dist, *k1k2, {"tomography_256": c_256}),
+        ("16^3 unbinned", cf16.dist, *k3k4, {"nuts_geovi": c_geo16, "nuts": c_nuts}),
     ]
     icr_paths = {"demo9": (icr["demo9"], {"demo9": c_demo9}),
                  "4100^2": (icr["4100^2"], {"4100^2": c_4100}),
@@ -2108,7 +2587,9 @@ def main(argv):
                  "sphere x radius": (radial, {"sphere_x_radius": c_radial})}
     print(json.dumps({"kernels": kernel_entries(kres, paths, src)
                       + icr_kernel_entries(kres_icr, icr_paths)
-                      + hp_kernel_entries(kres_hp, {"demo16": k10_demo16}, hp_rings, 512, 256)}))
+                      + hp_kernel_entries(kres_hp, {"demo16": k10_demo16}, hp_rings, 512, 256)
+                      + los_kernel_entries(kres_los, {"demo1": k11_demo1, "tomography_256": k11_256,
+                                                      "nuts_geovi": k11_geo16, "nuts": k11_nuts})}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

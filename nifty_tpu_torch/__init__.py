@@ -1,7 +1,8 @@
 """PyTorch port of nifty_tpu: geoVI on correlated fields (Fourier subgrids
-and the sphere) and iterative charted refinement, with hand-written CUDA
-kernels for the power distributor, the refinement step and the HEALPix
-longitude stage.
+and the sphere), iterative charted refinement, line-of-sight tomography,
+structured kernel interpolation and HMC/NUTS, with hand-written CUDA
+kernels for the power distributor, the refinement step, the HEALPix
+longitude stage and the ray integral.
 
 The package mirrors ``nifty_tpu``'s layout and public names and imports
 ``torch``, ``numpy`` and ``scipy`` only, never ``jax``.
@@ -55,6 +56,8 @@ from .likelihood_impl import (
     VariableCovarianceGaussian,
     VariableCovarianceStudentT,
 )
+from .hmc import generate_hmc_acc_rej, generate_nuts_tree
+from .hmc_oo import Chain, HMCChain, NUTSChain
 from .field import (
     Field,
     create_power_operator,
@@ -90,6 +93,15 @@ from .refine import (
     RefinementHPField,
     coarse_windows,
     refinement_matrices,
+)
+from .responses import (
+    HarmonicSKI,
+    SamplingCartesianGridLOS,
+    StructuredKernelInterpolation,
+    ToeplitzSKI,
+    interpolation_matrix,
+    matmul_bttb,
+    matmul_toeplitz,
 )
 from .prior import (
     GammaPrior,

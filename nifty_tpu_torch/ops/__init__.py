@@ -9,5 +9,6 @@ from .bin_gather import (
 from .harmonic import hartley
 from .healpix_sht import HEALPixSHT
 from .hp_longitude import HpLongitude, HpLongitudeAdjoint, HPRings
+from .los_interp import LosIntegrate, LosIntegrateAdjoint, LosTable
 from .icr_refine import IcrRefine, IcrRefineTranspose, RefineLevel, refine_level
 from .sht import SphericalHarmonicTransform, SphericalHarmonicTransformOnTheFly

@@ -1,0 +1,424 @@
+"""The ray integral of line-of-sight tomography, K11, and its transpose.
+
+A ray ``r`` of :class:`~nifty_tpu_torch.responses.los.SamplingCartesianGridLOS`
+samples the field at ``P`` equidistant points, each interpolated from the
+``2^d`` corners of its cell (order 1) or from one cell (order 0), and sums
+them times ``s_r = |end_r - start_r| / P``:
+
+    y[b, r] = s_r · Σ_{e < E} w[r, e] · f[b, idx[r, e]]
+    g[b, n] = Σ_{(r, e) : idx[r, e] = n} w[r, e] · (s_r · ȳ[b, r])     (the adjoint)
+
+with ``E = P · 2^d`` entries a ray in (point, corner) order.  The JAX package
+computes this with XLA: ``map_coordinates`` vmapped over rays
+(``nifty_tpu/responses/los.py:39``) and the scatter-add autodiff makes of it;
+structured kernel interpolation (``ski.py:85-96``) is the same pair with
+``P = 1``, ``s = 1`` and clipped indices (:func:`LosTable.from_interpolation`).
+
+:func:`los_tables` builds the tables on the host in numpy with the JAX
+package's expressions, in its order and types (``jax/_src/scipy/ndimage.py``:
+``_linear_indices_and_weights``, ``_nearest_indices_and_weights``,
+``_map_coordinates``), so that ``floor`` lands on the same cells and the
+weights are the same numbers.  A corner outside the grid has index -1: it
+contributes nothing to the linear map, and its ray's value is NaN
+(``cval=nan``), even where the corner's weight is 0 (a point at world
+coordinate ``distances · n``).  The wrappers add :attr:`LosTable.nan_offset`
+for that; the jvp and vjp, as in JAX, see the linear map alone.
+
+:class:`LosTable` holds the tables as buffers, with the adjoint's CSR over
+the touched cells (a bit mask, ranks, offsets, rays and weights).  The
+hand-written kernels (``csrc/los_interp.cu``) run them for a CUDA tensor;
+:func:`los_integrate_plain` and :func:`los_integrate_adjoint_plain` are the
+plain versions, which :func:`los_integrate` / :func:`los_integrate_adjoint`
+take for a CPU tensor only.  Their ``launches`` count the calls that take
+the kernel route, in total, by rows (``launches_by_rows``) and by (table
+key, rows) (``launches_by_shape``).  :class:`LosIntegrate` and
+:class:`LosIntegrateAdjoint` are the ``torch.autograd.Function`` pair, each
+the other's derivative, with ``setup_context``, ``jvp`` and ``vmap``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import itertools
+from collections import Counter
+
+import numpy as np
+import torch
+from torch import nn
+
+from .cuda_build import load_library
+
+_FLOAT_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
+_MAX_ROW_TILES = 65535  # gridDim.y
+#: rows a kernel block serves (``kRowTile`` in the source)
+ROW_TILE = 4
+
+
+# -- host tables ----------------------------------------------------------
+
+
+def los_coordinates(start, end, shape, distances, n_sampling_points, dtype=np.float64):
+    """The index coordinates of every ray's sampling points, ``(R, d, P)``,
+    by ``_ray_integral``'s expressions in its order: the grid shape in the
+    field's ``dtype``, ``start``, ``end`` and ``distances`` in their own
+    types (numpy promotes them as JAX does), ``start`` / ``end`` ``(R, d)``
+    already broadcast."""
+    shape_arr = np.asarray(shape, dtype=dtype)
+    loc_per_world = ((shape_arr - 1) / shape_arr) / np.asarray(distances)
+    s = start * loc_per_world
+    e = end * loc_per_world
+    step = (e - s) / n_sampling_points
+    t = np.arange(n_sampling_points, dtype=dtype) + 0.5
+    return s[:, :, None] + step[:, :, None] * t[None, None, :]
+
+
+def _round_half_away_from_zero(c):
+    whole = np.trunc(c)
+    return whole + np.where(np.abs(c - whole) >= 0.5, np.sign(c), 0)
+
+
+def los_tables(start, end, shape, distances, n_sampling_points, order=1,
+               dtype=np.float64):
+    """The ray tables of a line-of-sight response on the host:
+    ``(idx, w, scale, nan_rays)`` with ``idx`` int32 ``(R, E)`` (-1 for a
+    corner outside the grid), ``w`` ``(R, E)`` in ``dtype``, ``scale`` the
+    ``|end - start| / P`` of each ray in ``dtype`` and ``nan_rays`` (bool,
+    ``(R,)``) the rays with a corner outside the grid.  Corners run in
+    ``itertools.product`` order (last axis fastest), a corner's weight is
+    the product of its axes' weights from the first axis on."""
+    start, end = np.atleast_2d(np.asarray(start)), np.atleast_2d(np.asarray(end))
+    nrays = max(start.shape[0], end.shape[0])
+    start = np.broadcast_to(start, (nrays, start.shape[1]))
+    end = np.broadcast_to(end, (nrays, end.shape[1]))
+    shape = tuple(int(n) for n in shape)
+    coords = los_coordinates(start, end, shape, distances, n_sampling_points, dtype)
+    if order == 0:
+        axes = [[(_round_half_away_from_zero(coords[:, a]).astype(np.int64), None)]
+                for a in range(len(shape))]
+    elif order == 1:
+        lower = np.floor(coords)
+        upper_w = coords - lower
+        axes = [[(lower[:, a].astype(np.int64), 1 - upper_w[:, a]),
+                 (lower[:, a].astype(np.int64) + 1, upper_w[:, a])]
+                for a in range(len(shape))]
+    else:
+        raise NotImplementedError("interpolation_order must be 0 or 1")
+    strides = np.cumprod((1,) + shape[:0:-1])[::-1]
+    cells, weights = [], []
+    for corner in itertools.product(*axes):
+        flat = np.zeros(coords.shape[::2], dtype=np.int64)
+        valid = np.ones(coords.shape[::2], dtype=bool)
+        wgt = None
+        for (index, w), n, stride in zip(corner, shape, strides):
+            valid &= (index >= 0) & (index < n)
+            flat += index * stride
+            if w is not None:
+                wgt = w if wgt is None else wgt * w
+        cells.append(np.where(valid, flat, -1))
+        weights.append(np.ones(flat.shape, dtype=coords.dtype) if wgt is None else wgt)
+    # (R, P, C) -> (R, P * C): entries in (point, corner) order
+    idx = np.stack(cells, -1).reshape(nrays, -1).astype(np.int32)
+    w = np.stack(weights, -1).reshape(nrays, -1).astype(dtype)
+    length = np.sqrt(np.sum((end - start) ** 2, axis=1))
+    scale = (length / n_sampling_points).astype(dtype)
+    return idx, w, scale, np.any(idx < 0, axis=1)
+
+
+def adjoint_csr(idx, w, ncells: int) -> dict:
+    """The adjoint's tables: the valid entries sorted by cell, stable in
+    (ray, entry) order (``seg_ray`` int32, ``seg_w``), the CSR offsets of
+    each touched cell's segment (``seg_off`` int32, ``(U + 1,)``), the
+    touched cells (``cells`` int64), and the bit mask of the touched cells,
+    one uint32 word for 32 cells (``mask``), with the touched cells in the
+    words before each word (``rank`` int32)."""
+    idx = np.asarray(idx)
+    nrays, nent = idx.shape
+    flat = idx.ravel()
+    valid = np.flatnonzero(flat >= 0)
+    order = np.argsort(flat[valid], kind="stable")
+    entries = valid[order]
+    sorted_cells = flat[entries].astype(np.int64)
+    cells, counts = np.unique(sorted_cells, return_counts=True)
+    seg_off = np.zeros(cells.size + 1, dtype=np.int64)
+    np.cumsum(counts, out=seg_off[1:])
+    if seg_off[-1] >= 2**31:
+        raise ValueError("tables of 2^31 valid entries or more are not supported")
+    nwords = -(-int(ncells) // 32)
+    mask = np.zeros(nwords, dtype=np.uint32)
+    np.bitwise_or.at(mask, cells >> 5, (np.uint32(1) << (cells & 31).astype(np.uint32)))
+    touched = np.bincount(cells >> 5, minlength=nwords)
+    rank = np.zeros(nwords, dtype=np.int64)
+    np.cumsum(touched[:-1], out=rank[1:])
+    return {"seg_ray": (entries // nent).astype(np.int32),
+            "seg_w": np.asarray(w).ravel()[entries], "seg_off": seg_off.astype(np.int32),
+            "cells": cells, "mask": mask.view(np.int32), "rank": rank.astype(np.int32)}
+
+
+class LosTable(nn.Module):
+    """The tables of one ray integral (or one interpolation) over a grid of
+    ``shape``, as buffers (``.to(device)`` moves them; none is persistent:
+    they follow from the geometry).
+
+    ``idx`` (int32, ``(R, E)``, -1 outside the grid), ``w`` and ``scale``
+    (the rays' ``s_r``) are the forward's; ``seg_off``, ``seg_ray``,
+    ``seg_w``, ``mask`` and ``rank`` (:func:`adjoint_csr`) the adjoint's;
+    ``cells`` the touched cells (for the plain adjoint); ``nan_offset`` is
+    NaN for the rays with a corner outside the grid and 0 elsewhere
+    (``has_nan`` says whether any is NaN).  ``key`` = ``(shape, R, E)``
+    names the table in the launch counts."""
+
+    def __init__(self, idx, w, scale, shape, nan_rays=None):
+        super().__init__()
+        idx = np.ascontiguousarray(idx, dtype=np.int32)
+        w = np.ascontiguousarray(w)
+        self.shape = tuple(int(n) for n in shape)
+        self.ncells = int(np.prod(self.shape))
+        if self.ncells >= 2**31:
+            raise ValueError("grids of 2^31 cells or more are not supported")
+        self.nrays, self.nent = idx.shape
+        self.key = (self.shape, self.nrays, self.nent)
+        nan_rays = np.zeros(self.nrays, bool) if nan_rays is None else np.asarray(nan_rays)
+        self.has_nan = bool(nan_rays.any())
+        csr = adjoint_csr(idx, w, self.ncells)
+        self.n_touched = int(csr["cells"].size)
+        self.n_valid = int(csr["seg_off"][-1])
+        for name, arr in (("idx", idx), ("w", w), ("scale", np.asarray(scale, w.dtype)),
+                          ("nan_offset", np.where(nan_rays, np.nan, 0).astype(w.dtype)),
+                          *((k, csr[k]) for k in ("seg_off", "seg_ray", "seg_w", "cells",
+                                                  "mask", "rank"))):
+            self.register_buffer(name, torch.from_numpy(np.ascontiguousarray(arr)),
+                                 persistent=False)
+
+    @classmethod
+    def from_interpolation(cls, indices, weights, shape):
+        """The table of a multilinear interpolation from ``(C, n_points)``
+        index and weight tables (:func:`~nifty_tpu_torch.responses.ski.
+        interpolation_matrix`): a ray a point, its ``C`` corners its
+        entries, ``s = 1``."""
+        idx = np.asarray(indices).T
+        w = np.asarray(weights).T
+        return cls(idx, w, np.ones(idx.shape[0], dtype=w.dtype), shape)
+
+    @property
+    def dtype(self):
+        return self.w.dtype
+
+    def extra_repr(self):
+        return f"shape={self.shape}, rays={self.nrays}, entries={self.nent}"
+
+
+# -- plain versions -------------------------------------------------------
+
+
+def _forward_plain(f, idx, w, scale):
+    valid = idx >= 0
+    vals = f.index_select(1, idx.clamp_min(0).reshape(-1)).reshape(f.shape[0], *idx.shape)
+    return torch.where(valid, w * vals, 0).sum(-1) * scale
+
+
+def _adjoint_plain(ybar, table, seg_w, scale):
+    nrows = ybar.shape[0]
+    vals = seg_w * (ybar * scale).index_select(1, table.seg_ray.long())
+    offs = table.seg_off.long().expand(nrows, -1).contiguous()
+    sums = torch.segment_reduce(vals, "sum", offsets=offs, axis=1)
+    out = ybar.new_zeros((nrows, table.ncells))
+    out[:, table.cells] = sums
+    return out
+
+
+def los_integrate_plain(f, table: LosTable):
+    """The forward for fields ``(B, N)`` -> ``(B, R)``: ``(w · f[:, idx]).sum(-1)
+    · s``, the entries outside the grid taken as 0."""
+    return _forward_plain(f, table.idx, table.w, table.scale)
+
+
+def los_integrate_adjoint_plain(ybar, table: LosTable):
+    """The adjoint for cotangents ``(B, R)`` -> ``(B, N)``: each entry's term
+    ``w · (s · ȳ)``, summed over its cell's CSR segment by a sorted segment
+    reduction, and the sums put in the touched cells."""
+    return _adjoint_plain(ybar, table, table.seg_w, table.scale)
+
+
+def sum_abs_terms(table: LosTable, f=None, ybar=None):
+    """The per-output sum of |term| of the forward of ``f`` or of the
+    adjoint of ``ybar``: the scale the kernels' error is held to."""
+    if f is not None:
+        return _forward_plain(f.abs(), table.idx, table.w.abs(), table.scale.abs())
+    return _adjoint_plain(ybar.abs(), table, table.seg_w.abs(), table.scale.abs())
+
+
+# -- kernel wrappers ------------------------------------------------------
+
+_KERNELS: dict = {}
+
+
+def _kernels():
+    """The library's C entries, loaded (and built) at first use."""
+    if _KERNELS:
+        return _KERNELS
+    lib = load_library("los_interp")
+    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for dtype, sfx in _FLOAT_DTYPES.items():
+        fwd = getattr(lib, f"los_forward_{sfx}")
+        fwd.argtypes = [vp] * 5 + [ci, ci, cll, ci, ci, vp]
+        fwd.restype = ci
+        adj = getattr(lib, f"los_adjoint_{sfx}")
+        adj.argtypes = [vp] * 8 + [cll, ci, ci, ci, vp]
+        adj.restype = ci
+        _KERNELS["forward", dtype], _KERNELS["adjoint", dtype] = fwd, adj
+    lib.los_interp_row_tile.restype = ci
+    if lib.los_interp_row_tile() != ROW_TILE:
+        raise RuntimeError(f"kernels built for {lib.los_interp_row_tile()} rows a block; the "
+                           f"host uses {ROW_TILE}")
+    return _KERNELS
+
+
+def _check(x, table: LosTable, width: int, what: str):
+    if x.ndim != 2 or x.shape[1] != width:
+        raise ValueError(f"{what} must have shape (B, {width}); got {tuple(x.shape)}")
+    if x.dtype != table.w.dtype:
+        raise TypeError(f"{what} is {x.dtype} but the table is {table.w.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+    if x.device != table.idx.device:
+        raise ValueError(f"{what} on {x.device} but the table on {table.idx.device}")
+    if -(-x.shape[0] // ROW_TILE) > _MAX_ROW_TILES:
+        raise ValueError(f"at most {_MAX_ROW_TILES * ROW_TILE} rows; got {x.shape[0]}")
+
+
+def _stream(dev):
+    return torch._C._cuda_getCurrentRawStream(dev)
+
+
+def _count(wrapper, table: LosTable, nrows: int):
+    wrapper.launches += 1
+    wrapper.launches_by_rows[nrows] += 1
+    wrapper.launches_by_shape[table.key, nrows] += 1
+
+
+def los_integrate(f, table: LosTable):
+    """The forward, fields ``(B, N)`` -> ``(B, R)``: the kernel for a CUDA
+    tensor, the plain version for a CPU tensor.  Entries outside the grid
+    contribute nothing (no NaN: see :attr:`LosTable.nan_offset`)."""
+    _check(f, table, table.ncells, "field")
+    if not f.is_cuda:
+        if f.device.type == "cpu":
+            return los_integrate_plain(f, table)
+        raise RuntimeError(f"no los_interp kernel for device {f.device}")
+    out = f.new_empty((f.shape[0], table.nrays))
+    dev = f.get_device()
+    rc = _kernels()["forward", f.dtype](
+        f.data_ptr(), table.idx.data_ptr(), table.w.data_ptr(), table.scale.data_ptr(),
+        out.data_ptr(), table.nrays, table.nent, table.ncells, f.shape[0], dev, _stream(dev))
+    if rc < 0:
+        raise RuntimeError(f"CUDA kernel launch failed with cudaError {-rc}")
+    _count(los_integrate, table, f.shape[0])
+    return out
+
+
+def los_integrate_adjoint(ybar, table: LosTable):
+    """The adjoint, cotangents ``(B, R)`` -> ``(B, N)``: the kernel for a
+    CUDA tensor, the plain version for a CPU tensor."""
+    _check(ybar, table, table.nrays, "cotangent")
+    if not ybar.is_cuda:
+        if ybar.device.type == "cpu":
+            return los_integrate_adjoint_plain(ybar, table)
+        raise RuntimeError(f"no los_interp kernel for device {ybar.device}")
+    out = ybar.new_empty((ybar.shape[0], table.ncells))
+    dev = ybar.get_device()
+    rc = _kernels()["adjoint", ybar.dtype](
+        ybar.data_ptr(), table.mask.data_ptr(), table.rank.data_ptr(), table.seg_off.data_ptr(),
+        table.seg_ray.data_ptr(), table.seg_w.data_ptr(), table.scale.data_ptr(),
+        out.data_ptr(), table.ncells, table.nrays, ybar.shape[0], dev, _stream(dev))
+    if rc < 0:
+        raise RuntimeError(f"CUDA kernel launch failed with cudaError {-rc}")
+    _count(los_integrate_adjoint, table, ybar.shape[0])
+    return out
+
+
+def reset_launch_counts():
+    for fn in (los_integrate, los_integrate_adjoint):
+        fn.launches = 0
+        fn.launches_by_rows, fn.launches_by_shape = Counter(), Counter()
+
+
+reset_launch_counts()
+
+
+# -- autograd pair --------------------------------------------------------
+
+
+class LosIntegrate(torch.autograd.Function):
+    """fields (B, N) -> ray values (B, R); derivative: the adjoint."""
+
+    @staticmethod
+    def forward(f, table):
+        return los_integrate(f, table)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.table = inputs[1]
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return LosIntegrateAdjoint.apply(grad_out.contiguous(), ctx.table), None
+
+    @staticmethod
+    def jvp(ctx, f_dot, _table_dot):
+        return LosIntegrate.apply(f_dot.contiguous(), ctx.table)
+
+    @staticmethod
+    def vmap(info, in_dims, f, table):
+        if in_dims[0] is None:
+            return LosIntegrate.apply(f, table), None
+        x = f.movedim(in_dims[0], 0)
+        n, nrows = x.shape[0], x.shape[1]
+        out = LosIntegrate.apply(x.reshape(n * nrows, -1).contiguous(), table)
+        return out.reshape(n, nrows, -1), 0
+
+
+class LosIntegrateAdjoint(torch.autograd.Function):
+    """cotangents (B, R) -> fields (B, N); derivative: the forward."""
+
+    @staticmethod
+    def forward(ybar, table):
+        return los_integrate_adjoint(ybar, table)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.table = inputs[1]
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return LosIntegrate.apply(grad_out.contiguous(), ctx.table), None
+
+    @staticmethod
+    def jvp(ctx, ybar_dot, _table_dot):
+        return LosIntegrateAdjoint.apply(ybar_dot.contiguous(), ctx.table)
+
+    @staticmethod
+    def vmap(info, in_dims, ybar, table):
+        if in_dims[0] is None:
+            return LosIntegrateAdjoint.apply(ybar, table), None
+        x = ybar.movedim(in_dims[0], 0)
+        n, nrows = x.shape[0], x.shape[1]
+        out = LosIntegrateAdjoint.apply(x.reshape(n * nrows, -1).contiguous(), table)
+        return out.reshape(n, nrows, -1), 0
+
+
+def integrate(x, table: LosTable):
+    """The ray values of fields ``(..., *table.shape)`` -> ``(..., R)``, NaN
+    on the rays with a corner outside the grid."""
+    lead = tuple(x.shape[: x.ndim - len(table.shape)])
+    y = LosIntegrate.apply(x.reshape(-1, table.ncells).contiguous(), table)
+    if table.has_nan:
+        y = y + table.nan_offset
+    return y.reshape(*lead, table.nrays)
+
+
+def integrate_adjoint(ybar, table: LosTable):
+    """The adjoint of :func:`integrate`'s linear map: ``(..., R)`` ->
+    ``(..., *table.shape)``."""
+    lead = tuple(ybar.shape[:-1])
+    g = LosIntegrateAdjoint.apply(ybar.reshape(-1, table.nrays).contiguous(), table)
+    return g.reshape(*lead, *table.shape)

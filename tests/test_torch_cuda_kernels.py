@@ -708,3 +708,116 @@ def test_healpix_field_on_the_card_matches_the_cpu(cuda):
     assert hl.hp_longitude.launches > 0 and hl.hp_longitude_adjoint.launches > 0
     for got, want in zip(on_card, on_cpu):
         torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12 * float(want.abs().max()))
+
+
+# -- K11: the ray integral and its adjoint (ops/los_interp.py) -------------
+
+
+def _los_table(case, dtype):
+    """The tables of a line-of-sight response or of an interpolation, on the
+    host: (rays, points, grid, order) of phases 4, 26-28's shapes at a small
+    grid, a ray along the far face (NaN, its corners outside skipped), and
+    SKI's clipped corners (P = 1, s = 1)."""
+    from nifty_tpu_torch.ops import los_interp as li
+    from nifty_tpu_torch.responses import ski
+
+    npd = np.float64 if dtype == torch.float64 else np.float32
+    rng = np.random.default_rng(len(case))
+    if case.startswith("ski"):
+        shape = (40, 30) if case == "ski_2d" else (12, 10, 9)
+        bounds = np.array([(0.0, 1.0)] * len(shape))
+        pts = rng.uniform(-0.05, 1.05, size=(len(shape), 3000))
+        idx, w = ski.interpolation_matrix(shape, bounds, pts)
+        return li.LosTable.from_interpolation(idx, w.astype(npd), shape)
+    shape, nrays, npts, order = {"los_16": ((16,) * 3, 48, 64, 1),
+                                 "los_32x32": ((16,) * 3, 32, 32, 1),
+                                 "los_64": ((64,) * 3, 128, 128, 1),
+                                 "los_wide": ((48,) * 3, 96, 256, 1),
+                                 "los_o0": ((20, 24, 28), 40, 100, 0)}[case]
+    start = rng.uniform(0.05, 0.95, size=(nrays, 3))
+    end = rng.uniform(0.05, 0.95, size=(nrays, 3))
+    start[0], end[0] = (1.0, 0.2, 0.3), (1.0, 0.8, 0.6)  # along the far face of axis 0
+    idx, w, scale, nan_rays = li.los_tables(start, end, shape, tuple(1.0 / n for n in shape),
+                                            npts, order, npd)
+    return li.LosTable(idx, w, scale, shape, nan_rays)
+
+
+LOS_CASES = ["los_16", "los_32x32", "los_64", "los_wide", "los_o0", "ski_2d", "ski_3d"]
+
+
+@pytest.mark.parametrize("case", LOS_CASES)
+@pytest.mark.parametrize("nrows", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_los_kernels_match_plain_versions(cuda, case, nrows, dtype):
+    """K11 and K11ᵀ against their plain versions within 1e-12 / 1e-5 of the
+    per-output sum of |term|, bitwise repeats, a row alone equal to its row
+    of a batch (the order of additions depends on the table alone)."""
+    from nifty_tpu_torch.ops import los_interp as li
+
+    tab = _los_table(case, dtype).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    f = torch.randn((nrows, tab.ncells), dtype=dtype, device=cuda, generator=gen)
+    ybar = torch.randn((nrows, tab.nrays), dtype=dtype, device=cuda, generator=gen)
+    before = (li.los_integrate.launches, li.los_integrate_adjoint.launches,
+              li.los_integrate.launches_by_shape[tab.key, nrows])
+    y1, y2 = li.los_integrate(f, tab), li.los_integrate(f, tab)
+    g1, g2 = li.los_integrate_adjoint(ybar, tab), li.los_integrate_adjoint(ybar, tab)
+    torch.cuda.synchronize()
+    assert (li.los_integrate.launches, li.los_integrate_adjoint.launches,
+            li.los_integrate.launches_by_shape[tab.key, nrows]) == (
+        before[0] + 2, before[1] + 2, before[2] + 2)
+    assert torch.equal(y1, y2) and torch.equal(g1, g2)
+    tiny = torch.finfo(dtype).tiny
+    for got, want, scale in ((y1, li.los_integrate_plain(f, tab), li.sum_abs_terms(tab, f=f)),
+                             (g1, li.los_integrate_adjoint_plain(ybar, tab),
+                              li.sum_abs_terms(tab, ybar=ybar))):
+        assert bool(torch.all((got - want).abs() <= RTOL[dtype] * scale.clamp_min(tiny)))
+    # untouched cells are written (zero), every row alone as in the batch
+    assert bool(torch.isfinite(g1).all())
+    assert torch.equal(li.los_integrate(f[-1:].contiguous(), tab), y1[-1:])
+    assert torch.equal(li.los_integrate_adjoint(ybar[-1:].contiguous(), tab), g1[-1:])
+
+
+def test_los_response_on_the_card_matches_the_cpu(cuda):
+    """SamplingCartesianGridLOS on fields (2, 16, 16, 16): forward (NaN on
+    the far-face ray), jvp, vjp and the recorded linearization run K11 and
+    K11ᵀ on the card and agree with the plain versions on the CPU (1e-12)."""
+    import nifty_tpu_torch as jt
+    from nifty_tpu_torch.ops import los_interp as li
+
+    rng = np.random.default_rng(5)
+    start, end = rng.uniform(0.05, 0.95, size=(24, 3)), rng.uniform(0.05, 0.95, size=(24, 3))
+    start[0], end[0] = (1.0, 0.2, 0.3), (1.0, 0.8, 0.6)
+    kw = dict(shape=(16,) * 3, distances=(1 / 16,) * 3, n_sampling_points=40)
+    x0, t0 = rng.standard_normal((2, 16, 16, 16)), rng.standard_normal((2, 16, 16, 16))
+    c0 = rng.standard_normal((2, 24))
+
+    def run(device):
+        los = jt.SamplingCartesianGridLOS(start, end, device=device, **kw)
+        x, t, c = (torch.from_numpy(a).to(device) for a in (x0, t0, c0))
+        y, tan = torch.func.jvp(los, (x,), (t,))
+        _, vjp_fn = torch.func.vjp(los, x)
+        _, jvp_lin, vjp_lin = linearize(los, x)
+        return [r.cpu() for r in (y, tan, jvp_lin(t), vjp_fn(c)[0], vjp_lin(c))]
+
+    li.reset_launch_counts()
+    on_card, on_cpu = run(cuda), run(torch.device("cpu"))
+    assert li.los_integrate.launches > 0 and li.los_integrate_adjoint.launches > 0
+    assert bool(torch.isnan(on_card[0][:, 0]).all())
+    for got, want in zip(on_card, on_cpu):
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12 * float(
+            want[torch.isfinite(want)].abs().max()), equal_nan=True)
+
+
+def test_los_wrappers_raise_on_bad_inputs(cuda):
+    from nifty_tpu_torch.ops import los_interp as li
+
+    tab = _los_table("los_16", torch.float64)  # stays on the CPU
+    with pytest.raises(ValueError, match="on cpu"):
+        li.los_integrate(torch.ones((1, tab.ncells), dtype=torch.float64, device=cuda), tab)
+    tab = tab.to(cuda)
+    with pytest.raises(TypeError):
+        li.los_integrate(torch.ones((1, tab.ncells), dtype=torch.float32, device=cuda), tab)
+    with pytest.raises(ValueError, match="shape"):
+        li.los_integrate_adjoint(torch.ones((1, tab.nrays + 1), dtype=torch.float64,
+                                            device=cuda), tab)
