@@ -159,8 +159,10 @@ Phases (one line each, with its seconds):
 25. the ray integral of line-of-sight tomography (K11) and its adjoint
     against their plain versions at every (grid, rays, points, rows) shape
     phases 26-28 launch, in float64 and float32 (within 1e-12 / 1e-5 of the
-    per-output sum of |term|), bitwise reproducible and equal to a
-    CUDA-graph replay, with float64 device ms beside the bound (the tables,
+    per-output sum of |term|), bitwise reproducible, equal to a CUDA-graph
+    replay and, row by row, to one-row calls (the rows a block serves move
+    no bits), with each kernel's registers and spills from the build's
+    ``-Xptxas -v`` printed once and float64 device ms beside the bound (the tables,
     the touched cells' values or the cotangents, and the output, once
     each) and the share of it reached, the plain versions' and the library
     routes' ms (``torch.sparse.mm`` of the rays' CSR matrix; ``index_add_``);
@@ -238,6 +240,7 @@ energy).
 import json
 import logging
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1997,17 +2000,45 @@ def los_library_routes(tab, f, ybar):
     return forward, adjoint
 
 
+def los_ptxas_lines():
+    """Each K11 kernel's registers and spills, from ``-Xptxas -v`` of the
+    build in this process: ``name<type, rows, ...>: N registers, S bytes
+    spill stores, L bytes spill loads``."""
+    from nifty_tpu_torch.ops.cuda_build import BUILD_LOG
+
+    if "los_interp" not in BUILD_LOG:
+        return ["(los_interp was not compiled in this process)"]
+    lines, name = [], None
+    for line in BUILD_LOG["los_interp"][1].splitlines():
+        entry = re.search(r"(los_forward|los_adjoint)I([df])((?:L[ib]\d+E)*)E", line)
+        if entry:
+            args = ["double" if entry[2] == "d" else "float"]
+            args += re.findall(r"L[ib](\d+)E", entry[3])
+            name, spills = f"{entry[1]}<{', '.join(args)}>", None
+        elif name and "spill" in line:
+            spills = line.strip()
+        elif name and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)[1]
+            lines.append(f"{name}: {regs} registers, {spills}")
+            name = None
+    return lines
+
+
 @phase("25 the ray integral kernels (K11) vs plain")
 def phase_los_kernels(cases):
     """`cases`: {label: (SamplingCartesianGridLOS, rows)}.  K11 and its
     adjoint against their plain versions in float64 and float32 (within
-    1e-12 / 1e-5 of the per-output sum of |term|), bitwise reproducible and
-    bitwise equal when replayed from a CUDA graph; float64 device ms (50
-    calls in a replayed CUDA graph) beside the bound and the share of it
-    reached, the plain versions' and the library routes' ms (CUDA events
+    1e-12 / 1e-5 of the per-output sum of |term|), bitwise reproducible,
+    bitwise equal when replayed from a CUDA graph, and each row of a B-row
+    call bitwise equal to a one-row call on that row, in both directions;
+    each kernel's registers and spills (printed once); float64 device ms
+    (50 calls in a replayed CUDA graph) beside the bound and the share of
+    it reached, the plain versions' and the library routes' ms (CUDA events
     around 5 calls).  Returns the results by (table key, rows)."""
     from nifty_tpu_torch.ops import los_interp as li
 
+    for line in los_ptxas_lines():
+        print(f"K11 build: {line}", flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
@@ -2026,6 +2057,12 @@ def phase_los_kernels(cases):
                     and torch.equal(g1, replayed(lambda: li.los_integrate_adjoint(ybar, tab)))):
                 raise AssertionError(
                     f"the K11 kernels differ when replayed from a CUDA graph ({label}, {dtype})")
+            for b in range(nrows):
+                if not (torch.equal(li.los_integrate(f[b:b + 1].contiguous(), tab), y1[b:b + 1])
+                        and torch.equal(li.los_integrate_adjoint(ybar[b:b + 1].contiguous(), tab),
+                                        g1[b:b + 1])):
+                    raise AssertionError(f"row {b} of the K11 kernels' {nrows}-row call differs "
+                                         f"from its one-row call ({label}, {dtype})")
             tiny = torch.finfo(dtype).tiny
             plain = li.los_integrate_plain(f, tab), li.los_integrate_adjoint_plain(ybar, tab)
             scales = li.sum_abs_terms(tab, f=f), li.sum_abs_terms(tab, ybar=ybar)

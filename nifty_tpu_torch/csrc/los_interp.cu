@@ -18,30 +18,65 @@
 // makes of it, and ski.py:85-96 (apply_interpolation, adjoint_interpolation):
 // XLA ops in the JAX package, not Pallas kernels.
 //
-// What bounds it: bytes.  At the 256^3 tomography (1024 rays x 256 points x
-// 8 corners, float64) the forward reads the 8.4 MB index table, the 16.8 MB
-// weights and at most 16.8 MB of field values (42 MB, 0.013 ms at 3.35
-// TB/s); the adjoint writes the 134 MB grid once (0.05 ms).
+// What bounds it.  The forward: its tables.  At the 256^3 tomography (1024
+// rays x 256 points x 8 corners, float64) it reads the 8.4 MB index table,
+// the 16.8 MB weights and the touched cells' values (6.1 MB): 0.0093 ms at
+// 3.35 TB/s.  It reads the tables with streaming loads, so that L1 and L2
+// keep the field values that neighbouring points share.  The adjoint: its
+// output, the 134 MB grid written once (0.048 ms with its 25 MB CSR).
+// Both would wait on the latency of dependent loads (an index before its
+// field value; a cell's offsets before its rays' cotangents), so each
+// thread issues its loads in batches before it adds them, and the
+// adjoint's zeros are written apart from its sums, at the write rate.
 //
-// los_forward: a group of G = 32 W lanes a ray (W warps, 1, 2, 4 or 8, from
-// E alone: E / 256 rounded up to a power of two), a block of 256 threads
-// holding 8 / W rays, and a tile of up to kRowTile rows a block (blockIdx.y),
-// so each entry's index and weight are loaded once for the tile's rows.
-// Lane t of a group adds entries t, t + G, ... in order, then a butterfly in
-// each warp and, for W > 1, the warps' sums in warp order: a fixed order that
-// depends on E alone, so the result repeats bit for bit at any number of
-// rows.  At 256^3 (E = 2048) a block takes one ray and the grid has 1024
-// blocks, enough resident warps to hide the scattered field reads.
+// los_forward: a group of G lanes a ray, G a power of two from E alone: E
+// rounded up while E <= 16 (SKI's 2^d corners, several rays a warp), else
+// 32 W lanes (W warps, 1, 2, 4 or 8: E / 256 rounded up).  A block of 256
+// threads holds 256 / G rays and a tile of 1, 2 or 4 rows (blockIdx.y), so
+// each entry's index and weight are loaded once for the tile's rows; the
+// host picks one row a block while the rays' blocks times the row tiles
+// leave SMs idle, and up to kRowTile once they fill the card.  Lane t of a
+// group takes entries t, t + G, ... kBatch at a time: their indices and
+// weights first, then their field values, then it adds them in order,
+// skipping index -1.  A butterfly in each warp (offsets below G) and, for
+// W > 1, the warps' sums in warp order finish the ray.
 //
-// los_adjoint: no atomics.  The host sorts the valid entries by cell
-// (stable, so in (ray, entry) order within a cell): a CSR over the touched
-// cells (seg_off, seg_ray, seg_w).  One thread a grid cell writes that cell
-// exactly once: a touched cell the sum over its segment in order, any other
-// cell zero.  Which cells are touched is a bit mask of one 32-bit word for 32
-// cells, and a touched cell's segment is found by rank[word] (the touched
-// cells in the words before) plus the population count of the bits below
-// it: N / 4 bytes in all (4.2 MB at 256^3) where offsets for every cell would
-// take 67 MB.  A warp covers one mask word and writes 32 consecutive cells.
+// los_adjoint: no atomics, and each output element is written once.  The
+// host sorts the valid entries by cell (stable, so in (ray, entry) order
+// within a cell): a CSR over the touched cells (cells, seg_off, seg_ray,
+// seg_w), and a bit mask of one 32-bit word for 32 cells.  One launch holds
+// two kinds of block on disjoint cells, the sum blocks spread evenly among
+// the fill blocks so that the latency-bound sums run beside the zeros from
+// the start:
+//   - a fill block reads the mask alone and writes the zeros of the 32-byte
+//     sectors that hold no touched cell, whole, as 16-byte stores with
+//     consecutive threads on consecutive addresses, at the write rate;
+//   - a sum block takes 256 touched cells of the compact list in CSR order,
+//     one thread a cell, one row a thread for a one-row call and kRowTile
+//     rows otherwise.  It first stages the scaled cotangents
+//     s[r] * ybar[b, r] of its rows in shared memory where R x rows fits
+//     kStageBytes (else each is computed from global memory where it is
+//     used), then loads kBatch entries' rays and weights before it adds
+//     them: an 88-entry segment costs 11 batches of loads, not 88 chains of
+//     them.  The thread writes its cell's sum and the zeros of its sector's
+//     untouched cells up to the next touched cell (the sector's first
+//     touched cell also those before it), so no sector is written in part
+//     by two blocks at different times, which makes the memory read it
+//     back to merge the parts.
+// Rows that do not start on a 32-byte boundary make the sector one cell.
+//
+// The bits do not depend on this design.  Every output element's sum
+// takes the same terms in the same order from the same +0 as one thread
+// walking the entries in order: lane t of a ray's group its entries t,
+// t + G, ... (G from E alone), then the butterfly and the warps in order;
+// a touched cell its segment in CSR order.  Each term is the same rounded
+// product (s[r] * ybar is rounded before it is staged, as before it is
+// used), and acc += w * x is written so that nvcc contracts it to one fma.
+// A group narrower than a warp drops only butterfly steps that add an exact
+// +0 (lanes past E, whose sums start at +0 and so are never -0), and a
+// row's sums do not depend on the rows a block or a thread serves.  So the
+// kernels give the bits of a whole warp a ray and one thread a grid cell,
+// at every shape and number of rows.
 //
 // The C entry points return the number of kernels launched (1; 0 for an
 // empty call), or the cudaError_t that stopped them (cudaGetLastError()
@@ -54,63 +89,94 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowTile = 4;  // rows a block serves; gridDim.y covers the rest
+constexpr int kRowTile = 4;         // most rows a block serves; gridDim.y covers the rest
+constexpr int kBatch = 8;           // entries a thread loads before it adds them
+constexpr int kFillStores = 8;      // 16-byte stores a fill thread makes
+constexpr int kStageBytes = 32768;  // most shared memory the staged cotangents take
+constexpr int kMaxGridY = 65535;
 
-// Warps a ray's group holds: E / 256 rounded up to a power of two, at most 8.
+// Warps a ray's group holds beyond 16 entries: E / 256 rounded up to a
+// power of two, at most 8.
 int warps_per_ray(int nent) {
   int w = 1;
   while (w < kWarps && w * kThreads < nent) w <<= 1;
   return w;
 }
 
+// Lanes a ray's group holds: E rounded up to a power of two while E <= 16,
+// else 32 W.
+int lanes_per_ray(int nent) {
+  if (nent > 16) return 32 * warps_per_ray(nent);
+  int g = 1;
+  while (g < nent) g <<= 1;
+  return g;
+}
+
+// The butterfly over the lanes of a group (offsets below `width`).
 template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
+__device__ __forceinline__ T group_sum(T v, int width) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  for (int off = 16; off > 0; off >>= 1)
+    if (off < width) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
 
-template <typename T>
+template <typename T, int TILE>
 __global__ void __launch_bounds__(kThreads)
     los_forward(const T* __restrict__ f, const int* __restrict__ idx, const T* __restrict__ w,
                 const T* __restrict__ s, T* __restrict__ y, int nrays, int nent,
-                long long ncells, int nrows, int wpr) {
-  __shared__ T partial[kWarps][kRowTile];
+                long long ncells, int nrows, int group) {
+  __shared__ T partial[kWarps][TILE];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int group = 32 * wpr;
-  const int ray = blockIdx.x * (kWarps / wpr) + warp / wpr;
-  const int t = (warp % wpr) * 32 + lane;
-  const int b0 = blockIdx.y * kRowTile;
-  const int nb = min(kRowTile, nrows - b0);
-  T acc[kRowTile];
+  const int ray = blockIdx.x * (kThreads / group) + threadIdx.x / group;
+  const int t = threadIdx.x % group;
+  const int b0 = blockIdx.y * TILE;
+  const int nb = min(TILE, nrows - b0);
+  T acc[TILE];
 #pragma unroll
-  for (int k = 0; k < kRowTile; ++k) acc[k] = T(0);
+  for (int k = 0; k < TILE; ++k) acc[k] = T(0);
   if (ray < nrays) {
     const int* ir = idx + static_cast<long long>(ray) * nent;
     const T* wr = w + static_cast<long long>(ray) * nent;
     const T* fb = f + static_cast<long long>(b0) * ncells;
-    for (int e = t; e < nent; e += group) {
-      const int i = __ldg(ir + e);
-      if (i < 0) continue;
-      const T we = __ldg(wr + e);
+    for (int e0 = t; e0 < nent; e0 += kBatch * group) {
+      int i[kBatch];
+      T we[kBatch];
 #pragma unroll
-      for (int k = 0; k < kRowTile; ++k)
-        if (k < nb) acc[k] += we * __ldg(fb + k * ncells + i);
+      for (int m = 0; m < kBatch; ++m) {
+        const int e = e0 + m * group;
+        i[m] = e < nent ? __ldcs(ir + e) : -1;
+        we[m] = e < nent ? __ldcs(wr + e) : T(0);
+      }
+      T v[kBatch][TILE];
+#pragma unroll
+      for (int m = 0; m < kBatch; ++m)
+#pragma unroll
+        for (int k = 0; k < TILE; ++k)
+          v[m][k] = (i[m] >= 0 && k < nb) ? __ldg(fb + k * ncells + i[m]) : T(0);
+#pragma unroll
+      for (int m = 0; m < kBatch; ++m) {
+        if (i[m] < 0) continue;
+#pragma unroll
+        for (int k = 0; k < TILE; ++k)
+          if (k < nb) acc[k] += we[m] * v[m][k];
+      }
     }
   }
 #pragma unroll
-  for (int k = 0; k < kRowTile; ++k) acc[k] = warp_sum(acc[k]);
-  if (wpr == 1) {
-    if (ray < nrays && lane == 0) {
+  for (int k = 0; k < TILE; ++k) acc[k] = group_sum(acc[k], group);
+  if (group <= 32) {
+    if (ray < nrays && t == 0) {
       const T sr = __ldg(s + ray);
       for (int k = 0; k < nb; ++k) y[static_cast<long long>(b0 + k) * nrays + ray] = acc[k] * sr;
     }
     return;
   }
+  const int wpr = group >> 5;
   if (lane == 0) {
 #pragma unroll
-    for (int k = 0; k < kRowTile; ++k) partial[warp][k] = acc[k];
+    for (int k = 0; k < TILE; ++k) partial[warp][k] = acc[k];
   }
   __syncthreads();
   if (ray < nrays && lane == 0 && warp % wpr == 0) {
@@ -123,36 +189,115 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Zeros to the sectors without a touched cell among fill block `blk`'s, in
+// one row of the tile's `rows` (blk % rows), as 16-byte stores of half a
+// sector, consecutive threads on consecutive halves: kFillStores runs of
+// kThreads halves, the mask words first, then the stores.
 template <typename T>
+__device__ __forceinline__ void fill_untouched(const uint32_t* __restrict__ mask,
+                                               T* __restrict__ g, long long ncells, int b0,
+                                               int nb, int rows, int blk, int sector) {
+  const int k = blk % rows;
+  if (k >= nb) return;
+  T* out = g + static_cast<long long>(b0 + k) * ncells;
+  const int per = sector > 1 ? sector / 2 : 1;  // cells a store
+  const long long first = static_cast<long long>(blk / rows) * (kFillStores * kThreads) +
+                          threadIdx.x;
+  uint32_t bits[kFillStores];
+#pragma unroll
+  for (int c = 0; c < kFillStores; ++c) {
+    const long long n0 = (first + c * kThreads) * per;
+    const long long base = n0 - (n0 & (sector - 1));  // the sector's first cell
+    bits[c] = n0 < ncells ? __ldg(mask + (base >> 5)) >> (base & 31) : 1u;
+  }
+#pragma unroll
+  for (int c = 0; c < kFillStores; ++c) {
+    const long long n0 = (first + c * kThreads) * per;
+    if (bits[c] & ((1u << sector) - 1u)) continue;
+    if (sector == 1)
+      out[n0] = T(0);
+    else
+      *reinterpret_cast<int4*>(out + n0) = make_int4(0, 0, 0, 0);
+  }
+}
+
+// TILE rows a thread (1, or kRowTile for calls of more than one row);
+// `sector` the cells of a 32-byte sector (4 float64, 8 float32) where every
+// row starts on a sector boundary, else 1.
+template <typename T, int TILE, bool STAGED>
 __global__ void __launch_bounds__(kThreads)
     los_adjoint(const T* __restrict__ ybar, const uint32_t* __restrict__ mask,
-                const int* __restrict__ rank, const int* __restrict__ seg_off,
+                const int* __restrict__ cells, const int* __restrict__ seg_off,
                 const int* __restrict__ seg_ray, const T* __restrict__ seg_w,
                 const T* __restrict__ s, T* __restrict__ g, long long ncells, int nrays,
-                int nrows) {
-  const long long n = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (n >= ncells) return;
-  const int b0 = blockIdx.y * kRowTile;
-  const int nb = min(kRowTile, nrows - b0);
-  T acc[kRowTile];
+                int ntouched, int nrows, int nsum, int nfill, int sector) {
+  const int b0 = blockIdx.y * TILE;
+  const int nb = min(TILE, nrows - b0);
+  // block x is a sum block where the count of sum blocks up to it steps
+  const long long nblocks = static_cast<long long>(nsum) + nfill;
+  const long long bx = blockIdx.x;
+  const long long sums_before = bx * nsum / nblocks;
+  if ((bx + 1) * nsum / nblocks == sums_before) {
+    fill_untouched(mask, g, ncells, b0, nb, min(TILE, nrows), static_cast<int>(bx - sums_before),
+                   sector);
+    return;
+  }
+  // the cell and its segment, loaded beside the staging
+  const int u = static_cast<int>(sums_before) * kThreads + threadIdx.x;
+  const bool live = u < ntouched;
+  const int n = live ? __ldg(cells + u) : 0;
+  const int lo = live ? __ldg(seg_off + u) : 0;
+  const int hi = live ? __ldg(seg_off + u + 1) : 0;
+  extern __shared__ __align__(16) unsigned char stage_bytes[];
+  T* scaled = reinterpret_cast<T*>(stage_bytes);
+  const T* yb = ybar + static_cast<long long>(b0) * nrays;
+  if (STAGED) {
+    for (int i = threadIdx.x; i < nb * nrays; i += kThreads)
+      scaled[i] = __ldg(s + i % nrays) * __ldg(yb + i);
+    __syncthreads();
+  }
+  if (!live) return;
+  // the touched cells of n's sector, bit q for cell n - p + q
+  const int p = n & (sector - 1);
+  const uint32_t near = (__ldg(mask + (n >> 5)) >> ((n & 31) - p)) & ((1u << sector) - 1u);
+  T acc[TILE];
 #pragma unroll
-  for (int k = 0; k < kRowTile; ++k) acc[k] = T(0);
-  const uint32_t word = __ldg(mask + (n >> 5));
-  const uint32_t bit = 1u << (n & 31);
-  if (word & bit) {
-    const int u = __ldg(rank + (n >> 5)) + __popc(word & (bit - 1u));
-    const int hi = __ldg(seg_off + u + 1);
-    const T* yb = ybar + static_cast<long long>(b0) * nrays;
-    for (int j = __ldg(seg_off + u); j < hi; ++j) {
-      const int r = __ldg(seg_ray + j);
-      const T we = __ldg(seg_w + j);
-      const T sr = __ldg(s + r);
+  for (int k = 0; k < TILE; ++k) acc[k] = T(0);
+  for (int j0 = lo; j0 < hi; j0 += kBatch) {
+    // the batch's rays and weights, then its scaled cotangents (row and ray
+    // clamped into the tables: a batch past the segment's end and rows past
+    // the call's are loaded but not added), then the sums in order
+    int r[kBatch];
+    T we[kBatch];
 #pragma unroll
-      for (int k = 0; k < kRowTile; ++k)
-        if (k < nb) acc[k] += we * (sr * __ldg(yb + k * nrays + r));
+    for (int m = 0; m < kBatch; ++m) {
+      r[m] = j0 + m < hi ? __ldg(seg_ray + j0 + m) : 0;
+      we[m] = j0 + m < hi ? __ldg(seg_w + j0 + m) : T(0);
+    }
+    T sc[kBatch][TILE];
+#pragma unroll
+    for (int m = 0; m < kBatch; ++m)
+#pragma unroll
+      for (int k = 0; k < TILE; ++k) {
+        const int row = min(k, nb - 1) * nrays + r[m];
+        sc[m][k] = STAGED ? scaled[row] : __ldg(s + r[m]) * __ldg(yb + row);
+      }
+#pragma unroll
+    for (int m = 0; m < kBatch; ++m) {
+      if (j0 + m >= hi) break;
+#pragma unroll
+      for (int k = 0; k < TILE; ++k) acc[k] += we[m] * (sc[m][k]);
     }
   }
-  for (int k = 0; k < nb; ++k) g[static_cast<long long>(b0 + k) * ncells + n] = acc[k];
+  // zeros from the sector's start (where n is its first touched cell) or
+  // from n up to the next touched cell or the sector's end
+  const uint32_t above = near >> (p + 1);
+  const int from = (near & ((1u << p) - 1u)) ? p : 0;
+  const int to = above ? p + __ffs(above) : sector;
+  for (int k = 0; k < nb; ++k) {
+    T* row = g + static_cast<long long>(b0 + k) * ncells + (n - p);
+    for (int q = from; q < to; ++q) row[q] = q == p ? acc[k] : T(0);
+  }
 }
 
 // Run `launch` with `dev`, the device that holds the tensors, current:
@@ -171,36 +316,72 @@ int on_device(int dev, F&& launch) {
   return static_cast<int>(err);
 }
 
-int row_tiles(int nrows) { return (nrows + kRowTile - 1) / kRowTile; }
+constexpr int kInvalid = -static_cast<int>(cudaErrorInvalidValue);
 
 template <typename T>
 int launch_forward(const void* f, const void* idx, const void* w, const void* s, void* y,
-                   int nrays, int nent, long long ncells, int nrows, int dev, void* stream) {
+                   int nrays, int nent, long long ncells, int nrows, int tile, int dev,
+                   void* stream) {
   if (nrays == 0 || nrows == 0) return 0;
-  const int wpr = warps_per_ray(nent);
-  const int rays_per_block = kWarps / wpr;
-  const dim3 grid((nrays + rays_per_block - 1) / rays_per_block, row_tiles(nrows));
+  const int tiles = (nrows + tile - 1) / tile;
+  if ((tile != 1 && tile != 2 && tile != kRowTile) || tiles > kMaxGridY) return kInvalid;
+  const int group = lanes_per_ray(nent);
+  const int rays_per_block = kThreads / group;
+  const dim3 grid((nrays + rays_per_block - 1) / rays_per_block, tiles);
   const int err = on_device(dev, [&]() {
-    los_forward<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(f), static_cast<const int*>(idx), static_cast<const T*>(w),
-        static_cast<const T*>(s), static_cast<T*>(y), nrays, nent, ncells, nrows, wpr);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const T* fp = static_cast<const T*>(f);
+    const int* ip = static_cast<const int*>(idx);
+    const T* wp = static_cast<const T*>(w);
+    const T* sp = static_cast<const T*>(s);
+    T* yp = static_cast<T*>(y);
+    if (tile == 1)
+      los_forward<T, 1><<<grid, kThreads, 0, st>>>(fp, ip, wp, sp, yp, nrays, nent, ncells, nrows, group);
+    else if (tile == 2)
+      los_forward<T, 2><<<grid, kThreads, 0, st>>>(fp, ip, wp, sp, yp, nrays, nent, ncells, nrows, group);
+    else
+      los_forward<T, kRowTile><<<grid, kThreads, 0, st>>>(fp, ip, wp, sp, yp, nrays, nent, ncells,
+                                                          nrows, group);
     return cudaGetLastError();
   });
   return err != 0 ? -err : 1;
 }
 
 template <typename T>
-int launch_adjoint(const void* ybar, const void* mask, const void* rank, const void* seg_off,
+int launch_adjoint(const void* ybar, const void* mask, const void* cells, const void* seg_off,
                    const void* seg_ray, const void* seg_w, const void* s, void* g,
-                   long long ncells, int nrays, int nrows, int dev, void* stream) {
+                   long long ncells, int nrays, int ntouched, int nrows, int dev, void* stream) {
   if (ncells == 0 || nrows == 0) return 0;
-  const dim3 grid(static_cast<unsigned>((ncells + kThreads - 1) / kThreads), row_tiles(nrows));
+  const int tile = nrows == 1 ? 1 : kRowTile;
+  const int tiles = (nrows + tile - 1) / tile;
+  if (tiles > kMaxGridY) return kInvalid;
+  // whole 32-byte sectors where every row starts on a sector boundary
+  const int wide = 32 / static_cast<int>(sizeof(T));
+  const int sector = reinterpret_cast<uintptr_t>(g) % 32 == 0 && ncells % wide == 0 ? wide : 1;
+  const long long per_block = static_cast<long long>(kFillStores) * kThreads *
+                              (sector > 1 ? sector / 2 : 1);
+  const long long nfill = (nrows < tile ? nrows : tile) * ((ncells + per_block - 1) / per_block);
+  const long long nsum = (static_cast<long long>(ntouched) + kThreads - 1) / kThreads;
+  if (nfill + nsum > 0x7fffffffLL) return kInvalid;
+  const long long stage = static_cast<long long>(nrows < tile ? nrows : tile) * nrays *
+                          static_cast<long long>(sizeof(T));
+  const dim3 grid(static_cast<unsigned>(nsum + nfill), tiles);
   const int err = on_device(dev, [&]() {
-    los_adjoint<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(ybar), static_cast<const uint32_t*>(mask),
-        static_cast<const int*>(rank), static_cast<const int*>(seg_off),
-        static_cast<const int*>(seg_ray), static_cast<const T*>(seg_w),
-        static_cast<const T*>(s), static_cast<T*>(g), ncells, nrays, nrows);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const auto run = [&](auto kernel, size_t smem) {
+      kernel<<<grid, kThreads, smem, st>>>(
+          static_cast<const T*>(ybar), static_cast<const uint32_t*>(mask),
+          static_cast<const int*>(cells), static_cast<const int*>(seg_off),
+          static_cast<const int*>(seg_ray), static_cast<const T*>(seg_w),
+          static_cast<const T*>(s), static_cast<T*>(g), ncells, nrays, ntouched, nrows,
+          static_cast<int>(nsum), static_cast<int>(nfill), sector);
+    };
+    const bool staged = stage <= kStageBytes;
+    if (tile == 1)
+      staged ? run(los_adjoint<T, 1, true>, stage) : run(los_adjoint<T, 1, false>, 0);
+    else
+      staged ? run(los_adjoint<T, kRowTile, true>, stage)
+             : run(los_adjoint<T, kRowTile, false>, 0);
     return cudaGetLastError();
   });
   return err != 0 ? -err : 1;
@@ -212,25 +393,29 @@ extern "C" {
 
 #define LOS_FORWARD_ENTRY(name, T)                                                          \
   int name(const void* f, const void* idx, const void* w, const void* s, void* y,         \
-           int nrays, int nent, long long ncells, int nrows, int dev, void* stream) {     \
-    return launch_forward<T>(f, idx, w, s, y, nrays, nent, ncells, nrows, dev, stream);   \
+           int nrays, int nent, long long ncells, int nrows, int row_tile, int dev,       \
+           void* stream) {                                                                \
+    return launch_forward<T>(f, idx, w, s, y, nrays, nent, ncells, nrows, row_tile, dev,  \
+                             stream);                                                     \
   }
 
 LOS_FORWARD_ENTRY(los_forward_f32, float)
 LOS_FORWARD_ENTRY(los_forward_f64, double)
 
 #define LOS_ADJOINT_ENTRY(name, T)                                                          \
-  int name(const void* ybar, const void* mask, const void* rank, const void* seg_off,     \
+  int name(const void* ybar, const void* mask, const void* cells, const void* seg_off,    \
            const void* seg_ray, const void* seg_w, const void* s, void* g,                \
-           long long ncells, int nrays, int nrows, int dev, void* stream) {               \
-    return launch_adjoint<T>(ybar, mask, rank, seg_off, seg_ray, seg_w, s, g, ncells,     \
-                             nrays, nrows, dev, stream);                                  \
+           long long ncells, int nrays, int ntouched, int nrows, int dev, void* stream) { \
+    return launch_adjoint<T>(ybar, mask, cells, seg_off, seg_ray, seg_w, s, g, ncells,    \
+                             nrays, ntouched, nrows, dev, stream);                        \
   }
 
 LOS_ADJOINT_ENTRY(los_adjoint_f32, float)
 LOS_ADJOINT_ENTRY(los_adjoint_f64, double)
 
-// The rows a block serves; the host checks it against its own constant.
+// The most rows a block serves, and the lanes a ray's group holds; the host
+// checks both against its own.
 int los_interp_row_tile() { return kRowTile; }
+int los_interp_lanes_per_ray(int nent) { return lanes_per_ray(nent); }
 
 }  // extern "C"

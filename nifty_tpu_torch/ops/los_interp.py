@@ -25,11 +25,12 @@ coordinate ``distances · n``).  The wrappers add :attr:`LosTable.nan_offset`
 for that; the jvp and vjp, as in JAX, see the linear map alone.
 
 :class:`LosTable` holds the tables as buffers, with the adjoint's CSR over
-the touched cells (a bit mask, ranks, offsets, rays and weights).  The
+the touched cells (a bit mask, the cells, offsets, rays and weights).  The
 hand-written kernels (``csrc/los_interp.cu``) run them for a CUDA tensor;
 :func:`los_integrate_plain` and :func:`los_integrate_adjoint_plain` are the
 plain versions, which :func:`los_integrate` / :func:`los_integrate_adjoint`
-take for a CPU tensor only.  Their ``launches`` count the calls that take
+take for a CPU tensor only; :func:`forward_row_tile` picks the rows a
+forward block serves from the grid's fill.  Their ``launches`` count the calls that take
 the kernel route, in total, by rows (``launches_by_rows``) and by (table
 key, rows) (``launches_by_shape``).  :class:`LosIntegrate` and
 :class:`LosIntegrateAdjoint` are the ``torch.autograd.Function`` pair, each
@@ -49,9 +50,14 @@ from torch import nn
 from .cuda_build import load_library
 
 _FLOAT_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
-_MAX_ROW_TILES = 65535  # gridDim.y
-#: rows a kernel block serves (``kRowTile`` in the source)
+#: the most rows a kernel block serves (``kRowTile`` in the source)
 ROW_TILE = 4
+#: threads a block (``kThreads``)
+THREADS = 256
+#: the most rows a call takes: gridDim.y (65535) row tiles of ``ROW_TILE``.
+#: :func:`forward_row_tile` picks a narrower tile only while the grid is
+#: smaller than the card, so far below this.
+MAX_ROWS = 65535 * ROW_TILE
 
 
 # -- host tables ----------------------------------------------------------
@@ -128,9 +134,8 @@ def adjoint_csr(idx, w, ncells: int) -> dict:
     """The adjoint's tables: the valid entries sorted by cell, stable in
     (ray, entry) order (``seg_ray`` int32, ``seg_w``), the CSR offsets of
     each touched cell's segment (``seg_off`` int32, ``(U + 1,)``), the
-    touched cells (``cells`` int64), and the bit mask of the touched cells,
-    one uint32 word for 32 cells (``mask``), with the touched cells in the
-    words before each word (``rank`` int32)."""
+    touched cells in that order (``cells`` int64), and the bit mask of the
+    touched cells, one uint32 word for 32 cells (``mask``)."""
     idx = np.asarray(idx)
     nrays, nent = idx.shape
     flat = idx.ravel()
@@ -146,12 +151,9 @@ def adjoint_csr(idx, w, ncells: int) -> dict:
     nwords = -(-int(ncells) // 32)
     mask = np.zeros(nwords, dtype=np.uint32)
     np.bitwise_or.at(mask, cells >> 5, (np.uint32(1) << (cells & 31).astype(np.uint32)))
-    touched = np.bincount(cells >> 5, minlength=nwords)
-    rank = np.zeros(nwords, dtype=np.int64)
-    np.cumsum(touched[:-1], out=rank[1:])
     return {"seg_ray": (entries // nent).astype(np.int32),
             "seg_w": np.asarray(w).ravel()[entries], "seg_off": seg_off.astype(np.int32),
-            "cells": cells, "mask": mask.view(np.int32), "rank": rank.astype(np.int32)}
+            "cells": cells, "mask": mask.view(np.int32)}
 
 
 class LosTable(nn.Module):
@@ -161,10 +163,11 @@ class LosTable(nn.Module):
 
     ``idx`` (int32, ``(R, E)``, -1 outside the grid), ``w`` and ``scale``
     (the rays' ``s_r``) are the forward's; ``seg_off``, ``seg_ray``,
-    ``seg_w``, ``mask`` and ``rank`` (:func:`adjoint_csr`) the adjoint's;
-    ``cells`` the touched cells (for the plain adjoint); ``nan_offset`` is
-    NaN for the rays with a corner outside the grid and 0 elsewhere
-    (``has_nan`` says whether any is NaN).  ``key`` = ``(shape, R, E)``
+    ``seg_w`` and ``mask`` (:func:`adjoint_csr`) the adjoint's, with
+    ``cells_narrow``, the touched cells in CSR order as int32 (the sum
+    blocks' list); ``cells`` is the same list as int64 (for the plain
+    adjoint); ``nan_offset`` is NaN for the rays with a corner outside the
+    grid and 0 elsewhere (``has_nan`` says whether any is NaN).  ``key`` = ``(shape, R, E)``
     names the table in the launch counts."""
 
     def __init__(self, idx, w, scale, shape, nan_rays=None):
@@ -184,8 +187,9 @@ class LosTable(nn.Module):
         self.n_valid = int(csr["seg_off"][-1])
         for name, arr in (("idx", idx), ("w", w), ("scale", np.asarray(scale, w.dtype)),
                           ("nan_offset", np.where(nan_rays, np.nan, 0).astype(w.dtype)),
+                          ("cells_narrow", csr["cells"].astype(np.int32)),
                           *((k, csr[k]) for k in ("seg_off", "seg_ray", "seg_w", "cells",
-                                                  "mask", "rank"))):
+                                                  "mask"))):
             self.register_buffer(name, torch.from_numpy(np.ascontiguousarray(arr)),
                                  persistent=False)
 
@@ -260,17 +264,56 @@ def _kernels():
     vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for dtype, sfx in _FLOAT_DTYPES.items():
         fwd = getattr(lib, f"los_forward_{sfx}")
-        fwd.argtypes = [vp] * 5 + [ci, ci, cll, ci, ci, vp]
+        fwd.argtypes = [vp] * 5 + [ci, ci, cll, ci, ci, ci, vp]
         fwd.restype = ci
         adj = getattr(lib, f"los_adjoint_{sfx}")
-        adj.argtypes = [vp] * 8 + [cll, ci, ci, ci, vp]
+        adj.argtypes = [vp] * 8 + [cll, ci, ci, ci, ci, vp]
         adj.restype = ci
         _KERNELS["forward", dtype], _KERNELS["adjoint", dtype] = fwd, adj
     lib.los_interp_row_tile.restype = ci
     if lib.los_interp_row_tile() != ROW_TILE:
         raise RuntimeError(f"kernels built for {lib.los_interp_row_tile()} rows a block; the "
                            f"host uses {ROW_TILE}")
+    lib.los_interp_lanes_per_ray.argtypes, lib.los_interp_lanes_per_ray.restype = [ci], ci
+    for nent in (1, 3, 8, 16, 17, 256, 257, 2048, 4096):
+        if lib.los_interp_lanes_per_ray(nent) != lanes_per_ray(nent):
+            raise RuntimeError(f"kernels built for {lib.los_interp_lanes_per_ray(nent)} lanes a "
+                               f"ray of {nent} entries; the host uses {lanes_per_ray(nent)}")
     return _KERNELS
+
+
+def lanes_per_ray(nent: int) -> int:
+    """The lanes of the forward's group a ray (``lanes_per_ray`` in the
+    source): ``E`` rounded up to a power of two while ``E <= 16``, else 32
+    a warp for ``E / 256`` warps rounded up to a power of two, at most 8."""
+    if nent <= 16:
+        return 1 << max(nent - 1, 0).bit_length()
+    warps = 1
+    while warps < THREADS // 32 and warps * THREADS < nent:
+        warps *= 2
+    return 32 * warps
+
+
+def forward_row_tile(nrays: int, nent: int, nrows: int, n_sm: int) -> int:
+    """The rows a forward block serves (1, 2 or ``ROW_TILE``): one while
+    the grid of ray blocks times row tiles leaves SMs idle, else the widest
+    tile that still gives each of the ``n_sm`` SMs a block, and no wider
+    than the rows.  A row's order of additions depends on ``E`` alone, so
+    the tile moves no bits."""
+    ray_blocks = -(-nrays // (THREADS // lanes_per_ray(nent)))
+    tile = ROW_TILE
+    while tile > 1 and (ray_blocks * -(-nrows // tile) < n_sm or tile // 2 >= nrows):
+        tile //= 2
+    return tile
+
+
+_SM_COUNT: dict = {}
+
+
+def _sm_count(dev: int) -> int:
+    if dev not in _SM_COUNT:
+        _SM_COUNT[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SM_COUNT[dev]
 
 
 def _check(x, table: LosTable, width: int, what: str):
@@ -282,8 +325,8 @@ def _check(x, table: LosTable, width: int, what: str):
         raise ValueError(f"{what} must be contiguous")
     if x.device != table.idx.device:
         raise ValueError(f"{what} on {x.device} but the table on {table.idx.device}")
-    if -(-x.shape[0] // ROW_TILE) > _MAX_ROW_TILES:
-        raise ValueError(f"at most {_MAX_ROW_TILES * ROW_TILE} rows; got {x.shape[0]}")
+    if x.shape[0] > MAX_ROWS:
+        raise ValueError(f"at most {MAX_ROWS} rows; got {x.shape[0]}")
 
 
 def _stream(dev):
@@ -307,9 +350,11 @@ def los_integrate(f, table: LosTable):
         raise RuntimeError(f"no los_interp kernel for device {f.device}")
     out = f.new_empty((f.shape[0], table.nrays))
     dev = f.get_device()
+    tile = forward_row_tile(table.nrays, table.nent, f.shape[0], _sm_count(dev))
     rc = _kernels()["forward", f.dtype](
         f.data_ptr(), table.idx.data_ptr(), table.w.data_ptr(), table.scale.data_ptr(),
-        out.data_ptr(), table.nrays, table.nent, table.ncells, f.shape[0], dev, _stream(dev))
+        out.data_ptr(), table.nrays, table.nent, table.ncells, f.shape[0], tile, dev,
+        _stream(dev))
     if rc < 0:
         raise RuntimeError(f"CUDA kernel launch failed with cudaError {-rc}")
     _count(los_integrate, table, f.shape[0])
@@ -327,9 +372,10 @@ def los_integrate_adjoint(ybar, table: LosTable):
     out = ybar.new_empty((ybar.shape[0], table.ncells))
     dev = ybar.get_device()
     rc = _kernels()["adjoint", ybar.dtype](
-        ybar.data_ptr(), table.mask.data_ptr(), table.rank.data_ptr(), table.seg_off.data_ptr(),
-        table.seg_ray.data_ptr(), table.seg_w.data_ptr(), table.scale.data_ptr(),
-        out.data_ptr(), table.ncells, table.nrays, ybar.shape[0], dev, _stream(dev))
+        ybar.data_ptr(), table.mask.data_ptr(), table.cells_narrow.data_ptr(),
+        table.seg_off.data_ptr(), table.seg_ray.data_ptr(), table.seg_w.data_ptr(),
+        table.scale.data_ptr(), out.data_ptr(), table.ncells, table.nrays, table.n_touched,
+        ybar.shape[0], dev, _stream(dev))
     if rc < 0:
         raise RuntimeError(f"CUDA kernel launch failed with cudaError {-rc}")
     _count(los_integrate_adjoint, table, ybar.shape[0])

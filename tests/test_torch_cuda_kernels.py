@@ -716,8 +716,9 @@ def test_healpix_field_on_the_card_matches_the_cpu(cuda):
 def _los_table(case, dtype):
     """The tables of a line-of-sight response or of an interpolation, on the
     host: (rays, points, grid, order) of phases 4, 26-28's shapes at a small
-    grid, a ray along the far face (NaN, its corners outside skipped), and
-    SKI's clipped corners (P = 1, s = 1)."""
+    grid, a ray along the far face (NaN, its corners outside skipped), a
+    grid of 1,386 cells (rows off the adjoint's 32-byte sectors), converging
+    rays from one point, and SKI's clipped corners (P = 1, s = 1)."""
     from nifty_tpu_torch.ops import los_interp as li
     from nifty_tpu_torch.responses import ski
 
@@ -729,11 +730,20 @@ def _los_table(case, dtype):
         pts = rng.uniform(-0.05, 1.05, size=(len(shape), 3000))
         idx, w = ski.interpolation_matrix(shape, bounds, pts)
         return li.LosTable.from_interpolation(idx, w.astype(npd), shape)
+    if case == "los_observer":
+        # rays out from one point, as 3-D dust maps look out from the Sun:
+        # the cells around it hold CSR segments of hundreds of entries
+        shape = (32,) * 3
+        end = rng.uniform(0.05, 0.95, size=(256, 3))
+        idx, w, scale, nan_rays = li.los_tables(np.full((1, 3), 0.5), end, shape,
+                                                (1.0 / 32,) * 3, 64, 1, npd)
+        return li.LosTable(idx, w, scale, shape, nan_rays)
     shape, nrays, npts, order = {"los_16": ((16,) * 3, 48, 64, 1),
                                  "los_32x32": ((16,) * 3, 32, 32, 1),
                                  "los_64": ((64,) * 3, 128, 128, 1),
                                  "los_wide": ((48,) * 3, 96, 256, 1),
-                                 "los_o0": ((20, 24, 28), 40, 100, 0)}[case]
+                                 "los_o0": ((20, 24, 28), 40, 100, 0),
+                                 "los_odd": ((9, 14, 11), 30, 40, 1)}[case]
     start = rng.uniform(0.05, 0.95, size=(nrays, 3))
     end = rng.uniform(0.05, 0.95, size=(nrays, 3))
     start[0], end[0] = (1.0, 0.2, 0.3), (1.0, 0.8, 0.6)  # along the far face of axis 0
@@ -742,7 +752,8 @@ def _los_table(case, dtype):
     return li.LosTable(idx, w, scale, shape, nan_rays)
 
 
-LOS_CASES = ["los_16", "los_32x32", "los_64", "los_wide", "los_o0", "ski_2d", "ski_3d"]
+LOS_CASES = ["los_16", "los_32x32", "los_64", "los_wide", "los_o0", "los_odd", "los_observer",
+             "ski_2d", "ski_3d"]
 
 
 @pytest.mark.parametrize("case", LOS_CASES)
