@@ -3,8 +3,10 @@
 Gaussian, Poisson-count, Bernoulli and density-estimation maps on
 correlated fields, iterative charted refinement (ICR) fields on a
 deformed chart, the HEALPix sphere and sphere x radius, spherical
-correlated fields on HEALPix and Gauss-Legendre grids, and line-of-sight
-tomography of 3-D fields with a NUTS cross-check.
+correlated fields on HEALPix and Gauss-Legendre grids, line-of-sight
+tomography of 3-D fields with a NUTS cross-check, and the inference and
+diagnostics around them: the Wiener filter, parametric VI and the
+evidence lower bound.
 
     python3 chip_smoke.py
 
@@ -42,7 +44,8 @@ Phases (one line each, with its seconds):
    short bins, the rest block items) at 1, 2, 4 and 8 rows, and the
    tomography fields' maps: the 16^3 and 64^3 unbinned full-grid maps at 1,
    4 and 8 rows and the 129^3 quarter map of 256^3 with ``n_bins=128``
-   (2,146,689 entries) at 1 and 2;
+   (2,146,689 entries) at 1 and 2, and demo 11's 64^2 full-grid map at 1,
+   2 and 4;
 4. one 32^2 update on the CPU (plain versions) and on the card (kernels)
    from the same latents and host-drawn noise, once with the sample loop
    (``residual_map="smap"``) and once with the lockstep batched solvers
@@ -55,7 +58,12 @@ Phases (one line each, with its seconds):
    deformed 2-D chart (20^2) and sphere x radius (192 x 8), and for two
    spherical fields (demo 16's priors): Gauss-Legendre at lmax 16 and
    HEALPix at lmax 15, nside 8, and for a 16^3 tomography (32 rays x 32
-   points, K11 on the card);
+   points, K11 on the card); on the first case's 32^2 field, the Wiener
+   filter of its data (demo 5's prior, a 70 % mask, 20 CG steps
+   preconditioned by S) with the posterior means within 1e-8 relative, and
+   the SLQ evidence (``HostKey`` probes, 8 in lockstep, 30 steps) of the
+   CPU's posterior after one update, the same samples on both devices,
+   with ``elbo_mean`` within 1e-8 relative;
 5. the 128^2 unbinned config (``bench.py``'s headline, ``residual_map=
    "vmap"``: the residual stages run the lockstep batched solvers and the
    KL stage stacks the 8 samples): three updates;
@@ -183,12 +191,40 @@ Phases (one line each, with its seconds):
     transitions from the geoVI mean, the last 40 kept): fewer than 5 % of
     the voxels' posterior means apart by more than 3 (geoVI std + NUTS std
     + 1e-3); prints s/transition, the mean depth, the acceptance and the
-    divergences.
+    divergences;
+29. ``demos/5_wiener_filter.py`` as written: 256^2, a 70 % mask, noise
+    0.1, the posterior mean and a posterior sample by CG preconditioned by
+    S (``resnorm`` 1e-4, at most 500 steps): relative reconstruction error
+    below 0.5; prints both CG infos and the sample's std about the mean;
+30. ``demos/8_parametric_vi.py`` as written: the banana posterior, 600
+    Adam steps each of ``MeanFieldVI`` and ``FullCovarianceVI`` (8 mirrored
+    samples), 512 samples of each: |corr_MF| < 0.35, |corr_FC| > |corr_MF|,
+    the predictive mean within 0.3 of 1; prints ms per Adam step;
+31. ``demos/15_vi_visualized.py`` as written, without its figure: MGVI and
+    geoVI through ``optimize_kl`` (15 iterations of 20 samples at the demo's
+    budgets), then 2000 steps each of ``MeanFieldVI`` and
+    ``FullCovarianceVI``: each flavour's mean within 3 std of the
+    grid-quadrature moments;
+32. ``demos/11_model_comparison.py`` as written: two 64^2 fields (flexible
+    and rigid) fitted by ``optimize_kl`` (5 iterations of 2 samples,
+    ``nonlinear_resample``, ``odir`` in a temporary directory), each then
+    ``estimate_evidence_lower_bound(n_eigenvalues=40)`` by ARPACK: the
+    evidence prefers the flexible model; prints both ELBO intervals and
+    the ARPACK matvecs with their seconds;
+33. the evidence at full width: ``estimate_evidence_lower_bound(method=
+    "slq")`` at the JAX package's defaults (30 steps, 8 probes, looped) on
+    phase 6's 4096^2 posterior (16.8 M dof, its 8 samples): 0 <= log det
+    <= n log(largest Ritz value), ``elbo_lw <= elbo_mean <= elbo_up``,
+    every number finite; prints the seconds, the metric matvecs and the
+    peak device memory; then on phase 5's 128^2 posterior the same
+    ``HostKey`` probes in lockstep rows and looped: log-determinants
+    within 1e-10 relative.
 
 The port places models, latents and data on the card by default; only
 phase 4's CPU run asks for the CPU (``config.update("device", "cpu")``).
-Phases 5 to 16 and 23 to 28 reset the kernels' launch counts just before
-they drive their path and fail unless both distributor kernels launched
+Phases 5 to 16, 23 to 28, 32 and 33 reset the kernels' launch counts just
+before they drive their path and fail unless both distributor kernels
+launched
 (phases 11, 12 and 16: on every subgrid's map; phase 23 also both K10
 kernels, phases 26 to 28 both K11 kernels, phase 28 in its geoVI run and
 in its chain); phases 18 to 21 do the same for the two refinement kernels at
@@ -226,8 +262,8 @@ numbers (a shape phase 25 did not check fails the run): ``plain_ms`` and
     python3 chip_smoke.py --profile
 
 adds, after phases 5, 6, 8, 12, 15, 19, 23, 24 and 27, one more update of
-each config under ``torch.profiler``: the device's busy share and the
-costliest kernels.
+each config under ``torch.profiler``, and after phase 33 one more SLQ probe
+at 4096^2: the device's busy share and the costliest kernels.
 
     python3 chip_smoke.py --witness
 
@@ -713,7 +749,7 @@ def phase_kernels(cases):
 
 @phase("4 32^2, 32^2 x Matern 8 (total_N=3), 32^2 Poissonian, a Poissonian + Gaussian sum, "
        "two ICR fields, two spherical fields and a 16^3 tomography: updates, CPU vs card, "
-       "sample loop and lockstep")
+       "sample loop and lockstep; the Wiener filter and the SLQ evidence on the 32^2 field")
 def phase_cpu_vs_card(jt):
     counts = {}  # each Poisson field's counts, drawn once (on the CPU's rates)
 
@@ -774,6 +810,78 @@ def phase_cpu_vs_card(jt):
             if not rel <= 1e-8:
                 raise AssertionError(
                     f"CPU and card disagree ({name}, {rmap}): relative {rel:.3e} > 1e-8")
+    wiener_and_evidence_cpu_vs_card(jt)
+
+
+def demo5_operators(dims, device):
+    """`demos/5_wiener_filter.py`'s prior on `dims`: a power-law spectrum on
+    the harmonic grid, floored at 1e-3 of its peak, normalized to unit
+    pointwise variance.  Returns S^{1/2}, S^{-1}, S^{-1/2} and S (the CG
+    preconditioner)."""
+    from nifty_tpu_torch.ops.harmonic import fourier_mode_lengths, hartley
+
+    k = torch.as_tensor(fourier_mode_lengths(dims, 1.0 / dims[0]), device=device)
+    amp = torch.where(k == 0.0, torch.ones_like(k), (1.0 + (k / 4.0) ** 2) ** (-3.0 / 2.0))
+    amp = torch.clamp_min(amp, 1e-3 * amp.max())
+    npix = float(np.prod(dims))
+    amp = amp / torch.sqrt(torch.sum(amp ** 2)) * npix
+    root = np.sqrt(npix)
+    return dict(
+        S_sqrt=lambda xi: hartley(amp * xi) / root,
+        S_inv=lambda s: hartley(hartley(s) / root / amp ** 2) / root,
+        S_inv_sqrt=lambda xi: hartley(xi / amp) / root,
+        S_apply=lambda x: hartley(hartley(x) / root * amp ** 2) / root,
+    )
+
+
+def uniform(generator, shape, dtype, device):
+    """Uniform draws on [0, 1), an `rng` for `random_like`."""
+    return torch.rand(shape, generator=generator, dtype=dtype, device=device)
+
+
+def wiener_and_evidence_cpu_vs_card(jt):
+    """Phase 4's first case (the 32^2 field, its data from `HostKey(0)`) on
+    the CPU and on the card: `wiener_filter` of its data through a 70 %
+    mask under demo 5's prior (20 CG steps preconditioned by S: longer
+    solves amplify rounding past 1e-8, see tests/test_torch_wiener_filter.py)
+    with the posterior means within 1e-8 relative, and
+    `estimate_evidence_lower_bound(method="slq")` (30 Lanczos steps, 8
+    probes in lockstep, `HostKey` probes) on the CPU's posterior after one
+    update, the same samples on both devices, with `elbo_mean` within 1e-8
+    relative."""
+    means, elbo = {}, {}
+    noise_std = NOISE_STD
+    for dev in ("cpu", "cuda"):
+        jt.config.update("device", dev)  # the CPU only because it is asked for
+        try:
+            lh = build_likelihood(jt, build_field(jt, (32, 32)), jt.HostKey(0))
+            data = lh.likelihood.data
+            ops = demo5_operators((32, 32), data.device)
+            mask = (jt.random_like(jt.HostKey(5), data, rng=uniform) > 0.3).to(data.dtype)
+            means[dev], info = jt.wiener_filter(
+                data * mask, lambda s: s * mask, lambda d: d / noise_std ** 2, ops["S_inv"],
+                domain_proto=data, cg_kwargs=dict(resnorm=1e-4, maxiter=20,
+                                                  preconditioner=ops["S_apply"]))
+            if dev == "cpu":
+                samples, _, _ = run_updates(jt, lh, 1, SHORT_KWARGS, key=jt.HostKey(7),
+                                            pos_key=jt.HostKey(1), residual_map="smap")
+                pos, resid = jt.to_numpy(samples.pos), jt.to_numpy(samples._samples)
+            on_dev = jt.Samples(pos=jt.from_numpy(pos), samples=jt.from_numpy(resid))
+            _, stats = jt.estimate_evidence_lower_bound(
+                lh, on_dev, 0, method="slq", key=jt.HostKey(4), verbose=False)
+            elbo[dev] = float(stats["elbo_mean"])
+        finally:
+            jt.config.update("device", "cuda")
+        print(f"32^2 Wiener filter on {dev}: CG info {info} | SLQ evidence on {dev}: elbo_mean "
+              f"{elbo[dev]!r}, log det {stats['logdet']!r}", flush=True)
+    a, b = means["cpu"], means["cuda"].cpu()
+    rel_wf = float(torch.linalg.vector_norm(b - a) / torch.linalg.vector_norm(a))
+    rel_elbo = abs(elbo["cuda"] - elbo["cpu"]) / abs(elbo["cpu"])
+    print(f"32^2 CPU vs card: Wiener filter mean relative difference {rel_wf:.3e} | SLQ "
+          f"elbo_mean relative difference {rel_elbo:.3e}", flush=True)
+    if not (rel_wf <= 1e-8 and rel_elbo <= 1e-8):
+        raise AssertionError(f"CPU and card disagree on the 32^2 Wiener filter ({rel_wf:.3e}) "
+                             f"or the SLQ evidence ({rel_elbo:.3e}) beyond 1e-8")
 
 
 def launch_counts(bg):
@@ -833,13 +941,13 @@ def maps_text(counts):
 
 def drive(jt, label, lh, n_updates, kwargs=BENCH_KWARGS, subgrid_maps=(), **maps):
     """Run the main path with the launch counts reset just before; returns
-    the counts and the final KL energy.  Fails unless both kernels launched,
-    on each of `subgrid_maps` too."""
+    the counts, the final KL energy and the samples.  Fails unless both
+    kernels launched, on each of `subgrid_maps` too."""
     from nifty_tpu_torch.ops import bin_gather as bg
 
     torch.cuda.reset_peak_memory_stats()
     bg.reset_launch_counts()
-    _, state, secs = run_updates(jt, lh, n_updates, kwargs, **maps)
+    samples, state, secs = run_updates(jt, lh, n_updates, kwargs, **maps)
     counts = launch_counts(bg)
     energy = float(state.minimization_state.fun)
     med = sorted(secs)[len(secs) // 2]
@@ -859,7 +967,7 @@ def drive(jt, label, lh, n_updates, kwargs=BENCH_KWARGS, subgrid_maps=(), **maps
     if not torch.isfinite(torch.tensor(energy)):
         raise AssertionError(f"{label}: non-finite KL energy {energy}")
     require_launches(label, counts, subgrid_maps)
-    return counts, energy
+    return counts, energy, samples
 
 
 @phase("7 128^2 adaptive (absdelta, napprox=8), 3 updates")
@@ -877,7 +985,7 @@ def phase_adaptive(jt, lh, fixed_energy):
 
     kwargs = dict(ADAPTIVE_KWARGS)
     kwargs["draw_linear_kwargs"] = dict(ADAPTIVE_KWARGS["draw_linear_kwargs"], cg=counting_cg)
-    counts, energy = drive(jt, "128^2 adaptive", lh, 3, kwargs, residual_map="vmap")
+    counts, energy, _ = drive(jt, "128^2 adaptive", lh, 3, kwargs, residual_map="vmap")
     rel = abs(energy - fixed_energy) / max(abs(fixed_energy), 1e-12)
     print(f"128^2 adaptive: draw CG steps per sample and update {draw_steps} | KL energy "
           f"{energy!r} against the fixed budgets' {fixed_energy!r}: relative {rel:.5f}",
@@ -2237,7 +2345,7 @@ def phase_tomography_256(jt, lh, cf, with_profile):
     require_los_launches("256^3", k11)
     require_launches("256^3", counts, (cf.dist,))
     if with_profile:
-        profile_window("256^3 tomography", lambda: opt.update(samples, state))
+        profile_window("256^3 tomography", lambda: kl_text(opt.update(samples, state)))
     return counts, k11
 
 
@@ -2300,26 +2408,352 @@ def phase_nuts(jt, lh, cf):
     return geo, nuts_counts
 
 
+# -- inference and diagnostics (phases 29-33) --------------------------------
+
+# phase 33's probes (the same for the 4096^2 run and both 128^2 runs)
+EVIDENCE_PROBES = 33
+
+
+@phase("29 demos/5_wiener_filter.py: 256^2, a 70 % mask, noise 0.1, CG preconditioned by S")
+def phase_demo5(jt):
+    """`demos/5_wiener_filter.py` as written: a known-covariance Gaussian
+    signal on 256^2 seen through a 70 % mask with noise 0.1, the posterior
+    mean by CG on the Wiener-filter curvature (`resnorm` 1e-4, at most 500
+    steps, preconditioned by S) and a posterior sample by the metric-sample
+    construction.  The demo's check: relative reconstruction error below
+    0.5.  Prints both CG infos and the sample's std about the mean."""
+    dims, noise_std = (256, 256), 0.1
+    dev = jt.config.default_device()
+    ops = demo5_operators(dims, dev)
+    key = jt.HostKey(42)
+    key, sub = jt.split(key, 2)
+    like = jt.ShapeWithDtype(dims)
+    mask = jt.random_like(sub, like, rng=uniform, device=dev) > 0.3  # keep ~70%
+
+    def R(s):
+        return torch.where(mask, s, 0.0)
+
+    def N_inv(d):
+        return d / noise_std ** 2
+
+    def N_inv_sqrt(xi):
+        return xi / noise_std
+
+    key, sub = jt.split(key, 2)
+    s_truth = ops["S_sqrt"](jt.random_like(sub, like, device=dev))
+    key, sub = jt.split(key, 2)
+    data = R(s_truth) + noise_std * jt.random_like(sub, like, device=dev) * mask
+    proto = torch.zeros(dims, dtype=torch.float64, device=dev)
+    cg = dict(resnorm=1e-4, maxiter=500, preconditioner=ops["S_apply"])
+    synchronize(jt)
+    t0 = time.perf_counter()
+    m, info = jt.wiener_filter(data, R, N_inv, ops["S_inv"], domain_proto=proto, cg_kwargs=cg)
+    err = float(torch.sqrt(torch.mean((m - s_truth) ** 2) / torch.mean(s_truth ** 2)))
+    t1 = time.perf_counter()
+    key, sub = jt.split(key, 2)
+    samp, sinfo = jt.draw_posterior_sample(
+        sub, R, N_inv, ops["S_inv"], ops["S_sqrt"], N_inv_sqrt, domain_proto=proto,
+        data_proto=proto, mean=m, S_inv_sqrt=ops["S_inv_sqrt"], cg_kwargs=cg)
+    std = float(torch.std(samp - m))
+    t2 = time.perf_counter()
+    print(f"demo 5 (256^2): posterior mean CG info {info} in {t1 - t0:.3f} s | relative "
+          f"reconstruction error {err:.4f} | posterior sample CG info {sinfo} in {t2 - t1:.3f} s, "
+          f"std about the mean {std:.5f}", flush=True)
+    if not err < 0.5:
+        raise AssertionError(f"demo 5: relative reconstruction error {err} is not below 0.5")
+
+
+def banana_likelihood(jt):
+    """`demos/8_parametric_vi.py`'s banana: d = x0 + x1^2 = 1, noise 0.2."""
+
+    def fwd(x):
+        return (x["x0"] + x["x1"] ** 2)[None]
+
+    data = torch.tensor([1.0], dtype=torch.float64, device=jt.config.default_device())
+    lh = jt.Gaussian(data, noise_std_inv=lambda x: x / 0.2).amend(
+        jt.Model(fwd, domain={"x0": jt.ShapeWithDtype(()), "x1": jt.ShapeWithDtype(())}))
+    return lh, fwd
+
+
+def timed_vi(jt, vi, key, n_steps):
+    """`vi.run(key, n_steps)` and its ms per optimizer step."""
+    synchronize(jt)
+    t0 = time.perf_counter()
+    params, losses = vi.run(key, n_steps=n_steps)
+    synchronize(jt)
+    return params, losses, 1e3 * (time.perf_counter() - t0) / n_steps
+
+
+@phase("30 demos/8_parametric_vi.py: the banana, MeanFieldVI and FullCovarianceVI, 600 Adam "
+       "steps each")
+def phase_demo8(jt):
+    """`demos/8_parametric_vi.py` as written: 600 Adam steps of each family
+    with 8 mirrored samples, then 512 samples of each.  The demo's checks:
+    |corr_MF| < 0.35, |corr_FC| > |corr_MF| and the predictive mean within
+    0.3 of 1.  Prints ms per Adam step."""
+    lh, fwd = banana_likelihood(jt)
+    k_mf, k_fc = jt.HostKey(0).split(2)
+    mf = jt.MeanFieldVI(lh, n_samples=8)
+    mf_params, mf_losses, mf_ms = timed_vi(jt, mf, k_mf, 600)
+    fc = jt.FullCovarianceVI(lh, n_samples=8)
+    fc_params, fc_losses, fc_ms = timed_vi(jt, fc, k_fc, 600)
+    ks = jt.HostKey(1).split(512)
+    mf_s = jt.stack([mf.sample(mf_params, k) for k in ks])
+    fc_s = jt.stack([fc.sample(fc_params, k) for k in ks])
+
+    def corr(s):
+        return float(np.corrcoef(s["x0"].cpu().numpy(), s["x1"].cpu().numpy())[0, 1])
+
+    c_mf, c_fc = corr(mf_s), corr(fc_s)
+    with torch.no_grad():
+        pred = float(torch.stack([fwd(fc.sample(fc_params, k)) for k in ks]).mean())
+    print(f"demo 8: final losses mean-field {float(mf_losses[-1]):.3f}, full-cov "
+          f"{float(fc_losses[-1]):.3f} | ms per Adam step mean-field {mf_ms:.3f}, full-cov "
+          f"{fc_ms:.3f} | x0-x1 sample correlation mean-field {c_mf:+.3f}, full-cov {c_fc:+.3f} "
+          f"| posterior predictive mean {pred:.4f} (data 1.0)", flush=True)
+    if not (abs(c_mf) < 0.35 and abs(c_fc) > abs(c_mf) and abs(pred - 1.0) < 0.3):
+        raise AssertionError(f"demo 8's checks failed: corr MF {c_mf}, FC {c_fc}, predictive "
+                             f"mean {pred}")
+
+
+DEMO15_SCALE, DEMO15_SLOPE = 10.0, 1.35
+
+
+def demo15_moments():
+    """`demos/15_vi_visualized.py`'s grid quadrature of the exact posterior
+    over (a, b): means and standard deviations."""
+    aa, bb = np.meshgrid(np.linspace(-0.9, 0.9, 401), np.linspace(-4.5, 4.5, 401), indexing="ij")
+    lh = 0.5 * (DEMO15_SCALE * aa) ** 2 * np.exp(-2 * DEMO15_SLOPE * bb) + DEMO15_SLOPE * bb
+    z = np.exp(-(lh + 0.5 * (aa ** 2 + bb ** 2)))
+    z /= z.sum()
+    ma, mb = (aa * z).sum(), (bb * z).sum()
+    return ma, mb, np.sqrt(((aa - ma) ** 2 * z).sum()), np.sqrt(((bb - mb) ** 2 * z).sum())
+
+
+@phase("31 demos/15_vi_visualized.py: MGVI and geoVI (15 iterations of 20 samples), MFVI and "
+       "FCVI (2000 steps)")
+def phase_demo15(jt):
+    """`demos/15_vi_visualized.py` as written, without its figure: a datum 0
+    of mean 10 a and inverse std exp(-1.35 b); MGVI (`linear_resample`) and
+    geoVI (`nonlinear_resample`) through `optimize_kl` with 15 iterations of
+    20 samples at the demo's budgets, then 2000 steps each of `MeanFieldVI`
+    and `FullCovarianceVI` with 8 samples and 200 draws each.  The demo's
+    check: each flavour's sample mean within 3 std of the grid-quadrature
+    moments.  The port's `optimize_kl` has no energy-history plot yet, so
+    the demo's `plot_energy_history=False` (a no-op) is left out."""
+
+    def forward(x):
+        return (DEMO15_SCALE * x["a"], torch.exp(-DEMO15_SLOPE * x["b"]))
+
+    dev = jt.config.default_device()
+    lh = jt.VariableCovarianceGaussian(torch.zeros((), dtype=torch.float64, device=dev)).amend(
+        jt.Model(forward, domain={"a": jt.ShapeWithDtype(()), "b": jt.ShapeWithDtype(())},
+                 white_init=True))
+    ma, mb, sa, sb = demo15_moments()
+    key = jt.HostKey(3)
+    clouds, seconds = {}, {}
+    for label, mode in (("MGVI", "linear_resample"), ("geoVI", "nonlinear_resample")):
+        key, ik, ok = jt.split(key, 3)
+        t0 = time.perf_counter()
+        samples, _ = jt.optimize_kl(
+            lh, jt.random_like(ik, lh.domain), key=ok, n_total_iterations=15, n_samples=20,
+            sample_mode=mode, draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=30)),
+            nonlinearly_update_kwargs=dict(minimize_kwargs=dict(
+                xtol=1e-4, maxiter=10, cg_kwargs=dict(maxiter=20))),
+            kl_kwargs=dict(minimize_kwargs=dict(xtol=1e-5, maxiter=15, cg_kwargs=dict(maxiter=20))),
+            odir=None)
+        seconds[label] = time.perf_counter() - t0
+        s = samples.samples
+        clouds[label] = np.stack([s["a"].cpu().numpy(), s["b"].cpu().numpy()], -1)
+    key, k1, k2, k3, k4 = jt.split(key, 5)
+    for label, cls, k_run, k_draw in (("MFVI", jt.MeanFieldVI, k1, k2),
+                                      ("FCVI", jt.FullCovarianceVI, k3, k4)):
+        vi = cls(lh, n_samples=8)
+        params, _, ms = timed_vi(jt, vi, k_run, 2000)
+        seconds[label] = 2000 * ms / 1e3
+        draws = jt.stack([vi.sample(params, k) for k in jt.split(k_draw, 200)])
+        clouds[label] = np.stack([draws["a"].cpu().numpy(), draws["b"].cpu().numpy()], -1)
+    print(f"demo 15: exact a = {ma:+.4f} ± {sa:.4f}, b = {mb:+.4f} ± {sb:.4f}", flush=True)
+    failed = []
+    for label, pts in clouds.items():
+        ea, eb = pts[:, 0].mean(), pts[:, 1].mean()
+        print(f"demo 15 {label:<5}: a = {ea:+.4f} ± {pts[:, 0].std():.4f}, b = {eb:+.4f} ± "
+              f"{pts[:, 1].std():.4f} | {len(pts)} samples in {seconds[label]:.3f} s", flush=True)
+        if not (abs(ea - ma) < 3 * sa and abs(eb - mb) < 3 * sb):
+            failed.append(label)
+    if failed:
+        raise AssertionError(f"demo 15: {failed} outside 3 std of the exact moments")
+
+
+def demo11_field(jt, flexibility, prefix):
+    """`demos/11_model_comparison.py`'s `build_cf`: a 64^2 correlated field,
+    flexible (the generative model) or a rigid fixed-slope power law."""
+    dims = (64, 64)
+    cfm = jt.CorrelatedFieldMaker(prefix)
+    cfm.set_amplitude_total_offset(offset_mean=0.0, offset_std=(1e-1, 3e-2))
+    cfm.add_fluctuations(
+        dims, distances=1.0 / dims[0], fluctuations=(1.0, 5e-1),
+        loglogavgslope=(-3.5, 2e-1) if flexibility else (-6.0, 1e-2),
+        flexibility=(1.0, 5e-1) if flexibility else None,
+        asperity=(5e-1, 1e-1) if flexibility else None,
+    )
+    return cfm.finalize()
+
+
+@phase("32 demos/11_model_comparison.py: two 64^2 fields, optimize_kl 5 x 2, ELBO by ARPACK")
+def phase_demo11(jt):
+    """`demos/11_model_comparison.py` as written: data from the flexible
+    64^2 field plus noise 0.1; a flexible and a rigid model each fitted by
+    `optimize_kl` (5 iterations of 2 samples, `nonlinear_resample`, `odir`
+    in a temporary directory), then `estimate_evidence_lower_bound` with 40
+    eigenvalues (ARPACK with deflation).  The demo's check: the evidence
+    prefers the flexible model.  Prints both ELBO intervals, the ARPACK
+    matvecs and their seconds; fails unless both distributor kernels
+    launched.  Returns the launch counts and the map."""
+    from nifty_tpu_torch.ops import bin_gather as bg
+
+    noise_std = 0.1
+    bg.reset_launch_counts()
+    key = jt.HostKey(21)
+    truth_model = demo11_field(jt, True, "true")
+    key, sk = jt.split(key, 2)
+    with torch.no_grad():
+        truth = truth_model(truth_model.init(sk))
+    key, sk = jt.split(key, 2)
+    data = truth + noise_std * jt.random_like(sk, truth)
+    results, lines = {}, []
+    with tempfile.TemporaryDirectory() as odir:
+        for name, flex in (("flexible", True), ("rigid", False)):
+            cf = demo11_field(jt, flex, name)
+            lh = jt.Gaussian(data, noise_cov_inv=lambda x: x / noise_std ** 2).amend(cf)
+            key, sk = jt.split(key, 2)
+            _, ko, ki = jt.split(sk, 3)
+            synchronize(jt)
+            t0 = time.perf_counter()
+            samples, _ = jt.optimize_kl(
+                lh, jt.random_like(ki, lh.domain), key=ko, n_total_iterations=5, n_samples=2,
+                draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=64)),
+                nonlinearly_update_kwargs=dict(minimize_kwargs=dict(
+                    xtol=1e-3, maxiter=5, cg_kwargs=dict(maxiter=24))),
+                kl_kwargs=dict(minimize_kwargs=dict(
+                    xtol=1e-4, maxiter=10, cg_kwargs=dict(maxiter=32))),
+                sample_mode="nonlinear_resample", odir=os.path.join(odir, name))
+            synchronize(jt)
+            t1 = time.perf_counter()
+            _, stats = jt.estimate_evidence_lower_bound(lh, samples, n_eigenvalues=40,
+                                                        verbose=False)
+            stats = {k: float(v) for k, v in stats.items()}
+            synchronize(jt)
+            t2 = time.perf_counter()
+            results[name] = stats
+            lines.append(
+                f"{name}: ELBO in [{stats['elbo_lw']:.1f}, {stats['elbo_up']:.1f}] (mean "
+                f"{stats['elbo_mean']!r}, lower error {stats['lower_error']:.3f}) | fit "
+                f"{t1 - t0:.3f} s | ARPACK {stats['metric_matvecs']:.0f} matvecs in "
+                f"{t2 - t1:.3f} s | largest eigenvalue {stats['largest_eigenvalue']!r}")
+    counts = launch_counts(bg)
+    better = max(results, key=lambda k: results[k]["elbo_mean"])
+    print("demo 11: " + " | ".join(lines) + f" | preferred: {better} | distributor calls by "
+          f"rows: {rows_text(counts)}", flush=True)
+    require_launches("demo 11", counts, (cf.dist,))
+    if better != "flexible":
+        raise AssertionError("demo 11: the ELBO should prefer the generative model")
+    return counts, cf.dist
+
+
+@phase("33 the evidence at full width: SLQ on phase 6's 4096^2 posterior (16.8 M dof, 8 probes of "
+       "30 steps, looped), and on phase 5's 128^2 posterior in lockstep and looped")
+def phase_evidence(jt, lh4096, samples4096, lh128, samples128, with_profile):
+    """`estimate_evidence_lower_bound(method="slq")` at the JAX package's
+    defaults (`slq_order=30`, `slq_samples=8`) on phase 6's posterior (the
+    4096^2 `n_bins=128` field and its 8 samples), the probes looped (one
+    probe's Krylov block is 30 x 16.8 M x 8 B = 4.0 GB).  The checks: 0 <=
+    log det <= n log(largest Ritz value), `elbo_lw <= elbo_mean <= elbo_up`,
+    every number finite.  Prints the seconds, the metric matvecs and the
+    peak device memory.  Then on phase 5's 128^2 posterior, the same
+    `HostKey` probes as lockstep rows and looped: log-determinants within
+    1e-10 relative.  Fails unless both distributor kernels launched in each
+    part.  Returns both parts' launch counts."""
+    from nifty_tpu_torch.ops import bin_gather as bg
+
+    kw = dict(n_eigenvalues=0, method="slq", key=jt.HostKey(EVIDENCE_PROBES), verbose=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bg.reset_launch_counts()
+    t0 = time.perf_counter()
+    elbo, stats = jt.estimate_evidence_lower_bound(lh4096, samples4096, slq_map="smap", **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    stats = {k: float(v) for k, v in stats.items()}
+    c4096 = launch_counts(bg)
+    n = jt.tree.size(samples4096.pos)
+    values = [*elbo, *(stats[k] for k in ("elbo_mean", "elbo_up", "elbo_lw", "logdet",
+                                          "largest_eigenvalue"))]
+    matvecs = stats["metric_matvecs"]
+    print(f"evidence 4096^2 n_bins=128 ({n} dof, {len(samples4096)} samples): SLQ in "
+          f"{seconds:.3f} s, {matvecs:.0f} metric matvecs ({1e3 * seconds / matvecs:.2f} ms "
+          f"each, reorthogonalization included) | peak mem "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | log det {stats['logdet']!r}, "
+          f"largest Ritz value {stats['largest_eigenvalue']!r} | ELBO mean {stats['elbo_mean']!r} "
+          f"in [{stats['elbo_lw']!r}, {stats['elbo_up']!r}] | distributor calls by rows: "
+          f"{rows_text(c4096)}", flush=True)
+    if not all(np.isfinite(v) for v in values):
+        raise AssertionError(f"evidence 4096^2: a number is not finite: {values}")
+    if not 0.0 <= stats["logdet"] <= n * np.log(stats["largest_eigenvalue"]):
+        raise AssertionError(f"evidence 4096^2: log det {stats['logdet']} outside [0, n log "
+                             f"{stats['largest_eigenvalue']}]")
+    if not stats["elbo_lw"] <= stats["elbo_mean"] <= stats["elbo_up"]:
+        raise AssertionError(f"evidence 4096^2: ELBO interval out of order: {stats}")
+    require_launches("evidence 4096^2", c4096)
+    if with_profile:
+        profile_window("evidence 4096^2, one SLQ probe", lambda: "log det {!r}".format(
+            jt.estimate_evidence_lower_bound(lh4096, samples4096, slq_map="smap",
+                                             slq_samples=1, **kw)[1]["logdet"]))
+
+    bg.reset_launch_counts()
+    logdets, secs = {}, {}
+    for slq_map in ("vmap", "smap"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, st = jt.estimate_evidence_lower_bound(lh128, samples128, slq_map=slq_map, **kw)
+        torch.cuda.synchronize()
+        secs[slq_map], logdets[slq_map] = time.perf_counter() - t0, st["logdet"]
+    c128 = launch_counts(bg)
+    rel = abs(logdets["vmap"] - logdets["smap"]) / abs(logdets["smap"])
+    print(f"evidence 128^2: log det in lockstep rows {logdets['vmap']!r} ({secs['vmap']:.3f} s), "
+          f"looped {logdets['smap']!r} ({secs['smap']:.3f} s), relative difference {rel:.3e} | "
+          f"distributor calls by rows: {rows_text(c128)}", flush=True)
+    if not rel <= 1e-10:
+        raise AssertionError(f"evidence 128^2: lockstep and looped log det differ by {rel:.3e}")
+    require_launches("evidence 128^2", c128)
+    return c4096, c128
+
+
 def profile_update(jt, label, lh, top=12, **maps):
     """One warm-up update from bench.py's start, then one under
     :func:`profile_window`."""
     opt, samples, state = start(jt, lh, BENCH_KWARGS, **maps)
     samples, state = opt.update(samples, state)
-    profile_window(label, lambda: opt.update(samples, state), top)
+    profile_window(label, lambda: kl_text(opt.update(samples, state)), top)
 
 
-def profile_window(label, update, top=12):
-    """`update()` (one `OptimizeVI.update`) under ``torch.profiler``: its
-    wall time (inflated by the profiler), the summed device time of its
-    kernels and the device's busy share, the kernel launches, the costliest
-    kernels."""
+def kl_text(update):
+    """The KL energy of an `OptimizeVI.update`'s `(samples, state)`."""
+    return f"KL energy {float(update[1].minimization_state.fun)!r}"
+
+
+def profile_window(label, run, top=12):
+    """`run()` (one `OptimizeVI.update`, or one evidence estimate; it
+    returns a text to print) under ``torch.profiler``: its wall time
+    (inflated by the profiler), the summed device time of its kernels and
+    the device's busy share, the kernel launches, the costliest kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, state = update()
+        text = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -2329,10 +2763,9 @@ def profile_window(label, update, top=12):
 
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(device_us(e) for e in kernels) / 1e6
-    print(f"profile {label}: update {wall:.3f} s under the profiler | device busy "
+    print(f"profile {label}: {wall:.3f} s under the profiler | device busy "
           f"{busy:.3f} s ({100 * busy / wall:.1f} %) | "
-          f"{sum(e.count for e in kernels)} kernel launches | "
-          f"KL energy {float(state.minimization_state.fun)!r}", flush=True)
+          f"{sum(e.count for e in kernels)} kernel launches | {text}", flush=True)
     for e in sorted(kernels, key=device_us, reverse=True)[:top]:
         print(f"  {device_us(e) / 1e3:10.3f} ms  {e.count:7d} x  {e.key[:100]}", flush=True)
 
@@ -2378,8 +2811,9 @@ def kernel_entries(kres, paths, src):
 
 def main(argv):
     """``--profile``: after phases 5, 6, 8, 12, 15, 19, 23, 24 and 27, profile
-    one more update of each config (device busy share and the costliest
-    kernels).  ``--witness``: run phase 23's fit once more with K10 replaced
+    one more update of each config, and after phase 33 one more SLQ probe
+    at 4096^2 (device busy share and the costliest kernels).  ``--witness``:
+    run phase 23's fit once more with K10 replaced
     by its ``torch.fft`` route, and print that fit's KL energy beside the
     kernel's."""
     with_profile = "--profile" in argv
@@ -2418,6 +2852,8 @@ def main(argv):
     lh256, cf256, los256 = build_tomography(jt, (256,) * 3, 1024, 256, 5, DEMO1_SEED,
                                             n_bins=128)
     lh16, cf16, los16 = build_tomography(jt, (16,) * 3, 48, 64, NUTS_SEED, NUTS_SEED + 1)
+    # phase 32's map: demo 11's 64^2 fields (both models share it)
+    map64sq = demo11_field(jt, True, "true").dist
     print(f"field set-up (host mode maps, CSR) {time.perf_counter() - t0:.3f} s, of which 4096^2 "
           f"unbinned {t2 - t1:.3f} s, 512^2 x 64 {t3 - t2:.3f} s, the HEALPix sky (nside "
           f"{sky_sht.nside}, {sky_sht.nrings} rings, Legendre table "
@@ -2468,6 +2904,10 @@ def main(argv):
            for n, dist in ((16, cf16.dist), (64, cf64.dist)) for rows in (1, 4, 8)},
         "256^3 nb128 quarter B=1": (cf256.dist, 1),
         "256^3 nb128 quarter B=2": (cf256.dist, 2),
+        # demo 11's 64^2 full-grid map at the rows of a model call and an
+        # ARPACK matvec (1), the lockstep draw of 2 keys (2) and the curve
+        # and the stacked KL stage of 4 samples (4)
+        **{f"64^2 unbinned B={rows}": (map64sq, rows) for rows in (1, 2, 4)},
     })
 
     phase_cpu_vs_card(jt)
@@ -2475,7 +2915,7 @@ def main(argv):
     lh128 = build_likelihood(jt, cf128, 0)
     # bench.py's maps: 128^2 "vmap" (lockstep residual stages, the KL stage
     # stacks the samples), 4096^2 the sample loop for both stages
-    c128, e128 = phase("5 128^2 unbinned, lockstep, 3 updates")(drive)(
+    c128, e128, samples128 = phase("5 128^2 unbinned, lockstep, 3 updates")(drive)(
         jt, "128^2 unbinned", lh128, 3, residual_map="vmap")
     print(f"128^2 unbinned: launches with the residual stages in lockstep gather "
           f"{c128['gather']} segment_sum {c128['segsum']}; with the sample loop they were "
@@ -2483,23 +2923,21 @@ def main(argv):
     if with_profile:
         profile_update(jt, "128^2 unbinned", lh128, residual_map="vmap")
     c_adaptive = phase_adaptive(jt, lh128, e128)
-    del lh128
     lh4096 = build_likelihood(jt, cf4096, 0)
-    c4096, _ = phase("6 4096^2 n_bins=128, 1 update")(drive)(
+    c4096, _, samples4096 = phase("6 4096^2 n_bins=128, 1 update")(drive)(
         jt, "4096^2 n_bins=128", lh4096, 1, residual_map="smap", kl_map="smap")
     if with_profile:
         profile_update(jt, "4096^2 n_bins=128", lh4096, residual_map="smap", kl_map="smap")
-    del lh4096
     d = cf1024.dist
     print(f"1024^2 unbinned: {d.nb} modes on the {d.shape} quarter map | index "
           f"{str(d.idx_narrow.dtype).replace('torch.', '')} | float64 table {d.nb * 8} bytes a "
           f"row | segment sum work items {d.n_items} ({d.n_short} short bins, {d.n_split} "
           f"split)", flush=True)
     lh1024 = build_likelihood(jt, cf1024, 0)
-    c1024, e1024 = phase("8 1024^2 unbinned, 1 update")(drive)(
+    c1024, e1024, _ = phase("8 1024^2 unbinned, 1 update")(drive)(
         jt, "1024^2 unbinned", lh1024, 1, residual_map="smap", kl_map="auto")
     # the spectrum's scan over 82,798 steps must repeat its bits
-    _, e1024_again = phase("8 1024^2 unbinned, the same update again")(drive)(
+    _, e1024_again, _ = phase("8 1024^2 unbinned, the same update again")(drive)(
         jt, "1024^2 unbinned again", lh1024, 1, residual_map="smap", kl_map="auto")
     if e1024_again != e1024:
         raise AssertionError(
@@ -2513,7 +2951,7 @@ def main(argv):
           f"{d.nb * 8} bytes a row | segment sum work items {d.n_items} ({d.n_short} short bins, "
           f"{d.n_block_items} block items, {d.n_split} split)", flush=True)
     lh4096u = build_likelihood(jt, cf4096u, 0)
-    c4096u, _ = phase("10 4096^2 unbinned, 1 update")(drive)(
+    c4096u, _, _ = phase("10 4096^2 unbinned, 1 update")(drive)(
         jt, "4096^2 unbinned", lh4096u, 1, residual_map="smap", kl_map="smap")
     del lh4096u
     c_mf = phase_multifrequency(jt)
@@ -2521,7 +2959,7 @@ def main(argv):
           f"{str(map512.idx_narrow.dtype).replace('torch.', '')}) times {map64.nb} on the "
           f"{map64.shape} map | {map512.n * map64.n} field entries", flush=True)
     lh512 = build_likelihood(jt, cf512, 0, noise_std=0.2)
-    c512, _ = phase("12 512^2 x 64 space x frequency, 1 update")(drive)(
+    c512, _, _ = phase("12 512^2 x 64 space x frequency, 1 update")(drive)(
         jt, "512^2 x 64", lh512, 1, residual_map="smap", kl_map="smap", subgrid_maps=cf512.dists)
     if with_profile:
         profile_update(jt, "512^2 x 64", lh512, residual_map="smap", kl_map="smap")
@@ -2530,7 +2968,7 @@ def main(argv):
     c_bernoulli_map, c_bernoulli_vi = phase_bernoulli(jt)
     # Poisson counts at grid scale: X-ray and gamma-ray count maps
     lh1024p, _, _ = poisson_likelihood(jt, cf1024, jt.HostKey(0))
-    c1024p, _ = phase("15 1024^2 unbinned Poisson counts, 1 update")(drive)(
+    c1024p, _, _ = phase("15 1024^2 unbinned Poisson counts, 1 update")(drive)(
         jt, "1024^2 Poisson counts", lh1024p, 1, residual_map="smap", kl_map="auto")
     if with_profile:
         profile_update(jt, "1024^2 Poisson counts", lh1024p, residual_map="smap", kl_map="auto")
@@ -2568,7 +3006,7 @@ def main(argv):
     torch.cuda.empty_cache()
     gl = build_bench_sphere(jt, 511)
     lh_gl = build_likelihood(jt, gl, jt.HostKey(24))
-    c_gl, _ = phase("24 a Gauss-Legendre sphere, lmax 511 (512 x 1024), 1 update")(drive)(
+    c_gl, _, _ = phase("24 a Gauss-Legendre sphere, lmax 511 (512 x 1024), 1 update")(drive)(
         jt, "Gauss-Legendre sphere lmax 511", lh_gl, 1, residual_map="smap", kl_map="smap")
     if with_profile:
         profile_update(jt, "Gauss-Legendre sphere lmax 511", lh_gl, residual_map="smap",
@@ -2591,6 +3029,15 @@ def main(argv):
     torch.cuda.empty_cache()
     (c_geo16, k11_geo16), (c_nuts, k11_nuts) = phase_nuts(jt, lh16, cf16)
 
+    # inference and diagnostics: demos 5, 8, 15 and 11, then the evidence on
+    # phase 6's and phase 5's posteriors
+    phase_demo5(jt)
+    phase_demo8(jt)
+    phase_demo15(jt)
+    c_demo11, demo11_map = phase_demo11(jt)
+    c_ev4096, c_ev128 = phase_evidence(jt, lh4096, samples4096, lh128, samples128, with_profile)
+    del lh4096, samples4096, lh128, samples128
+
     src = "nifty_tpu_torch/csrc/bin_gather.cu"
     tpu = "nifty_tpu/ops/pallas_gather.py"
     # each map with the TPU kernels its gather and segment sum replace and
@@ -2602,11 +3049,12 @@ def main(argv):
     k3k4 = ("K3", f"{tpu}:369"), ("K4", f"{tpu}:406")
     k5 = ("K5 route", f"{tpu}:1013"), ("K5 route", f"{tpu}:1013")
     paths = [
-        ("4096^2 nb128 quarter", cf4096.dist, *k1k2, {"fixed": c4096}),
+        ("4096^2 nb128 quarter", cf4096.dist, *k1k2,
+         {"fixed": c4096, "evidence_4096": c_ev4096}),
         ("128^2 unbinned", cf128.dist, *k3k4,
          {"fixed": c128, "adaptive": c_adaptive, "optimize_kl": c_loop,
           "poisson_counts": c_poisson, "bernoulli_map": c_bernoulli_map,
-          "bernoulli_geovi": c_bernoulli_vi}),
+          "bernoulli_geovi": c_bernoulli_vi, "evidence_128": c_ev128}),
         ("1024^2 unbinned quarter", cf1024.dist, *k5, {"fixed": c1024, "poisson": c1024p}),
         ("4096^2 unbinned quarter", cf4096u.dist, *k5, {"fixed": c4096u}),
         ("16 (1-D)", map16, *k1k2, {"multifrequency": c_mf}),
@@ -2617,6 +3065,7 @@ def main(argv):
         ("64^3 unbinned", cf64.dist, *k3k4, {"demo1": c_demo1}),
         ("256^3 nb128 quarter", cf256.dist, *k1k2, {"tomography_256": c_256}),
         ("16^3 unbinned", cf16.dist, *k3k4, {"nuts_geovi": c_geo16, "nuts": c_nuts}),
+        ("64^2 unbinned", demo11_map, *k3k4, {"demo11": c_demo11}),
     ]
     icr_paths = {"demo9": (icr["demo9"], {"demo9": c_demo9}),
                  "4100^2": (icr["4100^2"], {"4100^2": c_4100}),

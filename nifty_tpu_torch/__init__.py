@@ -1,6 +1,8 @@
 """PyTorch port of nifty_tpu: geoVI on correlated fields (Fourier subgrids
 and the sphere), iterative charted refinement, line-of-sight tomography,
-structured kernel interpolation and HMC/NUTS, with hand-written CUDA
+structured kernel interpolation, HMC/NUTS, Wiener filtering, parametric
+VI, the evidence lower bound (ARPACK or stochastic Lanczos quadrature)
+and dynamics priors, with hand-written CUDA
 kernels for the power distributor, the refinement step, the HEALPix
 longitude stage and the ray integral.
 
@@ -9,7 +11,7 @@ The package mirrors ``nifty_tpu``'s layout and public names and imports
 """
 
 from . import config
-from . import domains
+from . import domains, num
 from .custom_map import lmap, smap, vmap
 from .domains import (
     DOFSpace,
@@ -22,6 +24,7 @@ from .domains import (
     RGSpace,
     UnstructuredDomain,
 )
+from .evidence_lower_bound import estimate_evidence_lower_bound
 from .evi import (
     Samples,
     draw_linear_residual,
@@ -78,6 +81,8 @@ from .models import (
     SimpleCorrelatedField,
     WienerProcess,
     adjust_variances,
+    dynamic_lightcone_operator,
+    dynamic_operator,
     make_grid,
     matern_amplitude,
     non_parametric_amplitude,
@@ -85,7 +90,13 @@ from .models import (
 from .ops.healpix_sht import HEALPixSHT
 from .ops.sht import SphericalHarmonicTransform, SphericalHarmonicTransformOnTheFly
 from .optimize_kl import OptimizeVI, OptimizeVIState, optimize_kl
-from .probing import approximation2endo
+from .probing import (
+    StatCalculator,
+    approximation2endo,
+    operator_spectrum,
+    probe_diagonal,
+    probe_trace,
+)
 from .refine import (
     CoordinateChart,
     HEALPixChart,
@@ -130,6 +141,12 @@ from .stats import (
     uniform_prior,
 )
 from .sugar import calculate_position, density_estimator
+from .variational import FullCovarianceVI, MeanFieldVI
+from .wiener_filter import (
+    draw_posterior_sample,
+    wiener_filter,
+    wiener_filter_curvature,
+)
 from .tree import (
     HostKey,
     ShapeWithDtype,

@@ -10,6 +10,11 @@ from .correlated_field import (
     matern_amplitude,
     non_parametric_amplitude,
 )
+from .dynamics import (
+    dynamic_lightcone_operator,
+    dynamic_operator,
+    light_cone_kernel,
+)
 from .gauss_markov import (
     GaussMarkovProcess,
     IntegratedWienerProcess,

@@ -510,6 +510,27 @@ def unstack(tree, axis=0):
     return [tree_map(lambda x: x.select(axis, i), tree) for i in range(n)]
 
 
+def ravel(tree):
+    """Every leaf raveled and concatenated in flatten order: the vector of
+    ``jax.flatten_util.ravel_pytree``."""
+    return torch.cat([x.reshape(-1) for x in tree_leaves(tree)])
+
+
+def unravel(like, flat):
+    """Inverse of :func:`ravel`: the last axis of ``flat`` cut into leaves
+    shaped like those of ``like`` (tensors or :class:`ShapeWithDtype`);
+    leading axes of ``flat`` stay leading axes of every leaf."""
+    batch = tuple(flat.shape[:-1])
+    leaves, at = [], 0
+    for leaf in tree_leaves(like):
+        n = size(leaf)
+        leaves.append(flat[..., at:at + n].reshape(batch + tuple(leaf.shape)))
+        at += n
+    if at != flat.shape[-1]:
+        raise ValueError(f"a vector of {flat.shape[-1]} entries for a tree of {at}")
+    return tree_unflatten(like, leaves)
+
+
 # --------------------------------------------------------------------------
 # Weights carried across: JAX-package trees <-> port trees
 # --------------------------------------------------------------------------
@@ -701,8 +722,8 @@ __all__ = [
     "HostKey", "ShapeWithDtype", "Vector", "axpy_rows", "broadcast_rows",
     "conj", "dot", "fold_in", "from_numpy", "get_map", "has_arithmetics",
     "mean", "mean_and_std", "norm", "norm_rows", "normal", "ones_like", "rademacher",
-    "random_like", "result_type", "rows", "scale_rows", "shape_dtype_like", "size", "split",
-    "stack", "to_numpy", "tree_add", "tree_axpy", "tree_device", "tree_leaves",
+    "random_like", "ravel", "result_type", "rows", "scale_rows", "shape_dtype_like", "size",
+    "split", "stack", "to_numpy", "tree_add", "tree_axpy", "tree_device", "tree_leaves",
     "tree_map", "tree_scale", "tree_sub", "tree_unflatten", "tsum", "unite",
-    "unstack", "vdot", "vdot_rows", "where", "where_rows", "zeros_like",
+    "unravel", "unstack", "vdot", "vdot_rows", "where", "where_rows", "zeros_like",
 ]
