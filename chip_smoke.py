@@ -4,9 +4,10 @@ Gaussian, Poisson-count, Bernoulli and density-estimation maps on
 correlated fields, iterative charted refinement (ICR) fields on a
 deformed chart, the HEALPix sphere and sphere x radius, spherical
 correlated fields on HEALPix and Gauss-Legendre grids, line-of-sight
-tomography of 3-D fields with a NUTS cross-check, and the inference and
-diagnostics around them: the Wiener filter, parametric VI and the
-evidence lower bound.
+tomography of 3-D fields with a NUTS cross-check, radio interferometry
+(a w-stacked NUFFT response), and the inference and diagnostics around
+them: the Wiener filter, parametric VI, the evidence lower bound and the
+first-order and trust-region minimizers.
 
     python3 chip_smoke.py
 
@@ -14,9 +15,9 @@ Phases (one line each, with its seconds):
 
 1. require a CUDA device and print ``nvidia-smi``'s name and power limit;
 2. build the distributor kernels, the refinement kernels, the HEALPix
-   longitude kernels and the ray integral kernels (``nvcc``, one compiler
-   a source, all started together) and the HEALPix core (the host's C++
-   compiler);
+   longitude kernels, the ray integral kernels and the NUFFT window
+   kernels (``nvcc``, one compiler a source, all started together) and the
+   HEALPix core (the host's C++ compiler);
 3. hold each kernel against its plain PyTorch version at the main path's
    shapes in float64 and float32 (gather bit-exact; segment sum within
    1e-12 / 1e-5 of the per-bin sum of |cot|, bitwise reproducible, and
@@ -57,8 +58,12 @@ Phases (one line each, with its seconds):
    field (a dict domain of both fields' latents), for two ICR fields: a
    deformed 2-D chart (20^2) and sphere x radius (192 x 8), and for two
    spherical fields (demo 16's priors): Gauss-Legendre at lmax 16 and
-   HEALPix at lmax 15, nside 8, and for a 16^3 tomography (32 rays x 32
-   points, K11 on the card); on the first case's 32^2 field, the Wiener
+   HEALPix at lmax 15, nside 8, for a 16^3 tomography (32 rays x 32
+   points, K11 on the card), for radio imaging of the exp of a 32^2 field
+   (phase 35's model with 4000 visibilities in 8 w-planes, a complex
+   ``Gaussian``; K7 on the card), and for the first case with its KL stage
+   minimized by ``trust_ncg`` (subproblems of 5 steps) and by ``lbfgs``
+   (both 3 iterations); on the first case's 32^2 field, the Wiener
    filter of its data (demo 5's prior, a 70 % mask, 20 CG steps
    preconditioned by S) with the posterior means within 1e-8 relative, and
    the SLQ evidence (``HostKey`` probes, 8 in lockstep, 30 steps) of the
@@ -218,16 +223,50 @@ Phases (one line each, with its seconds):
     every number finite; prints the seconds, the metric matvecs and the
     peak device memory; then on phase 5's 128^2 posterior the same
     ``HostKey`` probes in lockstep rows and looped: log-determinants
-    within 1e-10 relative.
+    within 1e-10 relative;
+34. the NUFFT window pair (K7: the interpolation from the oversampled
+    spectrum and its adjoint, the spread) against its plain versions at
+    every (grid, points, rows) shape phases 4 and 35 launch (phase 35's
+    eight 2048^2 w-plane grids at 1 row; phase 4's 64^2 grids at 1, 2 and
+    4), in float64 and float32 (within 1e-12 / 1e-5 of the per-output sum
+    of |term|), bitwise reproducible and equal to a CUDA-graph replay, with
+    each kernel's registers and spills, float64 device ms beside the bound
+    (the coordinates, the points' values and the grid once each: the cells
+    the windows reach for the interpolation, every cell for the spread) and
+    the share of it reached, the plain versions' ms and the library routes'
+    (``torch.sparse.mm`` of the interpolation matrix as a complex CSR, and
+    of its transpose);
+35. radio imaging at full width: the exp of phase 8's 1024^2 field (bench
+    priors, unbinned) observed by ``RadioResponse((1024, 1024), uv,
+    pixsize, w, n_w_planes=8)`` (sigma 2, W 8) of 999,999 visibilities:
+    earth-rotation synthesis of a 27-antenna Y-shaped array in the manner
+    of the VLA's A configuration (arms of 21 km, latitude 34 degrees,
+    declination 45, hour angles -4 h to +4 h in 2849 steps), the longest
+    baseline at 0.45 of the grid's Nyquist frequency, complex noise of rms
+    0.1 times the visibilities' rms, the truth a prior draw, the start 0.1
+    times a latent draw, ``BENCH_KWARGS`` with the sample loop: one
+    update, printed with its seconds, samples/s, KL energy, reduced chi^2
+    (2 dof a visibility), peak memory and K7's launches by shape; fails
+    unless both K7 kernels and both distributor kernels launched, every
+    latent is finite and the reduced chi^2 fell;
+36. the new minimizers on phase 5's 128^2 posterior: its KL from the
+    samples' expansion point by ``trust_ncg``, ``lbfgs``, ``vlbfgs``,
+    ``nonlinear_cg``, ``steepest_descent`` and ``minimize_scipy(method=
+    "L-BFGS-B")``, 10 iterations each, each printed with its seconds,
+    energy, ``nit``, ``status`` and gradient evaluations and required to
+    lower the energy and stay finite; then one ``OptimizeVI.update`` with
+    ``residual_map="vmap"`` whose nonlinear sample update is
+    ``trust_ncg``, run by its lockstep form (finite latents, no negative
+    status, the KL stage lowering the energy).
 
 The port places models, latents and data on the card by default; only
 phase 4's CPU run asks for the CPU (``config.update("device", "cpu")``).
-Phases 5 to 16, 23 to 28, 32 and 33 reset the kernels' launch counts just
-before they drive their path and fail unless both distributor kernels
-launched
+Phases 5 to 16, 23 to 28, 32, 33, 35 and 36 reset the kernels' launch
+counts just before they drive their path and fail unless both distributor
+kernels launched
 (phases 11, 12 and 16: on every subgrid's map; phase 23 also both K10
 kernels, phases 26 to 28 both K11 kernels, phase 28 in its geoVI run and
-in its chain); phases 18 to 21 do the same for the two refinement kernels at
+in its chain, phase 35 both K7 kernels); phases 18 to 21 do the same for the two refinement kernels at
 every level of their field.  Phases 5 to 16 print each kernel's calls and the kernels those
 calls launched (for the segment sum two a call where a bin is split, for
 the gather two where a large table is first copied rows-innermost), by
@@ -257,13 +296,16 @@ batched transform a distinct ring length) from a CUDA-graph replay.
 K11's entries are one for each direction, table and number of rows phases
 26 to 28 launched (``launches_by_run`` names the run), with phase 25's
 numbers (a shape phase 25 did not check fails the run): ``plain_ms`` and
-``library_ms`` by CUDA events.
+``library_ms`` by CUDA events.  K7's entries are one for each direction,
+w-plane grid and number of rows phase 35 launched, with phase 34's numbers
+(a shape that phase 34 did not check, in phase 35 or in phase 4's card
+runs, fails the run): ``plain_ms`` and ``library_ms`` by CUDA events.
 
     python3 chip_smoke.py --profile
 
-adds, after phases 5, 6, 8, 12, 15, 19, 23, 24 and 27, one more update of
-each config under ``torch.profiler``, and after phase 33 one more SLQ probe
-at 4096^2: the device's busy share and the costliest kernels.
+adds, after phases 5, 6, 8, 12, 15, 19, 23, 24, 27 and 35, one more update
+of each config under ``torch.profiler``, and after phase 33 one more SLQ
+probe at 4096^2: the device's busy share and the costliest kernels.
 
     python3 chip_smoke.py --witness
 
@@ -616,14 +658,14 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from nifty_tpu_torch.ops import bin_gather as bg
-    from nifty_tpu_torch.ops import healpix, hp_longitude, icr_refine, los_interp
+    from nifty_tpu_torch.ops import healpix, hp_longitude, icr_refine, los_interp, nufft_window
     from nifty_tpu_torch.ops.cuda_build import BUILD_LOG
 
     t0 = time.perf_counter()
-    # one compiler a source, all started together: the four CUDA libraries
+    # one compiler a source, all started together: the five CUDA libraries
     # and the host's HEALPix core
     builds = (bg._kernels, icr_refine._kernels, hp_longitude._kernels, los_interp._kernels,
-              healpix._lib)
+              nufft_window._kernels, healpix._lib)
     with ThreadPoolExecutor(len(builds)) as pool:
         for job in [pool.submit(fn) for fn in builds]:
             job.result()
@@ -748,9 +790,15 @@ def phase_kernels(cases):
 
 
 @phase("4 32^2, 32^2 x Matern 8 (total_N=3), 32^2 Poissonian, a Poissonian + Gaussian sum, "
-       "two ICR fields, two spherical fields and a 16^3 tomography: updates, CPU vs card, "
-       "sample loop and lockstep; the Wiener filter and the SLQ evidence on the 32^2 field")
+       "two ICR fields, two spherical fields, a 16^3 tomography, 32^2 radio imaging and the "
+       "32^2 KL by trust_ncg and lbfgs: updates, CPU vs card, sample loop and lockstep; the "
+       "Wiener filter and the SLQ evidence on the 32^2 field")
 def phase_cpu_vs_card(jt):
+    """Returns K7's counts of the card's runs (its radio case)."""
+    from nifty_tpu_torch.ops import nufft_window as nw
+    from nifty_tpu_torch.solvers.lbfgs import _lbfgs
+    from nifty_tpu_torch.solvers.trust_ncg import _trust_ncg
+
     counts = {}  # each Poisson field's counts, drawn once (on the CPU's rates)
 
     def poisson(prefix):
@@ -788,8 +836,22 @@ def phase_cpu_vs_card(jt):
         # line-of-sight tomography (K11 on the card)
         "16^3 tomography, 32 rays x 32 points": lambda: build_tomography(
             jt, (16, 16, 16), 32, 32, NUTS_SEED, 4)[0],
+        # radio imaging (K7 on the card): phase 35's model at 32^2 with 4000
+        # visibilities of 12 steps of its earth-rotation synthesis
+        "32^2 radio, 4000 visibilities in 8 w-planes": lambda: build_radio(
+            jt, build_field(jt, (32, 32)), (32, 32), 12, jt.HostKey(RADIO_SEED), n_vis=4000)[0],
+        # the first case with its KL stage minimized by the new minimizers
+        "32^2, KL by trust_ncg": (
+            lambda: build_likelihood(jt, build_field(jt, (32, 32)), jt.HostKey(0)),
+            dict(SHORT_KWARGS, kl_kwargs=dict(minimize=_trust_ncg, minimize_kwargs=dict(
+                maxiter=3, subproblem_kwargs=dict(maxiter=5))))),
+        "32^2, KL by lbfgs": (
+            lambda: build_likelihood(jt, build_field(jt, (32, 32)), jt.HostKey(0)),
+            dict(SHORT_KWARGS, kl_kwargs=dict(minimize=_lbfgs, minimize_kwargs=dict(maxiter=3)))),
     }
-    for name, build in likelihoods.items():
+    nw.reset_launch_counts()
+    for name, case in likelihoods.items():
+        build, kwargs = case if isinstance(case, tuple) else (case, SHORT_KWARGS)
         for rmap in ("smap", "vmap"):
             energies = {}
             for dev in ("cpu", "cuda"):
@@ -797,7 +859,7 @@ def phase_cpu_vs_card(jt):
                 try:
                     lh = build()
                     _, state, secs = run_updates(
-                        jt, lh, 1, SHORT_KWARGS, key=jt.HostKey(7), pos_key=jt.HostKey(1),
+                        jt, lh, 1, kwargs, key=jt.HostKey(7), pos_key=jt.HostKey(1),
                         residual_map=rmap,
                     )
                 finally:
@@ -810,7 +872,11 @@ def phase_cpu_vs_card(jt):
             if not rel <= 1e-8:
                 raise AssertionError(
                     f"CPU and card disagree ({name}, {rmap}): relative {rel:.3e} > 1e-8")
+    k7 = k7_counts()
+    print(f"phase 4 K7 calls on the card: {k7_text(k7)}", flush=True)
+    require_k7_launches("32^2 radio on the card", k7)
     wiener_and_evidence_cpu_vs_card(jt)
+    return k7
 
 
 def demo5_operators(dims, device):
@@ -2108,17 +2174,18 @@ def los_library_routes(tab, f, ybar):
     return forward, adjoint
 
 
-def los_ptxas_lines():
-    """Each K11 kernel's registers and spills, from ``-Xptxas -v`` of the
-    build in this process: ``name<type, rows, ...>: N registers, S bytes
+def ptxas_lines(library, kernels):
+    """The registers and spills of each kernel of `library` whose name is
+    one of `kernels` (an alternation), from ``-Xptxas -v`` of the build in
+    this process: ``name<type, template ints ...>: N registers, S bytes
     spill stores, L bytes spill loads``."""
     from nifty_tpu_torch.ops.cuda_build import BUILD_LOG
 
-    if "los_interp" not in BUILD_LOG:
-        return ["(los_interp was not compiled in this process)"]
+    if library not in BUILD_LOG:
+        return [f"({library} was not compiled in this process)"]
     lines, name = [], None
-    for line in BUILD_LOG["los_interp"][1].splitlines():
-        entry = re.search(r"(los_forward|los_adjoint)I([df])((?:L[ib]\d+E)*)E", line)
+    for line in BUILD_LOG[library][1].splitlines():
+        entry = re.search(rf"({kernels})I([df])((?:L[ib]\d+E)*)E", line)
         if entry:
             args = ["double" if entry[2] == "d" else "float"]
             args += re.findall(r"L[ib](\d+)E", entry[3])
@@ -2130,6 +2197,11 @@ def los_ptxas_lines():
             lines.append(f"{name}: {regs} registers, {spills}")
             name = None
     return lines
+
+
+def los_ptxas_lines():
+    """Each K11 kernel's registers and spills (:func:`ptxas_lines`)."""
+    return ptxas_lines("los_interp", "los_forward|los_adjoint")
 
 
 @phase("25 the ray integral kernels (K11) vs plain")
@@ -2246,9 +2318,11 @@ def los_kernel_entries(kres, runs):
 def reset_counts():
     from nifty_tpu_torch.ops import bin_gather as bg
     from nifty_tpu_torch.ops import los_interp as li
+    from nifty_tpu_torch.ops import nufft_window as nw
 
     bg.reset_launch_counts()
     li.reset_launch_counts()
+    nw.reset_launch_counts()
 
 
 @phase("26 demos/1_tomography.py main(): 64^3, 128 rays x 128 points, optimize_kl, 5 iterations")
@@ -2729,6 +2803,368 @@ def phase_evidence(jt, lh4096, samples4096, lh128, samples128, with_profile):
     return c4096, c128
 
 
+K7_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+# phase 35's seeds: the sky (and the 32^2 radio case of phase 4), the noise,
+# the state and the start
+RADIO_SEED = 35
+
+
+def earth_rotation_uvw(n_steps, hours=4.0, lat_deg=34.0, dec_deg=45.0, arm_km=21.0,
+                       wavelength=0.21):
+    """Earth-rotation synthesis of a Y-shaped array in the manner of the
+    VLA's A configuration: 27 antennas, nine an arm on three arms at
+    azimuths 5, 125 and 245 degrees, at radii ``arm_km (n / 9)^1.716``
+    (the VLA's power-law spacing), observing at latitude `lat_deg` a source
+    at declination `dec_deg` over hour angles -`hours` to +`hours` in
+    `n_steps` steps, at `wavelength` metres (21 cm).  Returns (u, v) and w
+    of the 351 baselines at every step, in wavelengths (``(351 n_steps,
+    2)`` and ``(351 n_steps,)``, step-major), by the standard rotation of
+    the baselines' equatorial (X, Y, Z) coordinates."""
+    az = np.deg2rad([5.0, 125.0, 245.0])
+    radii = arm_km * 1e3 * (np.arange(1, 10) / 9.0) ** 1.716
+    east = (radii[None, :] * np.sin(az[:, None])).ravel()
+    north = (radii[None, :] * np.cos(az[:, None])).ravel()
+    lat = np.deg2rad(lat_deg)
+    x, y, z = -np.sin(lat) * north, east, np.cos(lat) * north
+    i, j = np.triu_indices(east.size, 1)
+    bx, by, bz = x[j] - x[i], y[j] - y[i], z[j] - z[i]
+    h = np.deg2rad(15.0 * np.linspace(-hours, hours, n_steps))[:, None]
+    dec = np.deg2rad(dec_deg)
+    u = np.sin(h) * bx + np.cos(h) * by
+    v = -np.sin(dec) * np.cos(h) * bx + np.sin(dec) * np.sin(h) * by + np.cos(dec) * bz
+    w = np.cos(dec) * np.cos(h) * bx - np.cos(dec) * np.sin(h) * by + np.sin(dec) * bz
+    return np.stack([u.ravel(), v.ravel()], axis=-1) / wavelength, w.ravel() / wavelength
+
+
+def build_radio(jt, field, shape, n_steps, key, n_vis=None):
+    """Radio imaging: the sky exp(`field`) observed by a w-stacked
+    `RadioResponse` (8 planes, sigma 2, W 8) of the first `n_vis` of
+    `earth_rotation_uvw(n_steps)`'s visibilities, the pixel size putting the
+    longest baseline at 0.45 of the grid's Nyquist frequency; data from a
+    prior draw (latents drawn on the host from `key`) plus complex white
+    noise of modulus rms 0.1 times the rms of the true visibilities (each
+    part 0.1 rms / sqrt 2), a complex `Gaussian`.  Returns the likelihood,
+    the response and the per-part noise std."""
+    from nifty_tpu_torch.ops.nufft import RadioResponse
+
+    uv, w = earth_rotation_uvw(n_steps)
+    if n_vis is not None:
+        uv, w = uv[:n_vis], w[:n_vis]
+    pixsize = 0.45 * 0.5 / np.max(np.hypot(uv[:, 0], uv[:, 1]))
+    rr = RadioResponse(shape, uv, pixsize=pixsize, w=w, n_w_planes=8)
+    fwd = pointwise(jt, field, lambda s: rr(torch.exp(s)))
+    k_truth, k_noise = jt.split(key, 2)
+    with torch.no_grad():
+        vis = fwd(fwd.init(k_truth))
+        rms = float(torch.sqrt(torch.mean(vis.abs() ** 2)))
+        data = vis + 0.1 * rms * jt.random_like(k_noise, vis)  # E|n|^2 = (0.1 rms)^2
+    std = 0.1 * rms / np.sqrt(2.0)
+    return jt.Gaussian(data, noise_cov_inv=lambda x: x / std ** 2).amend(fwd), rr, std
+
+
+def radio_chi2(lh, pos):
+    """The reduced chi^2 of the normalized residual at `pos`, two degrees of
+    freedom a visibility."""
+    with torch.no_grad():
+        return float(torch.mean(lh.normalized_residual(pos).abs() ** 2)) / 2.0
+
+
+def k7_counts():
+    """K7's calls of the kernel route, by (table key, rows)."""
+    from nifty_tpu_torch.ops import nufft_window as nw
+
+    return {"interp": dict(nw.window_interp.launches_by_shape),
+            "spread": dict(nw.window_spread.launches_by_shape)}
+
+
+def k7_text(counts):
+    return " ".join(f"{kind} " + ", ".join(
+        f"{shape[0][0]}^{len(shape[0])} grid x {shape[1]} points B={b}: {n}"
+        for (shape, b), n in sorted(c.items())) for kind, c in counts.items())
+
+
+def k7_bound_ms(tab, nrows, size, spread):
+    """The least time of one K7 call: the coordinates, the points' values
+    and the grid (the interpolation reads the cells its windows reach; the
+    spread writes every cell) read or written once each over the memory
+    rate, or the window's complex-by-real multiply-adds (4 operations a tap)
+    over the arithmetic rate, whichever is larger; and which of the two
+    that is."""
+    cells = tab.ncells if spread else tab.n_reached
+    byts = nrows * (cells + tab.npts) * 2 * size + tab.npts * tab.d * size
+    ops = 4 * nrows * tab.npts * tab.width ** tab.d
+    by_bytes = 1e3 * byts / PEAK_BYTES_PER_S
+    by_ops = 1e3 * ops / PEAK_OPS_PER_S[torch.float64]
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def k7_library_routes(tab, g, v):
+    """One PyTorch call for each direction on the same inputs, which the
+    port never calls: ``torch.sparse.mm`` of the interpolation matrix (each
+    point's W^d taps and weights) as a complex CSR, and of its transpose."""
+    from nifty_tpu_torch.ops import nufft_window as nw
+
+    cells, weights = nw.window_entries(tab)
+    taps = cells.shape[1]
+    crow = torch.arange(tab.npts + 1, device=g.device) * taps
+    matrix = torch.sparse_csr_tensor(crow, cells.reshape(-1), weights.reshape(-1).to(g.dtype),
+                                     (tab.npts, tab.ncells))
+    transposed = matrix.to_sparse_coo().t().to_sparse_csr()
+    return (lambda: torch.sparse.mm(matrix, g.T).T,
+            lambda: torch.sparse.mm(transposed, v.T).T)
+
+
+@phase("34 the NUFFT window kernels (K7) vs plain")
+def phase_k7_kernels(cases):
+    """`cases`: {label: (RadioResponse, plane, rows)}.  K7's interpolation
+    and spread against their plain versions in float64 and float32 (within
+    1e-12 / 1e-5 of the per-output sum of |term|), bitwise reproducible and
+    bitwise equal when replayed from a CUDA graph; each kernel's registers
+    and spills (printed once); float64 device ms (50 calls in a replayed
+    CUDA graph) beside the bound and the share of it reached, the plain
+    versions' and the library routes' ms (CUDA events around 5 calls).
+    Returns the results by (table key, rows)."""
+    from nifty_tpu_torch.ops import nufft_window as nw
+
+    for line in ptxas_lines("nufft_window", "nufft_interp|nufft_spread"):
+        print(f"K7 build: {line}", flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(34)
+    results = {}
+    for label, (rr, plane, nrows) in cases.items():
+        for dtype in (torch.float64, torch.float32):
+            tab = rr.plane_tables(dtype)[plane]
+            cd = tab.complex_dtype
+            g = torch.randn((nrows, tab.ncells), dtype=cd, device=dev, generator=gen)
+            v = torch.randn((nrows, tab.npts), dtype=cd, device=dev, generator=gen)
+            a1, a2 = nw.window_interp(g, tab), nw.window_interp(g, tab)
+            s1, s2 = nw.window_spread(v, tab), nw.window_spread(v, tab)
+            torch.cuda.synchronize()
+            if not (torch.equal(a1, a2) and torch.equal(s1, s2)):
+                raise AssertionError(f"the K7 kernels do not repeat ({label}, {dtype})")
+            if not (torch.equal(a1, replayed(lambda: nw.window_interp(g, tab)))
+                    and torch.equal(s1, replayed(lambda: nw.window_spread(v, tab)))):
+                raise AssertionError(
+                    f"the K7 kernels differ when replayed from a CUDA graph ({label}, {dtype})")
+            tiny = torch.finfo(dtype).tiny
+            plain = nw.window_interp_plain(g, tab), nw.window_spread_plain(v, tab)
+            scales = nw.sum_abs_terms(tab, g=g), nw.sum_abs_terms(tab, v=v)
+            rels = [float(((got - want).abs() / scale.clamp_min(tiny)).max())
+                    for got, want, scale in zip((a1, s1), plain, scales)]
+            if max(rels) > K7_RTOL[dtype]:
+                raise AssertionError(f"the K7 kernels are off their plain versions by {rels} "
+                                     f"of the per-output sum of |term| ({label}, {dtype})")
+            if dtype != torch.float64:
+                continue
+            lib_interp, lib_spread = k7_library_routes(tab, g, v)
+            for got, want, scale in zip((lib_interp(), lib_spread()), plain, scales):
+                if float(((got - want).abs() / scale.clamp_min(tiny)).max()) > 1e-10:
+                    raise AssertionError(f"a library route disagrees with the plain version "
+                                         f"({label})")
+            r = dict(interp_err=float((a1 - plain[0]).abs().max()),
+                     spread_err=float((s1 - plain[1]).abs().max()),
+                     interp_rel=rels[0], spread_rel=rels[1])
+            r["interp_device_ms"] = device_ms(lambda: nw.window_interp(g, tab))
+            r["spread_device_ms"] = device_ms(lambda: nw.window_spread(v, tab))
+            r["interp_plain_ms"] = cuda_ms(lambda: nw.window_interp_plain(g, tab), n=5)
+            r["spread_plain_ms"] = cuda_ms(lambda: nw.window_spread_plain(v, tab), n=5)
+            r["interp_library_ms"] = cuda_ms(lib_interp, n=5)
+            r["spread_library_ms"] = cuda_ms(lib_spread, n=5)
+            for kind in ("interp", "spread"):
+                r[f"{kind}_bound_ms"], r[f"{kind}_bound_by"] = k7_bound_ms(
+                    tab, nrows, 8, kind == "spread")
+            results[tab.key, nrows] = r
+            print(
+                f"{label}: {tab.npts} points on the {'x'.join(map(str, tab.os_shape))} grid "
+                f"({tab.n_reached} cells reached), W {tab.width}, B={nrows} | float64 ms: interp "
+                f"{r['interp_device_ms']:.5f} "
+                f"({100 * r['interp_bound_ms'] / r['interp_device_ms']:.1f} % of its bound "
+                f"{r['interp_bound_ms']:.5f}, {r['interp_bound_by']}; plain "
+                f"{r['interp_plain_ms']:.4f}, torch.sparse.mm {r['interp_library_ms']:.4f}) | "
+                f"spread {r['spread_device_ms']:.5f} "
+                f"({100 * r['spread_bound_ms'] / r['spread_device_ms']:.1f} % of "
+                f"{r['spread_bound_ms']:.5f}, {r['spread_bound_by']}; plain (index_add_) "
+                f"{r['spread_plain_ms']:.4f}, torch.sparse.mm of the transpose "
+                f"{r['spread_library_ms']:.4f}) | rel err of sum|term| {rels[0]:.2e} / "
+                f"{rels[1]:.2e}, max abs err {r['interp_err']:.3e} / {r['spread_err']:.3e}",
+                flush=True,
+            )
+    return results
+
+
+def require_k7_launches(label, counts):
+    if min(sum(c.values()) for c in counts.values()) <= 0:
+        raise AssertionError(f"{label}: a K7 kernel never launched: {counts}")
+
+
+@phase("35 radio imaging at full width: exp of a 1024^2 field, 1.0e6 visibilities in 8 "
+       "w-planes, 1 update")
+def phase_radio(jt, lh, rr, field, with_profile):
+    """One `OptimizeVI.update` of the 1024^2 radio model (`BENCH_KWARGS`, the
+    sample loop for both stages) from 0.1 times a latent draw.  Prints the
+    seconds, samples/s, the KL energy, the reduced chi^2 at the start and
+    after the update (at the latent mean and averaged over the samples), the
+    peak device memory and K7's launches by shape.  The checks: both K7
+    kernels and both distributor kernels launched, every latent finite, the
+    reduced chi^2 below its start.  Returns the distributor's and K7's
+    counts."""
+    from nifty_tpu_torch.ops import bin_gather as bg
+
+    opt = jt.OptimizeVI(lh, n_total_iterations=100, residual_map="smap", kl_map="smap")
+    k_state, k_pos = jt.HostKey(RADIO_SEED + 1).split(2)
+    state = opt.init_state(k_state, **BENCH_KWARGS)
+    samples = jt.Samples(pos={k: 0.1 * v for k, v in jt.random_like(k_pos, lh.domain).items()},
+                         samples=None, keys=None)
+    chi2_start = radio_chi2(lh, samples.pos)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples, state = opt.update(samples, state)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts, k7 = launch_counts(bg), k7_counts()
+    chi2_end = radio_chi2(lh, samples.pos)
+    chi2_samples = float(np.mean([radio_chi2(lh, s) for s in samples]))
+    energy = float(state.minimization_state.fun)
+    planes = rr.plane_tables(torch.float64)
+    print(f"radio 1024^2 ({rr.target.shape[0]} visibilities, {len(planes)} w-planes of "
+          f"{[t.npts for t in planes]} points on {planes[0].os_shape} grids): "
+          f"{seconds:.3f} s/update "
+          f"| geoVI samples/s {2 * N_SAMPLES / seconds:.4f} | KL energy {energy!r} | reduced "
+          f"chi^2 {chi2_start:.4f} at the start, {chi2_end:.4f} at the latent mean after, "
+          f"{chi2_samples:.4f} over the samples | peak mem "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | K7 calls: {k7_text(k7)} | "
+          f"distributor calls by rows: {rows_text(counts)} | last KL Newton steps "
+          f"{int(state.minimization_state.nit)}, geoVI steps per sample "
+          f"{state.sample_state.nit.tolist()}", flush=True)
+    finite = all(bool(torch.isfinite(leaf).all()) for s in samples for leaf in s.values())
+    if not finite:
+        raise AssertionError("radio 1024^2: a latent is not finite")
+    if not chi2_end < chi2_start:
+        raise AssertionError(f"radio 1024^2: reduced chi^2 {chi2_end} not below its start "
+                             f"{chi2_start}")
+    require_k7_launches("radio 1024^2", k7)
+    require_launches("radio 1024^2", counts, (field.dist,))
+    if with_profile:
+        profile_window("radio 1024^2", lambda: kl_text(opt.update(samples, state)))
+    return counts, k7
+
+
+@phase("36 the new minimizers on the card: the 128^2 posterior's KL, 10 iterations each, and "
+       "one lockstep update with trust-region Newton-CG")
+def phase_solvers(jt, lh, samples):
+    """Phase 5's posterior (the 128^2 headline config and its 8 samples):
+    its KL minimized from the same start (the samples' expansion point) by
+    each of `trust_ncg` (its subproblem at most 30 CG-Steihaug steps),
+    `lbfgs`, `vlbfgs`, `nonlinear_cg`, `steepest_descent` and
+    `minimize_scipy(method="L-BFGS-B")`, 10 iterations each; then one
+    `OptimizeVI.update` (`BENCH_KWARGS`, `residual_map="vmap"`) whose
+    nonlinear sample update is trust-region Newton-CG (5 iterations of at
+    most 20 CG-Steihaug steps), run by its lockstep form.  Prints each run's
+    seconds, energy, `nit`, `status` and gradient evaluations.  The checks:
+    each minimizer lowers the KL energy and stays finite; the update's
+    latents are finite, each sample's trust-region status is not negative,
+    and its KL stage lowers the energy from where it starts.  Returns the
+    distributor's counts of the update."""
+    from nifty_tpu_torch.ops import bin_gather as bg
+    from nifty_tpu_torch.solvers import minimize_scipy
+    from nifty_tpu_torch.solvers.descent import _nonlinear_cg, _steepest_descent
+    from nifty_tpu_torch.solvers.lbfgs import _lbfgs
+    from nifty_tpu_torch.solvers.newton_cg import _newton_cg
+    from nifty_tpu_torch.solvers.trust_ncg import _trust_ncg
+    from nifty_tpu_torch.solvers.vlbfgs import _vlbfgs
+
+    opt = jt.OptimizeVI(lh, n_total_iterations=100, residual_map="vmap")
+    e0 = float(opt.kl_value_and_grad(lh, samples.pos, primals_samples=samples)[0])
+    print(f"128^2 posterior: KL energy {e0!r} at the start", flush=True)
+    runs = (("trust_ncg", _trust_ncg, dict(maxiter=10, subproblem_kwargs=dict(maxiter=30))),
+            ("lbfgs", _lbfgs, dict(maxiter=10)), ("vlbfgs", _vlbfgs, dict(maxiter=10)),
+            ("nonlinear_cg", _nonlinear_cg, dict(maxiter=10)),
+            ("steepest_descent", _steepest_descent, dict(maxiter=10)),
+            ("minimize_scipy L-BFGS-B", minimize_scipy, dict(method="L-BFGS-B", maxiter=10)))
+    for name, minimize, kw in runs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = opt.kl_minimize(samples, minimize=minimize, minimize_kwargs=kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        energy = float(res.fun)
+        print(f"128^2 KL by {name}: {secs:.3f} s | energy {energy!r} ({energy - e0:+.6e}) | nit "
+              f"{int(res.nit)} | status {int(res.status)} | gradient evaluations "
+              f"{int(res.njev)}" + (f" | Hessian products {int(res.nhev)}"
+                                    if res.nhev is not None else ""), flush=True)
+        finite = np.isfinite(energy) and all(bool(torch.isfinite(x).all())
+                                             for x in res.x.values())
+        if not (finite and energy < e0):
+            raise AssertionError(f"128^2 KL by {name}: energy {energy} not finite and below "
+                                 f"the start's {e0}")
+    starts = []
+
+    def newton_cg_from_start(fun=None, x0=None, **kw):
+        starts.append(float(kw["fun_and_grad"](x0)[0]))
+        return _newton_cg(fun, x0, **kw)
+
+    kwargs = dict(BENCH_KWARGS, nonlinearly_update_kwargs=dict(
+        minimize=_trust_ncg, minimize_kwargs=dict(maxiter=5, subproblem_kwargs=dict(maxiter=20))),
+                  kl_kwargs=dict(BENCH_KWARGS["kl_kwargs"], minimize=newton_cg_from_start))
+    state = opt.init_state(jt.HostKey(36), **kwargs)
+    bg.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, state = opt.update(jt.Samples(pos=samples.pos, samples=None, keys=None), state)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts(bg)
+    st = state.sample_state
+    energy = float(state.minimization_state.fun)
+    print(f"128^2 update, the nonlinear sample update by trust_ncg in lockstep: {secs:.3f} s | "
+          f"per sample nit {st.nit.tolist()}, status {st.status.tolist()}, gradient evaluations "
+          f"{st.njev.tolist()}, Hessian products {st.nhev.tolist()} | KL energy {energy!r} from "
+          f"{starts[0]!r} | distributor calls by rows: {rows_text(counts)}", flush=True)
+    finite = all(bool(torch.isfinite(leaf).all()) for s in new for leaf in s.values())
+    if not (finite and bool((st.status >= 0).all()) and energy < starts[0]):
+        raise AssertionError(f"128^2 lockstep trust_ncg update: finite {finite}, statuses "
+                             f"{st.status.tolist()}, KL energy {energy} from {starts[0]}")
+    require_launches("128^2 lockstep trust_ncg update", counts)
+    return counts
+
+
+def k7_kernel_entries(kres, runs, checked):
+    """The `kernels` line's entries of K7: one for each direction, table and
+    number of rows that the runs ({run: K7 counts}) launched, with phase
+    34's numbers; fails on a shape that phase 34 did not check, among these
+    runs' and the `checked` runs' (phase 4's card runs)."""
+    entries = []
+    for kind, name, replaces in (("interp", "window_interp", ":204-247"),
+                                 ("spread", "window_spread", ":251-265")):
+        by_run = {run: c[kind] for run, c in runs.items()}
+        for shape in set().union(*(c[kind] for c in checked.values())):
+            if shape not in kres:
+                raise AssertionError(f"{name} launched at {shape}, a shape that phase 34 did not "
+                                     f"hold against the plain version")
+        for shape in sorted(set().union(*by_run.values())):
+            if shape not in kres:
+                raise AssertionError(f"the main path launched {name} at {shape}, a shape that "
+                                     f"phase 34 did not hold against the plain version")
+            r = kres[shape]
+            (os_shape, npts, width), nrows = shape
+            launches = next(c[shape] for c in by_run.values() if c.get(shape))
+            entries.append(dict(
+                name=f"{name} (K7, {'x'.join(map(str, os_shape))} grid x {npts} points, W "
+                     f"{width}, B={nrows}, float64)",
+                route="cuda", source="nifty_tpu_torch/csrc/nufft_window.cu",
+                replaces=f"nifty_tpu/ops/nufft.py{replaces} (XLA in the JAX package, not Pallas)",
+                launches=launches, kernel_launches=launches,
+                launches_by_run={run: c.get(shape, 0) for run, c in by_run.items()},
+                max_abs_err=r[f"{kind}_err"], ms=r[f"{kind}_device_ms"],
+                plain_ms=r[f"{kind}_plain_ms"], bound_ms=r[f"{kind}_bound_ms"],
+                bound_by=r[f"{kind}_bound_by"], library_ms=r[f"{kind}_library_ms"],
+            ))
+    return entries
+
+
 def profile_update(jt, label, lh, top=12, **maps):
     """One warm-up update from bench.py's start, then one under
     :func:`profile_window`."""
@@ -2810,7 +3246,7 @@ def kernel_entries(kres, paths, src):
 
 
 def main(argv):
-    """``--profile``: after phases 5, 6, 8, 12, 15, 19, 23, 24 and 27, profile
+    """``--profile``: after phases 5, 6, 8, 12, 15, 19, 23, 24, 27 and 35, profile
     one more update of each config, and after phase 33 one more SLQ probe
     at 4096^2 (device busy share and the costliest kernels).  ``--witness``:
     run phase 23's fit once more with K10 replaced
@@ -2910,7 +3346,7 @@ def main(argv):
         **{f"64^2 unbinned B={rows}": (map64sq, rows) for rows in (1, 2, 4)},
     })
 
-    phase_cpu_vs_card(jt)
+    k7_cpu_vs_card = phase_cpu_vs_card(jt)
 
     lh128 = build_likelihood(jt, cf128, 0)
     # bench.py's maps: 128^2 "vmap" (lockstep residual stages, the KL stage
@@ -3036,7 +3472,30 @@ def main(argv):
     phase_demo15(jt)
     c_demo11, demo11_map = phase_demo11(jt)
     c_ev4096, c_ev128 = phase_evidence(jt, lh4096, samples4096, lh128, samples128, with_profile)
-    del lh4096, samples4096, lh128, samples128
+    del lh4096, samples4096
+    torch.cuda.empty_cache()
+
+    # radio imaging: phase 35's model (the 1024^2 field's sky, 1.0e6
+    # visibilities of 351 baselines x 2849 steps, 8 w-planes on 2048^2
+    # grids) and phase 4's 32^2 one, rebuilt on the card; K7 at every (plane,
+    # rows) shape phases 4 and 35 launch (the sample loop one row; phase 4's
+    # lockstep stages 2 and 4), then the cell and the new minimizers
+    t0 = time.perf_counter()
+    lh_radio, rr_radio, _ = build_radio(jt, cf1024, (1024, 1024), 2849, jt.HostKey(RADIO_SEED))
+    _, rr32, _ = build_radio(jt, build_field(jt, (32, 32)), (32, 32), 12,
+                             jt.HostKey(RADIO_SEED), n_vis=4000)
+    print(f"radio set-up (uv synthesis, host window tables, data) "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    kres_k7 = phase_k7_kernels({
+        **{f"1024^2 radio plane {i} B=1": (rr_radio, p, 1)
+           for p, i in enumerate(rr_radio.planes)},
+        **{f"32^2 radio plane {i} B={rows}": (rr32, p, rows)
+           for p, i in enumerate(rr32.planes) for rows in (1, 2, 4)}})
+    c_radio, k7_radio = phase_radio(jt, lh_radio, rr_radio, cf1024, with_profile)
+    del lh_radio, rr_radio, rr32
+    torch.cuda.empty_cache()
+    c_solvers = phase_solvers(jt, lh128, samples128)
+    del lh128, samples128
 
     src = "nifty_tpu_torch/csrc/bin_gather.cu"
     tpu = "nifty_tpu/ops/pallas_gather.py"
@@ -3054,8 +3513,9 @@ def main(argv):
         ("128^2 unbinned", cf128.dist, *k3k4,
          {"fixed": c128, "adaptive": c_adaptive, "optimize_kl": c_loop,
           "poisson_counts": c_poisson, "bernoulli_map": c_bernoulli_map,
-          "bernoulli_geovi": c_bernoulli_vi, "evidence_128": c_ev128}),
-        ("1024^2 unbinned quarter", cf1024.dist, *k5, {"fixed": c1024, "poisson": c1024p}),
+          "bernoulli_geovi": c_bernoulli_vi, "evidence_128": c_ev128, "solvers_128": c_solvers}),
+        ("1024^2 unbinned quarter", cf1024.dist, *k5, {"fixed": c1024, "poisson": c1024p,
+                                                        "radio_1024": c_radio}),
         ("4096^2 unbinned quarter", cf4096u.dist, *k5, {"fixed": c4096u}),
         ("16 (1-D)", map16, *k1k2, {"multifrequency": c_mf}),
         ("64 (1-D)", map64, *k1k2, {"multifrequency": c_mf, "space_x_frequency": c512}),
@@ -3075,7 +3535,9 @@ def main(argv):
                       + icr_kernel_entries(kres_icr, icr_paths)
                       + hp_kernel_entries(kres_hp, {"demo16": k10_demo16}, hp_rings, 512, 256)
                       + los_kernel_entries(kres_los, {"demo1": k11_demo1, "tomography_256": k11_256,
-                                                      "nuts_geovi": k11_geo16, "nuts": k11_nuts})}))
+                                                      "nuts_geovi": k11_geo16, "nuts": k11_nuts})
+                      + k7_kernel_entries(kres_k7, {"radio_1024": k7_radio},
+                                          {"cpu_vs_card_32": k7_cpu_vs_card})}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -1,10 +1,11 @@
 """PyTorch port of nifty_tpu: geoVI on correlated fields (Fourier subgrids
 and the sphere), iterative charted refinement, line-of-sight tomography,
 structured kernel interpolation, HMC/NUTS, Wiener filtering, parametric
-VI, the evidence lower bound (ARPACK or stochastic Lanczos quadrature)
-and dynamics priors, with hand-written CUDA
-kernels for the power distributor, the refinement step, the HEALPix
-longitude stage and the ray integral.
+VI, the evidence lower bound (ARPACK or stochastic Lanczos quadrature),
+dynamics priors, radio interferometry (the NUFFT and a w-stacked
+response) and the first-order and trust-region minimizers, with
+hand-written CUDA kernels for the power distributor, the refinement step,
+the HEALPix longitude stage, the ray integral and the NUFFT window.
 
 The package mirrors ``nifty_tpu``'s layout and public names and imports
 ``torch``, ``numpy`` and ``scipy`` only, never ``jax``.
@@ -124,8 +125,20 @@ from .prior import (
     UniformPrior,
 )
 from .sample_io import load_samples, save_samples
-from .solvers import minimize, static_cg, static_cg_batched
-from .solvers.newton_cg import OptimizeResults
+from .solvers.cg import cg
+from .solvers import (
+    OptimizeResults,
+    lbfgs,
+    minimize,
+    minimize_scipy,
+    newton_cg,
+    nonlinear_cg,
+    static_cg,
+    static_cg_batched,
+    steepest_descent,
+    trust_ncg,
+    vlbfgs,
+)
 from .stats import (
     gamma_prior,
     interpolator,

@@ -17,7 +17,7 @@ import torch
 
 from .likelihood import Likelihood, vjp
 from .solvers import cg as conjugate_gradient
-from .solvers.newton_cg import OptimizeResults, _newton_cg, _newton_cg_batched
+from .solvers.newton_cg import OptimizeResults, _newton_cg, _newton_cg_batched, batched_form
 from .tree import (
     broadcast_rows,
     fold_in,
@@ -311,8 +311,12 @@ def nonlinearly_update_residuals(
     lockstep: row ``b`` is curved with ``metric_sample_keys[b]`` and
     ``metric_sample_signs[b]``.  Every sample has its own ``x``; the anchor
     is shared (one equal row per sample, linearized once).  The result's
-    ``nit``, ``status`` and ``fun`` are (B,) tensors.
+    ``nit``, ``status`` and ``fun`` are (B,) tensors.  ``minimize`` may be a
+    single form (``_newton_cg``, ``_trust_ncg``, ``_lbfgs``, ...,
+    ``minimize``, or a ``functools.partial`` of one): its lockstep form
+    runs (:func:`~nifty_tpu_torch.solvers.newton_cg.batched_form`).
     """
+    minimize = batched_form(minimize)
     minimize_kwargs = dict(minimize_kwargs or {})
     keys = list(metric_sample_keys)
     nrows = len(keys)

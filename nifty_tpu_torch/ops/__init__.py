@@ -10,5 +10,7 @@ from .harmonic import hartley
 from .healpix_sht import HEALPixSHT
 from .hp_longitude import HpLongitude, HpLongitudeAdjoint, HPRings
 from .los_interp import LosIntegrate, LosIntegrateAdjoint, LosTable
+from .nufft import RadioResponse, nufft1, nufft2, nufft_window_aux
+from .nufft_window import WindowInterp, WindowSpread, WindowTable
 from .icr_refine import IcrRefine, IcrRefineTranspose, RefineLevel, refine_level
 from .sht import SphericalHarmonicTransform, SphericalHarmonicTransformOnTheFly

@@ -352,15 +352,81 @@ def _newton_cg_batched(
     )
 
 
-def minimize(fun: Optional[Callable], x0, method: str = "newton-cg", *, args=(),
-             tol=None, options: Optional[dict] = None, **kwargs) -> OptimizeResults:
-    """Dispatch to a minimizer by name; only Newton-CG is ported."""
+def _method(method: str):
+    """The single form of the minimizer named ``method`` and the options it
+    takes apart from ``minimize``'s."""
+    method = method.lower()
+    if method in ("newton-cg", "newtoncg", "ncg"):
+        return _newton_cg, {}
+    if method in ("trust-ncg", "trustncg"):
+        from .trust_ncg import _trust_ncg
+
+        return _trust_ncg, {}
+    if method in ("l-bfgs", "lbfgs", "l-bfgs-b"):
+        from .lbfgs import _lbfgs
+
+        return _lbfgs, {}
+    if method in ("vl-bfgs", "vlbfgs"):
+        from .vlbfgs import _vlbfgs
+
+        return _vlbfgs, {}
+    if method in ("nonlinear-cg", "nonlinearcg", "nlcg"):
+        from .descent import _nonlinear_cg
+
+        return _nonlinear_cg, {}
+    if method in ("steepest-descent", "steepestdescent", "sd"):
+        from .descent import _steepest_descent
+
+        return _steepest_descent, {}
+    if method.startswith("scipy:"):
+        from .scipy_bridge import minimize_scipy
+
+        return minimize_scipy, {"method": method.split(":", 1)[1]}
+    raise ValueError(f"unknown method {method!r}")
+
+
+def _dispatch(fun, x0, method, args, tol, options, kwargs, batched: bool):
     if args:
         fun = partial(fun, *args)
     options = dict(options or {})
     options.update(kwargs)
-    if tol is not None:
+    solver, extra = _method(method)
+    if extra:  # the scipy bridge: `tol` is scipy's own
+        options.pop("xtol", None)
+        options.update(extra, tol=tol)
+    elif tol is not None:
         options.setdefault("xtol", tol)
-    if method.lower() in ("newton-cg", "newtoncg", "ncg"):
-        return _newton_cg(fun, x0, **options)
-    raise ValueError(f"unknown or not yet ported method {method!r}")
+    if batched:
+        solver = solver.batched
+    return solver(fun, x0, **options)
+
+
+def minimize(fun: Optional[Callable], x0, method: str = "newton-cg", *, args=(),
+             tol=None, options: Optional[dict] = None, **kwargs) -> OptimizeResults:
+    """Dispatch to a minimizer by name: ``"newton-cg"``, ``"trust-ncg"``,
+    ``"l-bfgs"``, ``"vl-bfgs"``, ``"nonlinear-cg"``, ``"steepest-descent"``
+    (and their aliases) or ``"scipy:<method>"`` (the host-side scipy
+    bridge, e.g. ``"scipy:L-BFGS-B"``)."""
+    return _dispatch(fun, x0, method, args, tol, options, kwargs, batched=False)
+
+
+def minimize_batched(fun: Optional[Callable], x0, method: str = "newton-cg", *, args=(),
+                     tol=None, options: Optional[dict] = None, **kwargs) -> OptimizeResults:
+    """:func:`minimize` of a batch of problems in lockstep (the scipy bridge
+    loops over the rows): the named minimizer's batched form."""
+    return _dispatch(fun, x0, method, args, tol, options, kwargs, batched=True)
+
+
+def batched_form(minimize_fn: Callable) -> Callable:
+    """The lockstep form of a minimizer passed as ``minimize=``: its
+    ``batched`` attribute (``_newton_cg``, ``_trust_ncg``, ``_lbfgs``, ...,
+    :func:`minimize`), also through a ``functools.partial``; a minimizer
+    without one is taken to be batched already."""
+    if isinstance(minimize_fn, partial):
+        inner = batched_form(minimize_fn.func)
+        return partial(inner, *minimize_fn.args, **minimize_fn.keywords)
+    return getattr(minimize_fn, "batched", minimize_fn)
+
+
+_newton_cg.batched = _newton_cg_batched
+minimize.batched = minimize_batched

@@ -1,6 +1,8 @@
-"""The distributor's CUDA kernels against their plain PyTorch versions, on
-the card.  Every test here needs an NVIDIA card and skips without one; the
-file imports no jax, so it runs on a machine that has only PyTorch:
+"""The port's CUDA kernels (the distributor, the refinement step, the
+HEALPix longitude stage, the ray integral and the NUFFT window) against
+their plain PyTorch versions, on the card.  Every test here needs an
+NVIDIA card and skips without one; the file imports no jax, so it runs on
+a machine that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
@@ -832,3 +834,110 @@ def test_los_wrappers_raise_on_bad_inputs(cuda):
     with pytest.raises(ValueError, match="shape"):
         li.los_integrate_adjoint(torch.ones((1, tab.nrays + 1), dtype=torch.float64,
                                             device=cuda), tab)
+
+
+# -- K7: the NUFFT window pair (ops/nufft_window.py) ------------------------
+
+
+def _window_table(case, dtype):
+    """A point set's window tables on the host: 1-, 2- and 3-D grids at W =
+    8 and 16, windows wider than a small grid (wrapping more than once), a
+    dense cluster (hundreds of points a cell), and the track of one
+    baseline across a 2048^2 grid (phase 35's shape, mostly empty blocks)."""
+    from nifty_tpu_torch.ops import nufft_window as nw
+
+    rng = np.random.default_rng(len(case))
+    shape, npts, width, spread = {"1d": ((64,), 300, 8, 0.5), "1d_w16": ((50,), 200, 16, 0.5),
+                                  "2d": ((32, 24), 500, 8, 0.5), "2d_w16": ((24, 32), 300, 16, 0.5),
+                                  "3d": ((10, 12, 14), 400, 8, 0.5), "wrap": ((4, 4), 100, 16, 0.5),
+                                  "cluster": ((64, 64), 3000, 8, 0.01),
+                                  "track": ((1024, 1024), 2849, 8, 0.0)}[case]
+    if case == "track":
+        t = np.linspace(-1.0, 1.0, npts)
+        coords = np.stack([300.0 * np.sin(t), 180.0 * np.cos(t)], axis=-1)
+    else:
+        coords = rng.uniform(-spread, spread, size=(npts, len(shape))) * np.array(shape)
+    return nw.WindowTable(shape, coords, width=width, dtype=dtype)
+
+
+K7_CASES = ["1d", "1d_w16", "2d", "2d_w16", "3d", "wrap", "cluster", "track"]
+
+
+@pytest.mark.parametrize("case", K7_CASES)
+@pytest.mark.parametrize("nrows", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_window_kernels_match_plain_versions(cuda, case, nrows, dtype):
+    """K7's interpolation and spread against their plain versions within
+    1e-12 / 1e-5 of the per-output sum of |term|, bitwise repeats, a row
+    alone equal to its row of a batch, and adjoint to each other
+    (<W g, v> = <g, W^H v> within 1e-12 / 1e-5 of |<W g, v>|)."""
+    from nifty_tpu_torch.ops import nufft_window as nw
+
+    tab = _window_table(case, dtype).to(cuda)
+    cd = tab.complex_dtype
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    g = torch.randn((nrows, tab.ncells), dtype=cd, device=cuda, generator=gen)
+    v = torch.randn((nrows, tab.npts), dtype=cd, device=cuda, generator=gen)
+    before = (nw.window_interp.launches, nw.window_spread.launches,
+              nw.window_spread.launches_by_shape[tab.key, nrows])
+    a1, a2 = nw.window_interp(g, tab), nw.window_interp(g, tab)
+    s1, s2 = nw.window_spread(v, tab), nw.window_spread(v, tab)
+    torch.cuda.synchronize()
+    assert (nw.window_interp.launches, nw.window_spread.launches,
+            nw.window_spread.launches_by_shape[tab.key, nrows]) == (
+        before[0] + 2, before[1] + 2, before[2] + 2)
+    assert torch.equal(a1, a2) and torch.equal(s1, s2)
+    tiny = torch.finfo(dtype).tiny
+    for got, want, scale in ((a1, nw.window_interp_plain(g, tab), nw.sum_abs_terms(tab, g=g)),
+                             (s1, nw.window_spread_plain(v, tab), nw.sum_abs_terms(tab, v=v))):
+        assert bool(torch.all((got - want).abs() <= RTOL[dtype] * scale.clamp_min(tiny)))
+    assert torch.equal(nw.window_interp(g[-1:].contiguous(), tab), a1[-1:])
+    assert torch.equal(nw.window_spread(v[-1:].contiguous(), tab), s1[-1:])
+    lhs = torch.vdot(a1.flatten(), v.flatten())
+    rhs = torch.vdot(g.flatten(), s1.flatten())
+    assert float((lhs - rhs).abs() / lhs.abs()) < RTOL[dtype]
+
+
+def test_radio_response_on_the_card_matches_the_cpu(cuda):
+    """A w-stacked RadioResponse on images (2, 32, 32): forward, jvp, vjp and
+    the recorded linearization run K7 on the card and agree with the plain
+    versions on the CPU (1e-12)."""
+    from nifty_tpu_torch.ops import nufft_window as nw
+    from nifty_tpu_torch.ops.nufft import RadioResponse
+
+    rng = np.random.default_rng(7)
+    uv = rng.uniform(-1.0, 1.0, size=(800, 2)) * 2e4
+    w = 0.5 * uv[:, 0] + rng.normal(scale=1e3, size=800)
+    kw = dict(pixsize=0.2 / 2e4, w=w, n_w_planes=4)
+    x0, t0 = rng.standard_normal((2, 32, 32)), rng.standard_normal((2, 32, 32))
+    c0 = rng.standard_normal((2, 800)) + 1j * rng.standard_normal((2, 800))
+
+    def run(device):
+        rr = RadioResponse((32, 32), uv, device=device, **kw)
+        x, t, c = (torch.from_numpy(a).to(device) for a in (x0, t0, c0))
+        y, tan = torch.func.jvp(rr, (x,), (t,))
+        _, vjp_fn = torch.func.vjp(rr, x)
+        _, jvp_lin, vjp_lin = linearize(rr, x)
+        return [r.cpu() for r in (y, tan, jvp_lin(t), vjp_fn(c)[0], vjp_lin(c))]
+
+    nw.reset_launch_counts()
+    on_card, on_cpu = run(cuda), run(torch.device("cpu"))
+    assert nw.window_interp.launches > 0 and nw.window_spread.launches > 0
+    for got, want in zip(on_card, on_cpu):
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12 * float(want.abs().max()))
+
+
+def test_window_wrappers_raise_on_bad_inputs(cuda):
+    from nifty_tpu_torch.ops import nufft_window as nw
+
+    tab = _window_table("2d", torch.float64)  # stays on the CPU
+    g = torch.ones((1, tab.ncells), dtype=torch.complex128, device=cuda)
+    with pytest.raises(ValueError, match="on cpu"):
+        nw.window_interp(g, tab)
+    tab = tab.to(cuda)
+    with pytest.raises(TypeError):
+        nw.window_interp(g.to(torch.complex64), tab)
+    with pytest.raises(ValueError, match="shape"):
+        nw.window_spread(torch.ones((1, tab.npts + 1), dtype=torch.complex128, device=cuda), tab)
+    with pytest.raises(ValueError, match="contiguous"):
+        nw.window_interp(torch.ones((tab.ncells, 2), dtype=torch.complex128, device=cuda).T, tab)

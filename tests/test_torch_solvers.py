@@ -176,8 +176,10 @@ def test_newton_cg_quadratic_and_minimize_dispatch(det_mode):
     rm = minimize(None, torch.from_numpy(x0), method="newton-cg", fun_and_grad=fg,
                   hessp=lambda x, t: at @ t, xtol=1e-10, maxiter=10)
     _close(rm.x, rj.x)
+    # every method of the JAX package's dispatches
+    # (test_torch_first_order_solvers.py); an unknown name raises
     with pytest.raises(ValueError):
-        minimize(None, torch.from_numpy(x0), method="lbfgs", fun_and_grad=fg)
+        minimize(None, torch.from_numpy(x0), method="simplex", fun_and_grad=fg)
 
 
 # -- the lockstep batched solvers against the JAX solvers under vmap --------
