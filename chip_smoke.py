@@ -235,7 +235,14 @@ Phases (one line each, with its seconds):
     the windows reach for the interpolation, every cell for the spread) and
     the share of it reached, the plain versions' ms and the library routes'
     (``torch.sparse.mm`` of the interpolation matrix as a complex CSR, and
-    of its transpose);
+    of its transpose); the factor table (each point's axis factors in CSR
+    order, built once a table) within 4 ulp of its plain version, with its
+    build's ms; each plane's sum blocks, fill chunks, heaviest block and
+    longest lane walk; and the bits: at every shape and type both kernels'
+    outputs on inputs numpy draws from a seed of the shape's label, hashed
+    (SHA-256), equal to the digests pinned from the first K7 kernels
+    (commit c550464), and every cell that no window reaches +0 with its
+    sign bit clear;
 35. radio imaging at full width: the exp of phase 8's 1024^2 field (bench
     priors, unbinned) observed by ``RadioResponse((1024, 1024), uv,
     pixsize, w, n_w_planes=8)`` (sigma 2, W 8) of 999,999 visibilities:
@@ -244,11 +251,13 @@ Phases (one line each, with its seconds):
     declination 45, hour angles -4 h to +4 h in 2849 steps), the longest
     baseline at 0.45 of the grid's Nyquist frequency, complex noise of rms
     0.1 times the visibilities' rms, the truth a prior draw, the start 0.1
-    times a latent draw, ``BENCH_KWARGS`` with the sample loop: one
-    update, printed with its seconds, samples/s, KL energy, reduced chi^2
-    (2 dof a visibility), peak memory and K7's launches by shape; fails
-    unless both K7 kernels and both distributor kernels launched, every
-    latent is finite and the reduced chi^2 fell;
+    times a latent draw, ``BENCH_KWARGS`` with the sample loop: the model
+    built (its window tables, then its factor tables at the data draw) and
+    one update, printed with its seconds, samples/s, KL energy, reduced
+    chi^2 (2 dof a visibility), peak memory and K7's launches by shape;
+    fails unless the K7 kernels (the factor tables, the interpolation, the
+    spread) and both distributor kernels launched, every latent is finite
+    and the reduced chi^2 fell;
 36. the new minimizers on phase 5's 128^2 posterior: its KL from the
     samples' expansion point by ``trust_ncg``, ``lbfgs``, ``vlbfgs``,
     ``nonlinear_cg``, ``steepest_descent`` and ``minimize_scipy(method=
@@ -315,6 +324,7 @@ the direct sum's (how far another rounding of the same ring FFTs moves the
 energy).
 """
 
+import hashlib
 import json
 import logging
 import os
@@ -323,6 +333,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -2836,22 +2847,27 @@ def earth_rotation_uvw(n_steps, hours=4.0, lat_deg=34.0, dec_deg=45.0, arm_km=21
     return np.stack([u.ravel(), v.ravel()], axis=-1) / wavelength, w.ravel() / wavelength
 
 
-def build_radio(jt, field, shape, n_steps, key, n_vis=None):
-    """Radio imaging: the sky exp(`field`) observed by a w-stacked
-    `RadioResponse` (8 planes, sigma 2, W 8) of the first `n_vis` of
-    `earth_rotation_uvw(n_steps)`'s visibilities, the pixel size putting the
-    longest baseline at 0.45 of the grid's Nyquist frequency; data from a
-    prior draw (latents drawn on the host from `key`) plus complex white
-    noise of modulus rms 0.1 times the rms of the true visibilities (each
-    part 0.1 rms / sqrt 2), a complex `Gaussian`.  Returns the likelihood,
-    the response and the per-part noise std."""
+def radio_response(shape, n_steps, n_vis=None):
+    """The w-stacked `RadioResponse` (8 planes, sigma 2, W 8) of the first
+    `n_vis` of `earth_rotation_uvw(n_steps)`'s visibilities, the pixel size
+    putting the longest baseline at 0.45 of the grid's Nyquist frequency."""
     from nifty_tpu_torch.ops.nufft import RadioResponse
 
     uv, w = earth_rotation_uvw(n_steps)
     if n_vis is not None:
         uv, w = uv[:n_vis], w[:n_vis]
     pixsize = 0.45 * 0.5 / np.max(np.hypot(uv[:, 0], uv[:, 1]))
-    rr = RadioResponse(shape, uv, pixsize=pixsize, w=w, n_w_planes=8)
+    return RadioResponse(shape, uv, pixsize=pixsize, w=w, n_w_planes=8)
+
+
+def build_radio(jt, field, shape, n_steps, key, n_vis=None):
+    """Radio imaging: the sky exp(`field`) observed by
+    `radio_response(shape, n_steps, n_vis)`; data from a prior draw
+    (latents drawn on the host from `key`) plus complex white noise of
+    modulus rms 0.1 times the rms of the true visibilities (each part 0.1
+    rms / sqrt 2), a complex `Gaussian`.  Returns the likelihood, the
+    response and the per-part noise std."""
+    rr = radio_response(shape, n_steps, n_vis)
     fwd = pointwise(jt, field, lambda s: rr(torch.exp(s)))
     k_truth, k_noise = jt.split(key, 2)
     with torch.no_grad():
@@ -2870,17 +2886,23 @@ def radio_chi2(lh, pos):
 
 
 def k7_counts():
-    """K7's calls of the kernel route, by (table key, rows)."""
+    """K7's calls of the kernel route, by (table key, rows), and the factor
+    tables it built, by table key."""
     from nifty_tpu_torch.ops import nufft_window as nw
 
     return {"interp": dict(nw.window_interp.launches_by_shape),
-            "spread": dict(nw.window_spread.launches_by_shape)}
+            "spread": dict(nw.window_spread.launches_by_shape),
+            "factors": dict(nw.build_factors.launches_by_shape)}
 
 
 def k7_text(counts):
-    return " ".join(f"{kind} " + ", ".join(
-        f"{shape[0][0]}^{len(shape[0])} grid x {shape[1]} points B={b}: {n}"
-        for (shape, b), n in sorted(c.items())) for kind, c in counts.items())
+    def table(key):
+        return f"{key[0][0]}^{len(key[0])} grid x {key[1]} points"
+
+    return " ".join(f"{kind} " + ", ".join(f"{table(key)} B={b}: {n}"
+                                          for (key, b), n in sorted(counts[kind].items()))
+                    for kind in ("interp", "spread")) + " factors " + ", ".join(
+        f"{table(key)}: {n}" for key, n in sorted(counts["factors"].items()))
 
 
 def k7_bound_ms(tab, nrows, size, spread):
@@ -2895,6 +2917,17 @@ def k7_bound_ms(tab, nrows, size, spread):
     ops = 4 * nrows * tab.npts * tab.width ** tab.d
     by_bytes = 1e3 * byts / PEAK_BYTES_PER_S
     by_ops = 1e3 * ops / PEAK_OPS_PER_S[torch.float64]
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def k7_factors_bound_ms(tab, size):
+    """The least time of a factor table's build: the coordinates and the
+    CSR order read and the table written once each over the memory rate,
+    or one exponential, square root and divide a factor (counted as 3
+    operations) over the arithmetic rate, whichever is larger."""
+    nfac = tab.npts * tab.d * tab.width
+    by_bytes = 1e3 * (tab.npts * tab.d * size + 4 * tab.npts + nfac * size) / PEAK_BYTES_PER_S
+    by_ops = 1e3 * 3 * nfac / PEAK_OPS_PER_S[torch.float64]
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
@@ -2914,28 +2947,134 @@ def k7_library_routes(tab, g, v):
             lambda: torch.sparse.mm(transposed, v.T).T)
 
 
+# The digests of the K7 kernels as first written (commit c550464's
+# `nufft_window.cu`, built and run beside these on an NVIDIA H100 80GB HBM3
+# at 700 W) at each phase-34 shape, in phase 34's
+# order: the first 8 hex digits of the SHA-256 of the output's bytes, on the
+# inputs of `k7_bit_inputs`.  Phase 34 holds the kernels to them.
+K7_PINNED = {
+    "f64": {
+        "interp": (
+            "74e2faba b0716850 f77484cb 1bbf83ec 72b6a47d e85020f0 b2c1871f 272612fc "
+            "d90ab8aa 52b05e15 93fbdabc 433fbee9 4a7134f3 83f33242 4d4582d4 3502c970 "
+            "eac69b35 dcc3f299 db3e52f6 49cc965f fc2fb973 a49edad3 79ced865 4e411c52 "
+            "a266d2f6 9ac0f5a6 491e0168 34608242 835824df 5e65f93b 95958ed8 235206d9"),
+        "spread": (
+            "571f278a fce68293 1a978130 954db53e 332541e9 d7a33a8d 62292cbc fe54eb88 "
+            "c45ad827 27e13aed 974a16a6 c4581b3f e7a3ceeb b0db9c83 06903842 74e65ee8 "
+            "767e250f 1b5ba2db 2db9b979 c4848856 8bc2e080 e025f38f 53ae937d 4c030c52 "
+            "0338d772 15a96b7c 6774143c 61647073 a01ddec5 14f8ad26 b2066d17 cd140dce"),
+    },
+    "f32": {
+        "interp": (
+            "b3c48593 54bbcde8 e9e402b5 9d5c87a8 61ecb859 04492f08 520de822 9dc1b664 "
+            "e05ed3a0 2da92c58 8f76b619 22895a00 729fbab7 df55d60e 6bec06ef a4d325a9 "
+            "22af4f6d 9031ee40 f5c929d2 3501acef f32de015 4b59dd08 ebd43deb c0877dcf "
+            "02e4b2e8 fd6af540 bca4162d f920782a e3cc0503 54b75bc4 84c99fc6 a30b6093"),
+        "spread": (
+            "6db8df5c 5ef1e59a 203bf150 2b941690 be208474 88e0cc3e 65373766 7eee5a5a "
+            "47c6a863 b75134e0 9706767e 6c8ecb7c e06e7d28 362ff863 77356773 4914c282 "
+            "a87b9743 58a9e7ac 8388bb52 1215e862 175e54ca a9cd15a2 859d3838 3d4598f9 "
+            "15c075fb 2d514650 1b92b63e a77c808d 93572a6e 90fff4d5 95a5a1aa 590cac1c"),
+    },
+}
+
+
+def k7_bit_inputs(label, tab, nrows):
+    """The bit check's spectrum and values at one phase-34 shape: standard
+    normal real and imaginary parts that numpy draws in float64 from a seed
+    of the shape's label (float32 rounds the same draws), on the card."""
+    rng = np.random.default_rng(zlib.crc32(label.encode()))
+    draws = (rng.standard_normal((nrows, tab.ncells, 2)),
+             rng.standard_normal((nrows, tab.npts, 2)))
+    return tuple(torch.view_as_complex(torch.from_numpy(a).to(tab.dtype)).cuda() for a in draws)
+
+
+def digest(x):
+    """The first 8 hex digits of the SHA-256 of a tensor's bytes."""
+    return hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()[:8]
+
+
+def longest_lane(tab, lanes=8):
+    """The most terms one lane of the spread walks in order, on a 2-D table
+    (None otherwise): lane l of a cell takes its (leading tap, tap) items i
+    = row W + t with i % `lanes` = l, each the points of the base cell
+    (line - (row - W/2 + 1), column - (t - W/2 + 1)), wrapped."""
+    if tab.d != 2:
+        return None
+    counts = np.diff(tab.csr_off.cpu().numpy()).reshape(tab.os_shape)
+    w, lo = tab.width, tab.width // 2 - 1
+    walks = np.zeros((lanes,) + counts.shape, dtype=np.int64)
+    for i in range(w * w):
+        row, t = divmod(i, w)
+        walks[i % lanes] += np.roll(counts, (row - lo, t - lo), axis=(0, 1))
+    return int(walks.max())
+
+
+def k7_plane_text(tab):
+    """A table's spread work: its sum blocks and their terms (the heaviest
+    block's too), the longest lane's walk, and its fill chunks and their
+    cells."""
+    from nifty_tpu_torch.ops import nufft_window as nw
+
+    terms = nw.spread_block_terms(nw.window_terms(
+        np.diff(tab.csr_off.cpu().numpy()).reshape(tab.os_shape), tab.width))
+    fill_cells = int(tab.fill[:, 1].sum()) if tab.fill.numel() else 0
+    return (f"{tab.sum_blocks.numel()} sum blocks ({int(terms.sum())} terms, the heaviest "
+            f"{int(terms.max())}; the longest lane walks {longest_lane(tab)}), "
+            f"{tab.fill.shape[0]} fill chunks ({fill_cells} of {tab.ncells} cells)")
+
+
 @phase("34 the NUFFT window kernels (K7) vs plain")
 def phase_k7_kernels(cases):
     """`cases`: {label: (RadioResponse, plane, rows)}.  K7's interpolation
     and spread against their plain versions in float64 and float32 (within
     1e-12 / 1e-5 of the per-output sum of |term|), bitwise reproducible and
-    bitwise equal when replayed from a CUDA graph; each kernel's registers
-    and spills (printed once); float64 device ms (50 calls in a replayed
-    CUDA graph) beside the bound and the share of it reached, the plain
-    versions' and the library routes' ms (CUDA events around 5 calls).
-    Returns the results by (table key, rows)."""
+    bitwise equal when replayed from a CUDA graph; the factor table within
+    4 ulp of its plain version (the card's exponential and PyTorch's may
+    round apart); each kernel's registers and spills (printed once);
+    float64 device ms (50 calls in a replayed CUDA graph) beside the bound
+    and the share of it reached, the factor table's build, the plain
+    versions' and the library routes' ms (CUDA events around 5 calls); the
+    bits: both kernels' outputs on `k7_bit_inputs` hashed and held to
+    `K7_PINNED`, and the cells no window reaches +0 with a clear sign bit;
+    each table's spread work (`k7_plane_text`, once a table, in float64).
+    Returns the results by (table key, rows) and the factor tables' by
+    table key."""
     from nifty_tpu_torch.ops import nufft_window as nw
 
-    for line in ptxas_lines("nufft_window", "nufft_interp|nufft_spread"):
+    for line in ptxas_lines("nufft_window", "nufft_interp|nufft_spread|nufft_factors|nufft_gather"):
         print(f"K7 build: {line}", flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(34)
-    results = {}
+    results, factor_results, described = {}, {}, set()
+    digests = {(dt, kind): [] for dt in ("f64", "f32") for kind in ("interp", "spread")}
     for label, (rr, plane, nrows) in cases.items():
         for dtype in (torch.float64, torch.float32):
             tab = rr.plane_tables(dtype)[plane]
             cd = tab.complex_dtype
+            tiny = torch.finfo(dtype).tiny
+            fac = nw.build_factors(tab)
+            fac_plain = nw.csr_factors_plain(tab)
+            fac_ulps = float(((fac - fac_plain).abs() / fac_plain.abs().clamp_min(tiny)).max()
+                             / torch.finfo(dtype).eps) if fac.numel() else 0.0
+            if fac_ulps > 4:
+                raise AssertionError(f"the K7 factor table is {fac_ulps:.2f} ulp off its plain "
+                                     f"version ({label}, {dtype})")
+            # the bits, on numpy's inputs
+            gb, vb = k7_bit_inputs(label, tab, nrows)
+            ab, sb = nw.window_interp(gb, tab), nw.window_spread(vb, tab)
+            sname = "f64" if dtype == torch.float64 else "f32"
+            for kind, out in (("interp", ab), ("spread", sb)):
+                digests[sname, kind].append(digest(out))
+            unreached = torch.from_numpy(nw.window_terms(
+                np.diff(tab.csr_off.cpu().numpy()).reshape(tab.os_shape), tab.width
+            ).reshape(-1) == 0).to(dev)
+            zeros = torch.view_as_real(sb)[:, unreached]
+            if bool((zeros != 0).any()) or bool(torch.signbit(zeros).any()):
+                raise AssertionError(f"a cell no window reaches is not +0 ({label}, {dtype})")
+            del gb, vb, ab, sb
             g = torch.randn((nrows, tab.ncells), dtype=cd, device=dev, generator=gen)
             v = torch.randn((nrows, tab.npts), dtype=cd, device=dev, generator=gen)
             a1, a2 = nw.window_interp(g, tab), nw.window_interp(g, tab)
@@ -2947,7 +3086,6 @@ def phase_k7_kernels(cases):
                     and torch.equal(s1, replayed(lambda: nw.window_spread(v, tab)))):
                 raise AssertionError(
                     f"the K7 kernels differ when replayed from a CUDA graph ({label}, {dtype})")
-            tiny = torch.finfo(dtype).tiny
             plain = nw.window_interp_plain(g, tab), nw.window_spread_plain(v, tab)
             scales = nw.sum_abs_terms(tab, g=g), nw.sum_abs_terms(tab, v=v)
             rels = [float(((got - want).abs() / scale.clamp_min(tiny)).max())
@@ -2975,6 +3113,13 @@ def phase_k7_kernels(cases):
                 r[f"{kind}_bound_ms"], r[f"{kind}_bound_by"] = k7_bound_ms(
                     tab, nrows, 8, kind == "spread")
             results[tab.key, nrows] = r
+            if tab.key not in factor_results:
+                factor_results[tab.key] = k7_factor_timing(tab, fac, fac_plain)
+            f = factor_results[tab.key]
+            work = ""
+            if dtype == torch.float64 and tab.key not in described:
+                described.add(tab.key)
+                work = f" | {k7_plane_text(tab)}"
             print(
                 f"{label}: {tab.npts} points on the {'x'.join(map(str, tab.os_shape))} grid "
                 f"({tab.n_reached} cells reached), W {tab.width}, B={nrows} | float64 ms: interp "
@@ -2986,11 +3131,50 @@ def phase_k7_kernels(cases):
                 f"({100 * r['spread_bound_ms'] / r['spread_device_ms']:.1f} % of "
                 f"{r['spread_bound_ms']:.5f}, {r['spread_bound_by']}; plain (index_add_) "
                 f"{r['spread_plain_ms']:.4f}, torch.sparse.mm of the transpose "
-                f"{r['spread_library_ms']:.4f}) | rel err of sum|term| {rels[0]:.2e} / "
-                f"{rels[1]:.2e}, max abs err {r['interp_err']:.3e} / {r['spread_err']:.3e}",
+                f"{r['spread_library_ms']:.4f}) | factor table build {f['ms']:.5f} "
+                f"({100 * f['bound_ms'] / f['ms']:.1f} % of {f['bound_ms']:.5f}; plain "
+                f"{f['plain_ms']:.4f}; {f['ulps']:.2f} ulp) | rel err of sum|term| "
+                f"{rels[0]:.2e} / {rels[1]:.2e}, max abs err {r['interp_err']:.3e} / "
+                f"{r['spread_err']:.3e}{work}",
                 flush=True,
             )
-    return results
+    labels = list(cases)
+    for (sname, kind), got in digests.items():
+        want = K7_PINNED[sname][kind].split()
+        bad = [f"{lab}: {g} (pinned {w})" for lab, g, w in zip(labels, got, want) if g != w]
+        if bad or len(want) != len(got):
+            raise AssertionError(f"K7 {kind} {sname} bits moved from the pinned digests: "
+                                 f"{bad or (len(want), len(got))}")
+        print(f"K7 {kind} {sname}: the bits of the pinned digests at all {len(got)} shapes",
+              flush=True)
+    return results, factor_results
+
+
+def k7_factor_timing(tab, fac, fac_plain):
+    """A float64 factor table's build: device ms of the factor kernel into
+    a spare table (50 calls in a replayed CUDA graph), its bound, the plain
+    version's ms (CUDA events), the largest difference in ulp and in
+    absolute terms."""
+    from nifty_tpu_torch.ops import nufft_window as nw
+
+    spare = torch.empty_like(fac)
+    dev = spare.get_device()
+    kernel = nw._kernels()["factors", tab.dtype]
+
+    def build():
+        kernel(tab.xs.data_ptr(), tab.csr_pts.data_ptr(), spare.data_ptr(), tab.npts, tab.d,
+               tab.width, tab.beta, dev, nw._stream(dev))
+
+    ms = device_ms(build)
+    torch.cuda.synchronize()
+    if not torch.equal(spare, fac):
+        raise AssertionError("a factor table's rebuild differs from its build")
+    bound, by = k7_factors_bound_ms(tab, 8)
+    diff = (fac - fac_plain).abs()
+    return dict(ms=ms, bound_ms=bound, bound_by=by,
+                plain_ms=cuda_ms(lambda: nw.csr_factors_plain(tab), n=5),
+                err=float(diff.max()),
+                ulps=float((diff / fac_plain.abs().clamp_min(1e-300)).max()) / 2.0 ** -52)
 
 
 def require_k7_launches(label, counts):
@@ -2999,24 +3183,33 @@ def require_k7_launches(label, counts):
 
 
 @phase("35 radio imaging at full width: exp of a 1024^2 field, 1.0e6 visibilities in 8 "
-       "w-planes, 1 update")
-def phase_radio(jt, lh, rr, field, with_profile):
-    """One `OptimizeVI.update` of the 1024^2 radio model (`BENCH_KWARGS`, the
-    sample loop for both stages) from 0.1 times a latent draw.  Prints the
+       "w-planes, the model built and 1 update")
+def phase_radio(jt, field, with_profile):
+    """The 1024^2 radio model built (`build_radio`: its window tables on the
+    host, its factor tables on the card at the data draw), then one
+    `OptimizeVI.update` (`BENCH_KWARGS`, the sample loop for both stages)
+    from 0.1 times a latent draw.  Prints the set-up's seconds, the update's
     seconds, samples/s, the KL energy, the reduced chi^2 at the start and
     after the update (at the latent mean and averaged over the samples), the
-    peak device memory and K7's launches by shape.  The checks: both K7
-    kernels and both distributor kernels launched, every latent finite, the
-    reduced chi^2 below its start.  Returns the distributor's and K7's
-    counts."""
+    peak device memory and K7's launches by shape.  The counts: the factor
+    tables built in the set-up, and the interpolation, the spread and the
+    distributor kernels launched in the update.  The checks: each of them
+    launched, every latent finite, the reduced chi^2 below its start.
+    Returns the distributor's and K7's counts."""
     from nifty_tpu_torch.ops import bin_gather as bg
 
+    reset_counts()
+    t0 = time.perf_counter()
+    lh, rr, _ = build_radio(jt, field, (1024, 1024), 2849, jt.HostKey(RADIO_SEED))
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
     opt = jt.OptimizeVI(lh, n_total_iterations=100, residual_map="smap", kl_map="smap")
     k_state, k_pos = jt.HostKey(RADIO_SEED + 1).split(2)
     state = opt.init_state(k_state, **BENCH_KWARGS)
     samples = jt.Samples(pos={k: 0.1 * v for k, v in jt.random_like(k_pos, lh.domain).items()},
                          samples=None, keys=None)
     chi2_start = radio_chi2(lh, samples.pos)
+    factors = k7_counts()["factors"]  # built at the data draw
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     torch.cuda.synchronize()
@@ -3024,14 +3217,14 @@ def phase_radio(jt, lh, rr, field, with_profile):
     samples, state = opt.update(samples, state)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts, k7 = launch_counts(bg), k7_counts()
+    counts, k7 = launch_counts(bg), dict(k7_counts(), factors=factors)
     chi2_end = radio_chi2(lh, samples.pos)
     chi2_samples = float(np.mean([radio_chi2(lh, s) for s in samples]))
     energy = float(state.minimization_state.fun)
     planes = rr.plane_tables(torch.float64)
     print(f"radio 1024^2 ({rr.target.shape[0]} visibilities, {len(planes)} w-planes of "
-          f"{[t.npts for t in planes]} points on {planes[0].os_shape} grids): "
-          f"{seconds:.3f} s/update "
+          f"{[t.npts for t in planes]} points on {planes[0].os_shape} grids): set-up "
+          f"{setup:.3f} s | {seconds:.3f} s/update "
           f"| geoVI samples/s {2 * N_SAMPLES / seconds:.4f} | KL energy {energy!r} | reduced "
           f"chi^2 {chi2_start:.4f} at the start, {chi2_end:.4f} at the latent mean after, "
           f"{chi2_samples:.4f} over the samples | peak mem "
@@ -3048,8 +3241,17 @@ def phase_radio(jt, lh, rr, field, with_profile):
     require_k7_launches("radio 1024^2", k7)
     require_launches("radio 1024^2", counts, (field.dist,))
     if with_profile:
-        profile_window("radio 1024^2", lambda: kl_text(opt.update(samples, state)))
+        profile_window("radio 1024^2", lambda: kl_text(opt.update(samples, state)),
+                       sums=K7_PROFILE_SUMS)
+        print("radio 1024^2 profile as first written (NVIDIA H100 80GB HBM3, 700.00 W): the K7 "
+              "spread 3337 ms over 4032 calls, device busy 6.447 s of 13.656", flush=True)
     return counts, k7
+
+
+# phase 35's profile: the K7 kernels' device time, by the kernels' names
+K7_PROFILE_SUMS = {"K7 spread (the values' gather and the sums)": ("nufft_spread",
+                                                                    "nufft_gather"),
+                   "K7 interpolation": ("nufft_interp",), "K7 factor tables": ("nufft_factors",)}
 
 
 @phase("36 the new minimizers on the card: the 128^2 posterior's KL, 10 iterations each, and "
@@ -3131,11 +3333,12 @@ def phase_solvers(jt, lh, samples):
     return counts
 
 
-def k7_kernel_entries(kres, runs, checked):
+def k7_kernel_entries(kres, factor_res, runs, checked):
     """The `kernels` line's entries of K7: one for each direction, table and
     number of rows that the runs ({run: K7 counts}) launched, with phase
-    34's numbers; fails on a shape that phase 34 did not check, among these
-    runs' and the `checked` runs' (phase 4's card runs)."""
+    34's numbers, and one for each factor table they built; fails on a
+    shape that phase 34 did not check, among these runs' and the `checked`
+    runs' (phase 4's card runs)."""
     entries = []
     for kind, name, replaces in (("interp", "window_interp", ":204-247"),
                                  ("spread", "window_spread", ":251-265")):
@@ -3156,12 +3359,32 @@ def k7_kernel_entries(kres, runs, checked):
                      f"{width}, B={nrows}, float64)",
                 route="cuda", source="nifty_tpu_torch/csrc/nufft_window.cu",
                 replaces=f"nifty_tpu/ops/nufft.py{replaces} (XLA in the JAX package, not Pallas)",
-                launches=launches, kernel_launches=launches,
+                # the spread launches two kernels a call: the values' gather, the sums
+                launches=launches, kernel_launches=launches * (2 if kind == "spread" else 1),
                 launches_by_run={run: c.get(shape, 0) for run, c in by_run.items()},
                 max_abs_err=r[f"{kind}_err"], ms=r[f"{kind}_device_ms"],
                 plain_ms=r[f"{kind}_plain_ms"], bound_ms=r[f"{kind}_bound_ms"],
                 bound_by=r[f"{kind}_bound_by"], library_ms=r[f"{kind}_library_ms"],
             ))
+    by_run = {run: c["factors"] for run, c in runs.items()}
+    for key in sorted(set().union(*by_run.values())):
+        if key not in factor_res:
+            raise AssertionError(f"the main path built a K7 factor table at {key}, a shape that "
+                                 f"phase 34 did not hold against the plain version")
+        f = factor_res[key]
+        os_shape, npts, width = key
+        launches = next(c[key] for c in by_run.values() if c.get(key))
+        entries.append(dict(
+            name=f"window factors (K7's factor table, {'x'.join(map(str, os_shape))} grid x "
+                 f"{npts} points, W {width}, float64)",
+            route="cuda", source="nifty_tpu_torch/csrc/nufft_window.cu",
+            replaces="nifty_tpu/ops/nufft.py:204-247 (the weights of interp_point; XLA in the "
+                     "JAX package, not Pallas)",
+            launches=launches, kernel_launches=launches,
+            launches_by_run={run: c.get(key, 0) for run, c in by_run.items()},
+            max_abs_err=f["err"], ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
+            bound_by=f["bound_by"], library_ms=None,
+        ))
     return entries
 
 
@@ -3178,11 +3401,13 @@ def kl_text(update):
     return f"KL energy {float(update[1].minimization_state.fun)!r}"
 
 
-def profile_window(label, run, top=12):
+def profile_window(label, run, top=12, sums=None):
     """`run()` (one `OptimizeVI.update`, or one evidence estimate; it
     returns a text to print) under ``torch.profiler``: its wall time
     (inflated by the profiler), the summed device time of its kernels and
-    the device's busy share, the kernel launches, the costliest kernels."""
+    the device's busy share, the kernel launches, the costliest kernels;
+    and for each entry of `sums` ({label: name parts}) the device time and
+    calls of the kernels whose names hold one of its parts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3204,6 +3429,10 @@ def profile_window(label, run, top=12):
           f"{sum(e.count for e in kernels)} kernel launches | {text}", flush=True)
     for e in sorted(kernels, key=device_us, reverse=True)[:top]:
         print(f"  {device_us(e) / 1e3:10.3f} ms  {e.count:7d} x  {e.key[:100]}", flush=True)
+    for what, parts in (sums or {}).items():
+        hits = [e for e in kernels if any(part in e.key for part in parts)]
+        print(f"  {what}: {sum(device_us(e) for e in hits) / 1e3:.3f} ms over "
+              f"{sum(e.count for e in hits)} calls", flush=True)
 
 
 def kernel_entries(kres, paths, src):
@@ -3475,24 +3704,25 @@ def main(argv):
     del lh4096, samples4096
     torch.cuda.empty_cache()
 
-    # radio imaging: phase 35's model (the 1024^2 field's sky, 1.0e6
-    # visibilities of 351 baselines x 2849 steps, 8 w-planes on 2048^2
-    # grids) and phase 4's 32^2 one, rebuilt on the card; K7 at every (plane,
-    # rows) shape phases 4 and 35 launch (the sample loop one row; phase 4's
-    # lockstep stages 2 and 4), then the cell and the new minimizers
+    # radio imaging: K7 at every (plane, rows) shape phases 4 and 35 launch
+    # (phase 35's 1024^2 model: 1.0e6 visibilities of 351 baselines x 2849
+    # steps, 8 w-planes on 2048^2 grids, the sample loop's one row; phase
+    # 4's 32^2 one: its lockstep stages' 2 and 4 rows too) on responses of
+    # their own, so that the cell's factor tables are built in its counted
+    # run; then the cell, which builds its model, and the new minimizers
     t0 = time.perf_counter()
-    lh_radio, rr_radio, _ = build_radio(jt, cf1024, (1024, 1024), 2849, jt.HostKey(RADIO_SEED))
-    _, rr32, _ = build_radio(jt, build_field(jt, (32, 32)), (32, 32), 12,
-                             jt.HostKey(RADIO_SEED), n_vis=4000)
-    print(f"radio set-up (uv synthesis, host window tables, data) "
+    rr_radio = radio_response((1024, 1024), 2849)
+    rr32 = radio_response((32, 32), 12, n_vis=4000)
+    print(f"radio set-up for phase 34 (uv synthesis, host window tables) "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
-    kres_k7 = phase_k7_kernels({
+    kres_k7, fres_k7 = phase_k7_kernels({
         **{f"1024^2 radio plane {i} B=1": (rr_radio, p, 1)
            for p, i in enumerate(rr_radio.planes)},
         **{f"32^2 radio plane {i} B={rows}": (rr32, p, rows)
            for p, i in enumerate(rr32.planes) for rows in (1, 2, 4)}})
-    c_radio, k7_radio = phase_radio(jt, lh_radio, rr_radio, cf1024, with_profile)
-    del lh_radio, rr_radio, rr32
+    del rr_radio, rr32
+    torch.cuda.empty_cache()
+    c_radio, k7_radio = phase_radio(jt, cf1024, with_profile)
     torch.cuda.empty_cache()
     c_solvers = phase_solvers(jt, lh128, samples128)
     del lh128, samples128
@@ -3536,7 +3766,7 @@ def main(argv):
                       + hp_kernel_entries(kres_hp, {"demo16": k10_demo16}, hp_rings, 512, 256)
                       + los_kernel_entries(kres_los, {"demo1": k11_demo1, "tomography_256": k11_256,
                                                       "nuts_geovi": k11_geo16, "nuts": k11_nuts})
-                      + k7_kernel_entries(kres_k7, {"radio_1024": k7_radio},
+                      + k7_kernel_entries(kres_k7, fres_k7, {"radio_1024": k7_radio},
                                           {"cpu_vs_card_32": k7_cpu_vs_card})}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

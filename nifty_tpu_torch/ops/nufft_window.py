@@ -19,12 +19,19 @@ points) and its transpose as the scatter-add autodiff makes of it
 :class:`WindowTable` holds a point set's tables as buffers, built on the
 host from static positions: the positions, each point's base cell, and a
 CSR over the cells (the points sorted by the flat index of their base cell,
-stable, with each cell's offsets).  The hand-written kernels
-(``csrc/nufft_window.cu``) run them for a CUDA tensor; :func:`window_interp_plain`
-and :func:`window_spread_plain` are the plain versions, which
-:func:`window_interp` / :func:`window_spread` take for a CPU tensor only.
-Their ``launches`` count the calls that take the kernel route, in total, by
-rows (``launches_by_rows``) and by (table key, rows) (``launches_by_shape``).
+stable, with each cell's offsets), each point's first tap cell per axis
+in CSR order, and the spread's sum blocks (the blocks some window reaches,
+the most terms first) and fill chunks (the cells of the others); on the card
+also each point's axis factors in CSR order, built by a kernel at the
+table's first use there (:func:`csr_factors_plain` is their plain version).
+The hand-written kernels (``csrc/nufft_window.cu``) run them for a CUDA
+tensor; :func:`window_interp_plain` and :func:`window_spread_plain` are the
+plain versions, which :func:`window_interp` / :func:`window_spread` take for
+a CPU tensor only.  Their ``launches`` count the calls that take the kernel
+route (the spread's launch two kernels: the values' gather and the sums),
+in total, by rows (``launches_by_rows``) and by (table key, rows)
+(``launches_by_shape``); :func:`build_factors` counts the factor tables it
+builds.
 :class:`WindowInterp` and :class:`WindowSpread` are the
 ``torch.autograd.Function`` pair, each the other's derivative, with
 ``setup_context``, ``jvp`` and ``vmap``.  The positions are constants of
@@ -45,14 +52,17 @@ from .cuda_build import load_library
 _REAL = {torch.float32: "f32", torch.float64: "f64"}
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 _NP = {torch.float32: np.float32, torch.float64: np.float64}
-#: the most rows a kernel block serves (``kRowTile`` in the source)
+#: the most rows a spread block serves (``kRowTile`` in the source)
 ROW_TILE = 4
 #: the widest window the kernels take (``kMaxWidth``)
 MAX_WIDTH = 16
-#: the most rows a call takes: gridDim.y (65535) row tiles of ``ROW_TILE``
+#: the most rows a call takes: the spread's gridDim.y (65535) row tiles of
+#: ``ROW_TILE``
 MAX_ROWS = 65535 * ROW_TILE
 #: the cells along the innermost axis a spread block takes (``kSpreadCells``)
 SPREAD_CELLS = 32
+#: the most cells of a spread fill chunk (``kFillCells``)
+FILL_CELLS = 2048
 
 
 def es_beta(sigma: float, width: int) -> float:
@@ -85,28 +95,55 @@ def deconv_factors(n: int, n_os: int, width: int, beta: float):
     return 1.0 / psi_hat
 
 
-def reached_cells(occupied, width: int):
-    """The cells some point's window reaches (bool, the oversampled grid's
-    shape): ``occupied`` marks the base cells that hold a point, and a cell
-    ``c`` is reached where a base cell ``c - off`` is occupied for an
-    offset ``off`` of the window on every axis (wrapped)."""
-    reached = occupied
+def window_terms(counts, width: int):
+    """The (point, tap) terms that land in each cell (int64, the oversampled
+    grid's shape): ``counts`` holds the points of each base cell, and a
+    cell ``c`` takes those of the base cells ``c - off`` for the window's
+    offsets on every axis (wrapped).  A cell is reached where it is not 0."""
+    terms = counts.astype(np.int64)
     offs = np.arange(width) - (width // 2 - 1)
-    for a in range(occupied.ndim):
-        reached = np.logical_or.reduce([np.roll(reached, o, axis=a) for o in offs])
-    return reached
+    for a in range(counts.ndim):
+        terms = sum(np.roll(terms, o, axis=a) for o in offs)
+    return terms
 
 
-def spread_blocks(reached, cells: int = SPREAD_CELLS):
-    """Which blocks of the spread kernel hold a reached cell (uint8, one per
-    block); a block takes ``cells`` consecutive cells along the innermost
-    axis of one line."""
-    nl = reached.shape[-1]
+def spread_block_terms(terms, cells: int = SPREAD_CELLS):
+    """The terms of each block of the spread kernel (int64, one per block);
+    a block takes ``cells`` consecutive cells along the innermost axis of
+    one line."""
+    nl = terms.shape[-1]
     segs = -(-nl // cells)
-    lines = reached.reshape(-1, nl)
-    padded = np.zeros((lines.shape[0], segs * cells), dtype=bool)
+    lines = terms.reshape(-1, nl)
+    padded = np.zeros((lines.shape[0], segs * cells), dtype=np.int64)
     padded[:, :nl] = lines
-    return padded.reshape(-1, segs, cells).any(-1).reshape(-1).astype(np.uint8)
+    return padded.reshape(-1, segs, cells).sum(-1).reshape(-1)
+
+
+def sum_blocks(block_terms):
+    """The spread's sum blocks: the blocks with a term, the most terms first
+    (ties in block order), int32."""
+    order = np.argsort(-block_terms, kind="stable")
+    return order[:int(np.count_nonzero(block_terms))].astype(np.int32)
+
+
+def fill_chunks(active, nl: int, cells: int = SPREAD_CELLS, chunk: int = FILL_CELLS):
+    """The spread's fill chunks, ``(nfill, 2)`` int32 (first cell, cells):
+    the cells of the blocks that no window reaches (``active`` false), in runs
+    of consecutive blocks, cut where a run crosses a multiple of ``chunk``
+    cells."""
+    segs = -(-nl // cells)
+    blk = np.arange(active.size, dtype=np.int64)
+    line_start = (blk // segs) * nl
+    start = line_start + (blk % segs) * cells
+    stop = np.minimum(start + cells, line_start + nl)
+    edges = np.diff(np.concatenate([[0], (active == 0).astype(np.int8), [0]]))
+    lo, hi = start[edges[:-1] == 1], stop[np.flatnonzero(edges[1:] == -1)]
+    n = (hi - 1) // chunk - lo // chunk + 1
+    run = np.repeat(np.arange(lo.size), n)
+    c = lo[run] // chunk + np.arange(n.sum()) - np.repeat(np.cumsum(n) - n, n)
+    first = np.maximum(c * chunk, lo[run])
+    last = np.minimum((c + 1) * chunk, hi[run])
+    return np.stack([first, last - first], axis=-1).astype(np.int32).reshape(-1, 2)
 
 
 def oversampled_shape(shape, sigma: float) -> tuple:
@@ -121,8 +158,14 @@ class WindowTable(nn.Module):
     ``i0`` (int64) their base cells per axis; ``csr_pts`` (int32) the
     points sorted by the flat index of their base cell, stable, and
     ``csr_off`` (int32, ``ncells + 1``) each cell's offsets in it;
-    ``active`` (uint8) which of the spread kernel's blocks any window
-    reaches (:func:`reached_cells`, :func:`spread_blocks`); ``deconv0``,
+    ``csr_first`` (int32, ``(npts, d)``) each point's first tap cell per
+    axis, ``(i0 - W // 2 + 1) mod n``, in CSR order; ``sum_blocks``
+    (int32) the spread kernel's blocks that some window reaches, the most
+    terms first (:func:`window_terms`, :func:`spread_block_terms`,
+    :func:`sum_blocks`), and ``fill`` (int32, ``(nfill, 2)``) the others'
+    cells (:func:`fill_chunks`); ``factors``
+    each point's axis factors ``(npts, d, W)`` in CSR order, empty until
+    :func:`build_factors` builds them on the card; ``deconv0``,
     ``deconv1``, ... the image axes' deconvolution factors
     (:func:`deconv_factors`) in the positions' dtype.  ``key`` =
     ``(os_shape, npts, width)`` names the table in the launch counts."""
@@ -171,12 +214,17 @@ class WindowTable(nn.Module):
         np.cumsum(np.bincount(base, minlength=self.ncells), out=off[1:])
         deconv = [(f"deconv{a}", deconv_factors(n, no, self.width, self.beta).astype(_NP[dtype]))
                   for a, (n, no) in enumerate(zip(self.shape, self.os_shape))]
-        reached = reached_cells((off[1:] > off[:-1]).reshape(self.os_shape), self.width)
+        terms = window_terms(np.diff(off).reshape(self.os_shape), self.width)
         #: the cells the windows reach: the grid values the interpolation needs
-        self.n_reached = int(reached.sum())
-        active = spread_blocks(reached)
-        for name, arr in (("xs", xs), ("i0", i0), ("csr_pts", order.astype(np.int32)),
-                          ("csr_off", off.astype(np.int32)), ("active", active), *deconv):
+        self.n_reached = int(np.count_nonzero(terms))
+        block_terms = spread_block_terms(terms)
+        first = (i0[order] - (self.width // 2 - 1)) % np.asarray(self.os_shape)
+        tables = (("xs", xs), ("i0", i0), ("csr_pts", order.astype(np.int32)),
+                  ("csr_off", off.astype(np.int32)), ("csr_first", first.astype(np.int32)),
+                  ("sum_blocks", sum_blocks(block_terms)),
+                  ("fill", fill_chunks(block_terms > 0, self.os_shape[-1])),
+                  ("factors", np.zeros(0, dtype=_NP[dtype])), *deconv)
+        for name, arr in tables:
             self.register_buffer(name, torch.from_numpy(np.ascontiguousarray(arr)),
                                  persistent=False)
 
@@ -212,6 +260,23 @@ def window_entries(table: WindowTable):
             cells = (cells[:, :, None] * n + idx[:, None, :]).reshape(table.npts, -1)
             weights = (weights[:, :, None] * wgt[:, None, :]).reshape(table.npts, -1)
     return cells, weights
+
+
+def csr_factors_plain(table: WindowTable):
+    """Each point's axis factors in CSR order, ``(npts, d, W)``: point
+    ``csr_pts[k]``'s weight on axis ``a`` at tap ``t``, as
+    :func:`window_entries` computes it (the plain version of the factor
+    table the kernels read)."""
+    offs = torch.arange(table.width, device=table.xs.device) - (table.width // 2 - 1)
+    pts = table.csr_pts.long()
+    taps = table.i0[pts, :, None] + offs  # (npts, d, W), unwrapped
+    return es_phi((table.xs[pts, :, None] - taps.to(table.dtype)) / table.half, table.beta)
+
+
+def gather_values_plain(v, table: WindowTable):
+    """The rows' values in CSR order, ``v[:, csr_pts]`` (what the spread
+    kernel reads)."""
+    return v.index_select(1, table.csr_pts.long())
 
 
 def _wide(x):
@@ -261,16 +326,18 @@ def _kernels():
         return _KERNELS
     lib = load_library("nufft_window")
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    argtypes = {"factors": [vp] * 3 + [ci] * 3 + [cd, ci, vp],
+                "gather": [vp] * 3 + [ci] * 3 + [vp],
+                "interp": [vp] * 5 + [ci] * 8 + [vp],
+                "spread": [vp] * 4 + [ci, vp, ci, vp] + [ci] * 8 + [vp]}
     for dtype, sfx in _REAL.items():
-        interp = getattr(lib, f"nufft_interp_{sfx}")
-        interp.argtypes = [vp] * 3 + [ci] * 6 + [cd, ci, ci, vp]
-        interp.restype = ci
-        spread = getattr(lib, f"nufft_spread_{sfx}")
-        spread.argtypes = [vp] * 6 + [ci] * 6 + [cd, ci, ci, vp]
-        spread.restype = ci
-        _KERNELS["interp", dtype], _KERNELS["spread", dtype] = interp, spread
+        for kind, types in argtypes.items():
+            fn = getattr(lib, f"nufft_{kind}_{sfx}")
+            fn.argtypes, fn.restype = types, ci
+            _KERNELS[kind, dtype] = fn
     for name, want in (("nufft_window_row_tile", ROW_TILE), ("nufft_window_max_width", MAX_WIDTH),
-                       ("nufft_window_spread_cells", SPREAD_CELLS)):
+                       ("nufft_window_spread_cells", SPREAD_CELLS),
+                       ("nufft_window_fill_cells", FILL_CELLS)):
         fn = getattr(lib, name)
         fn.restype = ci
         if fn() != want:
@@ -291,19 +358,62 @@ def _check(x, table: WindowTable, width: int, what: str):
         raise ValueError(f"at most {MAX_ROWS} rows; got {x.shape[0]}")
 
 
-def _geometry(table: WindowTable):
-    dims = list(table.os_shape) + [1] * (3 - table.d)
-    return (table.npts, table.d, *dims, table.width, table.beta)
+def _dims(table: WindowTable):
+    return (*table.os_shape, *[1] * (3 - table.d))
 
 
 def _stream(dev):
     return torch._C._cuda_getCurrentRawStream(dev)
 
 
+def _launched(rc):
+    if rc < 0:
+        raise RuntimeError(f"CUDA kernel launch failed with cudaError {-rc}")
+
+
 def _count(wrapper, table: WindowTable, nrows: int):
     wrapper.launches += 1
     wrapper.launches_by_rows[nrows] += 1
     wrapper.launches_by_shape[table.key, nrows] += 1
+
+
+def build_factors(table: WindowTable):
+    """The table's axis factors on its card (``table.factors``), built by
+    the factor kernel where they are not yet there; the kernels read them.
+    Inside a CUDA graph's capture the kernel is only recorded, so a table
+    not yet built gets factors of that graph's own, which its replays
+    rebuild, and keeps none.  ``launches`` / ``launches_by_shape`` count the
+    builds."""
+    f = table.factors
+    if (f.numel() == table.npts * table.d * table.width and f.dtype == table.dtype
+            and f.device == table.xs.device):
+        return f
+    f = table.xs.new_empty((table.npts, table.d, table.width))
+    dev = f.get_device()
+    _launched(_kernels()["factors", table.dtype](
+        table.xs.data_ptr(), table.csr_pts.data_ptr(), f.data_ptr(), table.npts, table.d,
+        table.width, table.beta, dev, _stream(dev)))
+    if not torch.cuda.is_current_stream_capturing():
+        table.factors = f
+    build_factors.launches += 1
+    build_factors.launches_by_shape[table.key] += 1
+    return f
+
+
+def gather_values(v, table: WindowTable):
+    """``v[:, csr_pts]`` by the gather kernel for a CUDA tensor (the plain
+    version for a CPU one)."""
+    _check(v, table, table.npts, "values")
+    if not v.is_cuda:
+        if v.device.type == "cpu":
+            return gather_values_plain(v, table)
+        raise RuntimeError(f"no nufft_window kernel for device {v.device}")
+    out = torch.empty_like(v)
+    dev = v.get_device()
+    _launched(_kernels()["gather", table.dtype](
+        v.data_ptr(), table.csr_pts.data_ptr(), out.data_ptr(), table.npts, v.shape[0], dev,
+        _stream(dev)))
+    return out
 
 
 def window_interp(g, table: WindowTable):
@@ -314,33 +424,34 @@ def window_interp(g, table: WindowTable):
         if g.device.type == "cpu":
             return window_interp_plain(g, table)
         raise RuntimeError(f"no nufft_window kernel for device {g.device}")
+    fac = build_factors(table)
     out = g.new_empty((g.shape[0], table.npts))
     dev = g.get_device()
-    rc = _kernels()["interp", table.dtype](
-        g.data_ptr(), table.xs.data_ptr(), out.data_ptr(), *_geometry(table), g.shape[0], dev,
-        _stream(dev))
-    if rc < 0:
-        raise RuntimeError(f"CUDA kernel launch failed with cudaError {-rc}")
+    _launched(_kernels()["interp", table.dtype](
+        g.data_ptr(), fac.data_ptr(), table.csr_first.data_ptr(), table.csr_pts.data_ptr(),
+        out.data_ptr(), table.npts, table.d, *_dims(table), table.width, g.shape[0], dev,
+        _stream(dev)))
     _count(window_interp, table, g.shape[0])
     return out
 
 
 def window_spread(v, table: WindowTable):
-    """The spread, values ``(B, npts)`` -> ``(B, ncells)``: the kernel for a
-    CUDA tensor, the plain version for a CPU tensor."""
+    """The spread, values ``(B, npts)`` -> ``(B, ncells)``: the kernels for
+    a CUDA tensor (the values' gather into CSR order, then the sums and
+    zeros), the plain version for a CPU tensor."""
     _check(v, table, table.npts, "values")
     if not v.is_cuda:
         if v.device.type == "cpu":
             return window_spread_plain(v, table)
         raise RuntimeError(f"no nufft_window kernel for device {v.device}")
+    fac = build_factors(table)
+    vg = gather_values(v, table)
     out = v.new_empty((v.shape[0], table.ncells))
     dev = v.get_device()
-    rc = _kernels()["spread", table.dtype](
-        v.data_ptr(), table.xs.data_ptr(), table.csr_off.data_ptr(), table.csr_pts.data_ptr(),
-        table.active.data_ptr(), out.data_ptr(), *_geometry(table), v.shape[0], dev,
-        _stream(dev))
-    if rc < 0:
-        raise RuntimeError(f"CUDA kernel launch failed with cudaError {-rc}")
+    _launched(_kernels()["spread", table.dtype](
+        vg.data_ptr(), fac.data_ptr(), table.csr_off.data_ptr(), table.sum_blocks.data_ptr(),
+        table.sum_blocks.numel(), table.fill.data_ptr(), table.fill.shape[0], out.data_ptr(),
+        table.npts, table.d, *_dims(table), table.width, v.shape[0], dev, _stream(dev)))
     _count(window_spread, table, v.shape[0])
     return out
 
@@ -349,6 +460,7 @@ def reset_launch_counts():
     for fn in (window_interp, window_spread):
         fn.launches = 0
         fn.launches_by_rows, fn.launches_by_shape = Counter(), Counter()
+    build_factors.launches, build_factors.launches_by_shape = 0, Counter()
 
 
 reset_launch_counts()

@@ -14,6 +14,9 @@ bitwise equal (it uses no atomics), as must a replay of the call from a
 CUDA graph and a call on one of the rows alone.
 """
 
+import hashlib
+import zlib
+
 import numpy as np
 import pytest
 
@@ -841,9 +844,12 @@ def test_los_wrappers_raise_on_bad_inputs(cuda):
 
 def _window_table(case, dtype):
     """A point set's window tables on the host: 1-, 2- and 3-D grids at W =
-    8 and 16, windows wider than a small grid (wrapping more than once), a
-    dense cluster (hundreds of points a cell), and the track of one
-    baseline across a 2048^2 grid (phase 35's shape, mostly empty blocks)."""
+    8 and 16 (3-D at 16: 256 leading taps, 16 stages of the spread), windows
+    wider than a small grid (wrapping more than once), a dense cluster
+    (hundreds of points a cell), the track of one baseline across a 2048^2
+    grid (phase 35's shape, mostly empty blocks), and a uv coverage's
+    centre on a 512^2 grid (hundreds of points a base cell in its middle,
+    its outer lines empty)."""
     from nifty_tpu_torch.ops import nufft_window as nw
 
     rng = np.random.default_rng(len(case))
@@ -851,16 +857,20 @@ def _window_table(case, dtype):
                                   "2d": ((32, 24), 500, 8, 0.5), "2d_w16": ((24, 32), 300, 16, 0.5),
                                   "3d": ((10, 12, 14), 400, 8, 0.5), "wrap": ((4, 4), 100, 16, 0.5),
                                   "cluster": ((64, 64), 3000, 8, 0.01),
-                                  "track": ((1024, 1024), 2849, 8, 0.0)}[case]
+                                  "track": ((1024, 1024), 2849, 8, 0.0),
+                                  "centre": ((256, 256), 30000, 8, 0.0),
+                                  "3d_w16": ((8, 9, 10), 150, 16, 0.5)}[case]
     if case == "track":
         t = np.linspace(-1.0, 1.0, npts)
         coords = np.stack([300.0 * np.sin(t), 180.0 * np.cos(t)], axis=-1)
+    elif case == "centre":
+        coords = rng.normal(scale=1.5, size=(npts, 2))
     else:
         coords = rng.uniform(-spread, spread, size=(npts, len(shape))) * np.array(shape)
     return nw.WindowTable(shape, coords, width=width, dtype=dtype)
 
 
-K7_CASES = ["1d", "1d_w16", "2d", "2d_w16", "3d", "wrap", "cluster", "track"]
+K7_CASES = ["1d", "1d_w16", "2d", "2d_w16", "3d", "wrap", "cluster", "track", "centre", "3d_w16"]
 
 
 @pytest.mark.parametrize("case", K7_CASES)
@@ -896,6 +906,165 @@ def test_window_kernels_match_plain_versions(cuda, case, nrows, dtype):
     lhs = torch.vdot(a1.flatten(), v.flatten())
     rhs = torch.vdot(g.flatten(), s1.flatten())
     assert float((lhs - rhs).abs() / lhs.abs()) < RTOL[dtype]
+
+
+@pytest.mark.parametrize("case", K7_CASES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_window_spread_writes_plus_zero_where_no_window_reaches(cuda, case, dtype):
+    """Every cell that no window reaches (the fill blocks' cells, and those
+    of sum blocks) is +0, its sign bit clear, in every row."""
+    from nifty_tpu_torch.ops import nufft_window as nw
+
+    tab = _window_table(case, dtype)
+    terms = nw.window_terms(np.diff(tab.csr_off.numpy()).reshape(tab.os_shape), tab.width)
+    unreached = torch.from_numpy(terms.reshape(-1) == 0).to(cuda)
+    tab = tab.to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    v = -torch.rand((3, tab.npts), dtype=tab.complex_dtype, device=cuda, generator=gen)
+    zeros = torch.view_as_real(nw.window_spread(v, tab))[:, unreached]
+    assert bool((zeros == 0).all()) and not bool(torch.signbit(zeros).any())
+
+
+@pytest.mark.parametrize("case", K7_CASES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_window_factor_table_and_value_gather(cuda, case, dtype):
+    """The factor table the kernel builds once a table is within 4 ulp of
+    its plain version (the card's exponential and PyTorch's may round
+    apart), a second call reuses it, and the values' gather is
+    ``v[:, csr_pts]`` bit for bit."""
+    from nifty_tpu_torch.ops import nufft_window as nw
+
+    tab = _window_table(case, dtype).to(cuda)
+    builds = nw.build_factors.launches
+    fac = nw.build_factors(tab)
+    assert nw.build_factors(tab) is fac and nw.build_factors.launches == builds + 1
+    want = nw.csr_factors_plain(tab)
+    eps = torch.finfo(dtype).eps
+    assert bool(torch.all((fac - want).abs() <= 4 * eps * want.abs()))
+    v = torch.randn((3, tab.npts), dtype=tab.complex_dtype, device=cuda)
+    assert torch.equal(nw.gather_values(v, tab), v[:, tab.csr_pts.long()])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_window_kernels_captured_first_in_a_cuda_graph(cuda, dtype):
+    """A table whose first K7 calls are captured in a CUDA graph keeps no
+    factors from the capture: calls outside the graph, before and after its
+    replays, and the replays themselves equal the calls on a twin table
+    used outside any graph, bit for bit."""
+    from nifty_tpu_torch.ops import nufft_window as nw
+
+    twin, tab = (_window_table("2d", dtype).to(cuda) for _ in range(2))
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    g = torch.randn((3, tab.ncells), dtype=tab.complex_dtype, device=cuda, generator=gen)
+    v = torch.randn((3, tab.npts), dtype=tab.complex_dtype, device=cuda, generator=gen)
+    want = nw.window_interp(g, twin), nw.window_spread(v, twin)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = nw.window_interp(g, tab), nw.window_spread(v, tab)
+    assert tab.factors.numel() == 0
+    for got in ((nw.window_interp(g, tab), nw.window_spread(v, tab)), captured):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _k7_bit_inputs(case, nrows, tab):
+    """Spectra and values for the bit check: standard normal real and
+    imaginary parts that numpy draws in float64 from a seed of the case and
+    rows (float32 rounds the same draws), on the table's device."""
+    rng = np.random.default_rng(zlib.crc32(f"{case} B={nrows}".encode()))
+    draws = (rng.standard_normal((nrows, tab.ncells, 2)),
+             rng.standard_normal((nrows, tab.npts, 2)))
+    return tuple(torch.view_as_complex(torch.from_numpy(a).to(tab.dtype)).to(tab.xs.device)
+                 for a in draws)
+
+
+def _digest(x):
+    """The first 8 hex digits of the SHA-256 of a tensor's bytes."""
+    return hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()[:8]
+
+
+# The digests of the K7 kernels as first written (commit c550464's
+# `nufft_window.cu`, on an NVIDIA H100 80GB HBM3 at 700 W): "interp spread"
+# of each case, rows and type, on the inputs of `_k7_bit_inputs`.
+K7_FIRST_BITS = {
+    "1d B=1 f64": "cf487337 8d9501b2",
+    "1d B=1 f32": "05274221 62cd77c0",
+    "1d B=3 f64": "70e46e55 4b4d1b5a",
+    "1d B=3 f32": "228c8e22 4fd1acfc",
+    "1d B=8 f64": "9eddc85d 5f88f81a",
+    "1d B=8 f32": "41619b17 b9546a3a",
+    "1d_w16 B=1 f64": "9b24ad72 26d9bc62",
+    "1d_w16 B=1 f32": "c0ac8700 fcbf54a1",
+    "1d_w16 B=3 f64": "a7464536 6d87d6b2",
+    "1d_w16 B=3 f32": "fb507712 ca7f159d",
+    "1d_w16 B=8 f64": "dce47316 8831e3a8",
+    "1d_w16 B=8 f32": "e94e7093 bd73d029",
+    "2d B=1 f64": "1f204a41 94e5e914",
+    "2d B=1 f32": "746257e5 226e3f99",
+    "2d B=3 f64": "9fe7171b e5d3df68",
+    "2d B=3 f32": "d15060a4 d759942e",
+    "2d B=8 f64": "50cbe532 a49412b2",
+    "2d B=8 f32": "2f0591d5 8db500e8",
+    "2d_w16 B=1 f64": "b41ec32e dd0d9732",
+    "2d_w16 B=1 f32": "31682de1 02de6e21",
+    "2d_w16 B=3 f64": "642d8514 db870d1b",
+    "2d_w16 B=3 f32": "0d2769d2 9fc9539c",
+    "2d_w16 B=8 f64": "27b8a8dc 0c4d5525",
+    "2d_w16 B=8 f32": "6ef03af1 86a4d9b2",
+    "3d B=1 f64": "f8fb592d ad58359f",
+    "3d B=1 f32": "ba49ac8d 9aa58eca",
+    "3d B=3 f64": "31bbbd3e 3c88be52",
+    "3d B=3 f32": "f711e30f b4c696fd",
+    "3d B=8 f64": "57f7fa32 5b48d320",
+    "3d B=8 f32": "901ed1e4 48600789",
+    "wrap B=1 f64": "543571f1 eafa1a18",
+    "wrap B=1 f32": "32c6b2f7 267227c6",
+    "wrap B=3 f64": "bb67cb35 30af9ed3",
+    "wrap B=3 f32": "99d58399 4df97a4f",
+    "wrap B=8 f64": "eaf448ad 0a9c33b6",
+    "wrap B=8 f32": "a332ecb6 4adc9a86",
+    "cluster B=1 f64": "8c84e93e 8313b8bc",
+    "cluster B=1 f32": "df7753c7 cdf484f3",
+    "cluster B=3 f64": "87823a57 f484128f",
+    "cluster B=3 f32": "d04d2f9b 7769d1f6",
+    "cluster B=8 f64": "7c8f8641 68b5cbd8",
+    "cluster B=8 f32": "bfc21ede ba5ef582",
+    "track B=1 f64": "25e1652a ccb3d1bd",
+    "track B=1 f32": "8fbfbe38 d8aba116",
+    "track B=3 f64": "4ec8ff07 84f54f98",
+    "track B=3 f32": "21f530f7 db35c21a",
+    "track B=8 f64": "f398ceca e5cbbcc6",
+    "track B=8 f32": "dd668685 e9857c3d",
+    "centre B=1 f64": "978b9be6 1eb0ffa6",
+    "centre B=1 f32": "6dacdb9f 0dea4474",
+    "centre B=3 f64": "37beceb0 6dc0bbc3",
+    "centre B=3 f32": "f99bf745 d058d1a6",
+    "centre B=8 f64": "ebd93a3a 577876ba",
+    "centre B=8 f32": "5eb88915 e7a27bc0",
+    "3d_w16 B=1 f64": "7cdb42dd 2336bd43",
+    "3d_w16 B=1 f32": "e6016196 5addb237",
+    "3d_w16 B=3 f64": "edaa31d6 160e30e2",
+    "3d_w16 B=3 f32": "b74cb16f de008f13",
+    "3d_w16 B=8 f64": "60753b0a c7383da3",
+    "3d_w16 B=8 f32": "6b49ae52 3f73d08e",
+}
+
+
+@pytest.mark.parametrize("case", K7_CASES)
+@pytest.mark.parametrize("nrows", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_window_kernels_keep_their_first_bits(cuda, case, nrows, dtype):
+    """Both K7 kernels' outputs equal those of the kernels as first written
+    bit for bit (their digests, `K7_FIRST_BITS`): the order of every sum is
+    kept."""
+    from nifty_tpu_torch.ops import nufft_window as nw
+
+    tab = _window_table(case, dtype).to(cuda)
+    g, v = _k7_bit_inputs(case, nrows, tab)
+    got = f"{_digest(nw.window_interp(g, tab))} {_digest(nw.window_spread(v, tab))}"
+    key = f"{case} B={nrows} {'f64' if dtype == torch.float64 else 'f32'}"
+    assert got == K7_FIRST_BITS[key]
 
 
 def test_radio_response_on_the_card_matches_the_cpu(cuda):

@@ -343,7 +343,8 @@ def test_spread_blocks_cover_every_nonzero_output(shape, width):
     padded = np.zeros((out.shape[0], segs * nw.SPREAD_CELLS), complex)
     padded[:, :out.shape[1]] = out
     nonzero = (padded.reshape(-1, segs, nw.SPREAD_CELLS) != 0).any(-1).reshape(-1)
-    active = tab.active.numpy().astype(bool)
+    active = np.zeros(nonzero.size, dtype=bool)
+    active[tab.sum_blocks.numpy()] = True
     assert not np.any(nonzero & ~active)
     assert 0 < active.sum() < active.size
     np.testing.assert_array_equal(active, nonzero)
