@@ -7,7 +7,10 @@ correlated fields on HEALPix and Gauss-Legendre grids, line-of-sight
 tomography of 3-D fields with a NUTS cross-check, radio interferometry
 (a w-stacked NUFFT response), and the inference and diagnostics around
 them: the Wiener filter, parametric VI, the evidence lower bound and the
-first-order and trust-region minimizers.
+first-order and trust-region minimizers; then the same port on several
+ranks: the pencil transforms, demo 4, phase 6's update field- and
+sample-sharded, and the sharded checkpoint, in a gloo world of four ranks
+on one card and an NCCL world over every card (it starts both).
 
     python3 chip_smoke.py
 
@@ -26,8 +29,9 @@ Phases (one line each, with its seconds):
    rows of the odd-length 4096^2 quarter map (rows start misaligned), and
    time both:
    host-paced ms per call (CUDA events around 50 back-to-back calls,
-   kernel and plain in turns) and device ms per call (the same 50 calls
-   captured in a CUDA graph and replayed).  Each map's line names the
+   kernel and plain in turns; 10 for a map of a million entries a call or
+   more) and device ms per call (the same calls captured in a CUDA graph
+   and replayed).  Each map's line names the
    segment sum's work: its items, the short bins among them by class (4, 8
    or 32 lanes a bin), the split bins (chunks plus a second pass) and the
    chunk size C; the segment sum must also equal, bit for bit, the same
@@ -147,15 +151,16 @@ Phases (one line each, with its seconds):
     form in ``torch.fft`` (the library route), the plain versions' ms and
     the JAX formulation's with stored phase tables (the plain loop over
     64-m chunks of the ``(512, npix)`` cos and sin tables, built once for
-    the phase), and each block's shared memory; then nside 2048 at mmax
+    the phase), and each block's shared memory (2, 4 and 8 rows, which no
+    phase launches, held in both types, the kernels and the ``torch.fft``
+    route timed in float64); then nside 2048 at mmax
     511, one row (50,331,648 pixels; its 2046 polar rings of more than 4096
     pixels transform in the workspace), held to the same tolerances against
     the plain versions on 51 of its rings from pole to pole (the whole
     grid's phase chunks would not fit the card), repeated and replayed,
-    timed beside the bound and beside the ``torch.fft`` route (its
-   ``library_ms``: CUDA events around 3 calls, after 3 that build its
-   cuFFT plans, one a distinct ring length), which is held to the kernels
-   on the whole grid;
+    timed beside the bound (the ``torch.fft`` route there, a cuFFT plan for
+    each of 2048 ring lengths, was timed once, PERF.md, and is not rebuilt
+    in every run);
 23. ``demos/16_spherical_cf.py`` at its full width: the demo's HEALPix
     sky at lmax 511, nside 256 (786,432 pixels, 262,144 harmonic dof),
     observed directly as the demo does, with the demo's priors, noise 0.5
@@ -266,7 +271,44 @@ Phases (one line each, with its seconds):
     lower the energy and stay finite; then one ``OptimizeVI.update`` with
     ``residual_map="vmap"`` whose nonlinear sample update is
     ``trust_ncg``, run by its lockstep form (finite latents, no negative
-    status, the KL stage lowering the energy).
+    status, the KL stage lowering the energy);
+37. the mesh on the card (``nifty_tpu_torch.parallel``), in a 4-rank gloo
+    world on card 0 (samples 2 x field 2; the ranks' collectives through
+    the card's memory mapped by CUDA IPC, gloo carrying their barriers)
+    and in an NCCL world over every card: ``distributed_hartley`` and
+    ``distributed_fftn``, forward and adjoint (autograd), against the
+    whole field's transform on one rank (``ops.harmonic.hartley``,
+    ``torch.fft``) at 4096^2, a 256^3 pencil, the 1-D four-step FFT at
+    2^24 and a 4096 x 4095 field whose partner axis the ranks do not
+    divide (within 1e-10 of the largest output); the 4096^2 transform's ms
+    beside one rank's; each rank's slab of the 4096^2 ``n_bins=128`` map and
+    its (row, bin) map, the gather bitwise and both segment sums within
+    1e-12 of sum|cot| of their plain versions; ``pairwise_mean`` of 8 rows
+    bitwise equal over 1, 2 and 4 ranks;
+38. ``demos/4_multichip.py`` through the port on the 2 x 2 world: its grid
+    (64 x 32), priors, noise 0.1 and budgets (an antithetic linear draw of
+    2 keys with CG 40, Newton-CG on the KL, 10 steps of CG 20), 4
+    iterations; the KL energies and the posterior mode's RMS error against
+    the truth, which must stay within 1.5 times the JAX demo's on 4
+    virtual CPU devices (``DEMO4_JAX_RMS``);
+39. phase 6's 4096^2 ``n_bins=128`` model and data at full width, field-
+    and sample-sharded, under ``deterministic_reductions``: on the 2 x 2
+    world and on the NCCL world (one card: 1 x 1), the energy, a metric
+    matvec and a 20-step CG draw (bitwise equal between the worlds), then
+    one update with ``BENCH_KWARGS`` and the sample loop: samples within
+    1e-9 and KL energy within 1e-9 relative between the worlds (each
+    world's whole samples hashed, and compared entry by entry where the
+    hashes differ); s/update, peak memory a rank, the collectives of the
+    update a rank by kind with their bytes, the distributor's launches a
+    rank by map, the KL energy beside phase 6's (printed, not gated: the
+    fixed-trip solvers run every step); fails unless both distributor
+    kernels launched in each world's update;
+40. ``optimize_kl(checkpoint_format="orbax")`` of phase 38's model on the
+    2 x 2 world (``deterministic_reductions``, the maps left at "auto",
+    which there loop over samples; a ``residual_map="vmap"`` draw must
+    raise): two iterations, then a third continued in memory; the third
+    resumed from the sharded checkpoint on a 4 x 1 world and on the NCCL
+    world, each bitwise equal to the one continued in memory.
 
 The port places models, latents and data on the card by default; only
 phase 4's CPU run asks for the CPU (``config.update("device", "cpu")``).
@@ -329,6 +371,7 @@ import json
 import logging
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -596,10 +639,10 @@ def cuda_ms(fn, n=50):
     return start.elapsed_time(stop) / n
 
 
-def host_paced_ms(kernel, plain):
+def host_paced_ms(kernel, plain, n=50):
     """`cuda_ms` of a kernel and its plain version in turns (kernel, plain,
     plain, kernel); the mean of each pair."""
-    k1, p1, p2, k2 = cuda_ms(kernel), cuda_ms(plain), cuda_ms(plain), cuda_ms(kernel)
+    k1, p1, p2, k2 = (cuda_ms(fn, n) for fn in (kernel, plain, plain, kernel))
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -659,9 +702,11 @@ def phase_device():
     # runs on CUDA (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    line = smi.stdout.strip().splitlines()[0]
+    print(line, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}", flush=True)
+          f"device {torch.cuda.get_device_name(0)} cards {torch.cuda.device_count()}", flush=True)
+    return line
 
 
 @phase("2 build kernels")
@@ -690,15 +735,20 @@ def phase_build():
 
 @phase("3 kernels vs plain")
 def phase_kernels(cases):
-    """`cases`: {label: (BinIndex on the card, batch rows)}."""
+    """`cases`: {label: (BinIndex on the card, batch rows)}, or (BinIndex,
+    rows, calls a timing): the mesh phases' maps, float64 alone (their
+    type) with 10 calls a timing.  A map of a million entries a call or
+    more is timed over 10 calls (its plain segment sum takes up to 46 ms a
+    call), a smaller one over 50."""
     from nifty_tpu_torch.ops import bin_gather as bg
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     results = {}
-    for label, (dist, nrows) in cases.items():
-        for dtype in (torch.float64, torch.float32):
+    for label, (dist, nrows, *calls) in cases.items():
+        n = calls[0] if calls else (10 if dist.n * nrows >= 2 ** 20 else 50)
+        for dtype in (torch.float64,) if calls else (torch.float64, torch.float32):
             table = torch.randn((nrows, dist.nb), dtype=dtype, device=dev, generator=gen)
             cot = torch.randn((nrows, dist.n), dtype=dtype, device=dev, generator=gen)
             kernels_before = bg.bin_gather.kernel_launches
@@ -753,12 +803,12 @@ def phase_kernels(cases):
             if lib_rel > 10 * SEGSUM_RTOL[dtype]:
                 raise AssertionError(f"index_add_ disagrees with the plain version ({label})")
             times = {}
-            times["gather_ms"], times["gather_plain_ms"] = host_paced_ms(gather, gather_plain)
-            times["segsum_ms"], times["segsum_plain_ms"] = host_paced_ms(segsum, segsum_plain)
+            times["gather_ms"], times["gather_plain_ms"] = host_paced_ms(gather, gather_plain, n)
+            times["segsum_ms"], times["segsum_plain_ms"] = host_paced_ms(segsum, segsum_plain, n)
             for kind, fn in (("gather", gather), ("gather_plain", gather_plain),
                              ("segsum", segsum), ("segsum_plain", segsum_plain),
                              ("segsum_library", segsum_library)):
-                times[f"{kind}_device_ms"] = device_ms(fn)
+                times[f"{kind}_device_ms"] = device_ms(fn, n)
             times["gather_library_device_ms"] = times["gather_plain_device_ms"]
             # the least the card could take: every input of the function
             # read once (the values and the index map at its narrow width;
@@ -1798,6 +1848,10 @@ def phase_hp_kernels(cases, wide):
     gen.manual_seed(2)
     results, tables = {}, {}
     for label, (rings, nm, nrows) in cases.items():
+        # held in both types at every row count; timed in float64: the
+        # main path's shape (one row, phase 23) with the plain versions'
+        # and the stored tables' times, the other rows the kernels and the
+        # torch.fft route
         for dtype in (torch.float64, torch.float32):
             F = torch.randn((nrows, 2, nm, rings.nrings), dtype=dtype, device=dev, generator=gen)
             ct = torch.randn((nrows, rings.npix), dtype=dtype, device=dev, generator=gen)
@@ -1806,6 +1860,26 @@ def phase_hp_kernels(cases, wide):
             y1, g1, rels = check_k10(label, rings, nm, F, ct, (y_plain, g_plain),
                                      "their plain versions")
             if dtype != torch.float64:
+                continue
+            r = dict(synth_err=float((y1 - y_plain).abs().max()),
+                     adjoint_err=float((g1 - g_plain).abs().max()),
+                     synth_rel=rels[0], adjoint_rel=rels[1])
+            r["synth_device_ms"] = device_ms(lambda: hl.hp_longitude(F, rings))
+            r["adjoint_device_ms"] = device_ms(lambda: hl.hp_longitude_adjoint(ct, rings, nm))
+            r["synth_library_ms"] = device_ms(lambda: hl.hp_longitude_fft_route(F, rings), n=5)
+            r["adjoint_library_ms"] = device_ms(
+                lambda: hl.hp_longitude_adjoint_fft_route(ct, rings, nm), n=5)
+            bound = hp_bound_ms(rings, nm, nrows, F.element_size(), PEAK_OPS_PER_S[dtype])
+            r["synth_bound_ms"], r["synth_bound_by"] = bound
+            r["adjoint_bound_ms"], r["adjoint_bound_by"] = bound
+            results[label] = r
+            if nrows > 1:
+                print(f"{label}: planes ({nrows}, 2, {nm}, {rings.nrings}) <-> maps ({nrows}, "
+                      f"{rings.npix}) | float64 ms: synthesis {r['synth_device_ms']:.5f} "
+                      f"(torch.fft route {r['synth_library_ms']:.4f}) | adjoint "
+                      f"{r['adjoint_device_ms']:.5f} (torch.fft route "
+                      f"{r['adjoint_library_ms']:.4f}) | bound {bound[0]:.5f} by {bound[1]} | "
+                      f"rel err of sum|term| {rels[0]:.2e} / {rels[1]:.2e}", flush=True)
                 continue
             key = (rings.npix, nm)
             if key not in tables:
@@ -1827,23 +1901,11 @@ def phase_hp_kernels(cases, wide):
             for got, want in ((synth_t(), y_plain), (adjoint_t(), g_plain)):
                 if float((got - want).abs().max()) > 1e-12 * float(want.abs().max()):
                     raise AssertionError(f"the stored-table route disagrees ({label})")
-            r = dict(synth_err=float((y1 - y_plain).abs().max()),
-                     adjoint_err=float((g1 - g_plain).abs().max()),
-                     synth_rel=rels[0], adjoint_rel=rels[1])
-            r["synth_device_ms"] = device_ms(lambda: hl.hp_longitude(F, rings))
-            r["adjoint_device_ms"] = device_ms(lambda: hl.hp_longitude_adjoint(ct, rings, nm))
-            r["synth_library_ms"] = device_ms(lambda: hl.hp_longitude_fft_route(F, rings), n=5)
-            r["adjoint_library_ms"] = device_ms(
-                lambda: hl.hp_longitude_adjoint_fft_route(ct, rings, nm), n=5)
             r["synth_plain_ms"] = cuda_ms(lambda: hl.hp_longitude_plain(F, rings), n=5)
             r["adjoint_plain_ms"] = cuda_ms(
                 lambda: hl.hp_longitude_adjoint_plain(ct, rings, nm), n=5)
             r["synth_table_ms"] = cuda_ms(synth_t, n=5)
             r["adjoint_table_ms"] = cuda_ms(adjoint_t, n=5)
-            bound = hp_bound_ms(rings, nm, nrows, F.element_size(), PEAK_OPS_PER_S[dtype])
-            r["synth_bound_ms"], r["synth_bound_by"] = bound
-            r["adjoint_bound_ms"], r["adjoint_bound_by"] = bound
-            results[label] = r
             print(
                 f"{label}: planes ({nrows}, 2, {nm}, {rings.nrings}) <-> maps ({nrows}, "
                 f"{rings.npix}) | float64 ms: synthesis {r['synth_device_ms']:.5f} "
@@ -1882,21 +1944,8 @@ def phase_hp_kernels(cases, wide):
             r["synth_device_ms"] = device_ms(lambda: hl.hp_longitude(F, rings), n=10)
             r["adjoint_device_ms"] = device_ms(lambda: hl.hp_longitude_adjoint(ct, rings, nm),
                                                n=10)
-            # the torch.fft route, one cuFFT plan a distinct ring length (2048
-            # at nside 2048), held to the kernels on the whole grid; CUDA
-            # events around 3 calls after 3 more that build the plans
-            lib = (lambda: hl.hp_longitude_fft_route(F, rings),
-                   lambda: hl.hp_longitude_adjoint_fft_route(ct, rings, nm))
-            lib_rels = [float(((route() - got).abs() / scale.clamp_min(torch.finfo(dtype).tiny))
-                              .max())
-                        for route, got, scale in zip(
-                            lib, (hl.hp_longitude(F, rings), hl.hp_longitude_adjoint(ct, rings, nm)),
-                            (hl.sum_abs_terms(rings, F=F), hl.sum_abs_terms(rings, ct=ct)))]
-            if max(lib_rels) > HP_RTOL[dtype]:
-                raise AssertionError(f"the torch.fft route is off the K10 kernels by {lib_rels} "
-                                     f"of the per-output sum of |term| ({label})")
-            r["synth_library_ms"] = cuda_ms(lib[0], n=3)
-            r["adjoint_library_ms"] = cuda_ms(lib[1], n=3)
+            # (the torch.fft route here needs a cuFFT plan for each of 2048
+            # ring lengths: timed once, PERF.md; not rebuilt in every run)
             bound = hp_bound_ms(rings, nm, nrows, F.element_size(), PEAK_OPS_PER_S[dtype])
             r["bound_ms"], r["bound_by"] = bound
             results[label] = r
@@ -1907,9 +1956,7 @@ def phase_hp_kernels(cases, wide):
                 f"synthesis {r['synth_device_ms']:.5f} ({100 * bound[0] / r['synth_device_ms']:.1f}"
                 f" % of the bound) | adjoint {r['adjoint_device_ms']:.5f} "
                 f"({100 * bound[0] / r['adjoint_device_ms']:.1f} %) | bound {bound[0]:.5f} by "
-                f"{bound[1]} | torch.fft route {r['synth_library_ms']:.3f} / "
-                f"{r['adjoint_library_ms']:.3f} (CUDA events; off the kernels by "
-                f"{lib_rels[0]:.2e} / {lib_rels[1]:.2e} of sum|term|) | shared memory a block "
+                f"{bound[1]} | shared memory a block "
                 f"{rings.smem_bytes(nm, False)} / "
                 f"{rings.smem_bytes(nm, True)} bytes | rel err of sum|term| on the sample "
                 f"{rels[0]:.2e} / {rels[1]:.2e}",
@@ -3388,6 +3435,555 @@ def k7_kernel_entries(kres, factor_res, runs, checked):
     return entries
 
 
+# -- mesh parallelism (phases 37-40) ----------------------------------------------
+#
+# The worlds are processes of their own (`nifty_tpu_torch.parallel.run_world`,
+# spawned): each rank imports this file, so what they run is a function at
+# its top level.  A world runs every case it serves in one go.
+
+#: `demos/4_multichip.py` through the JAX package on 4 virtual CPU devices
+#: (`XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu
+#: python demos/4_multichip.py`): its posterior-mode RMS error.  Phase 38
+#: draws its own truth and noise (the port's generator), so it is held to
+#: this figure times the margin, not to it.
+DEMO4_JAX_RMS = 0.0723
+DEMO4_RMS_MARGIN = 1.5
+#: phase 6's field at 4096^2 and the (64 x 32) field of phases 38 and 40
+MESH_4096 = (4096, 4096)
+MESH_DEMO4 = (64, 32)
+#: phase 37's transforms: the 4096^2 field, a 3-D pencil, the 1-D four-step
+#: and a partner axis that the field ranks do not divide
+MESH_TRANSFORMS = {"4096^2": MESH_4096, "256^3 pencil": (256,) * 3,
+                   "1-D 2^24 four-step": (2 ** 24,),
+                   "4096 x 4095 (partner axis not divisible)": (4096, 4095)}
+#: `optimize_kl` budgets of phase 40 (deterministic fixed trips: short),
+#: with the maps left at "auto" as a user's run leaves them: on the card
+#: under `deterministic_reductions` with a mesh active "auto" is the sample
+#: loop (the lockstep maps' row sums would part the worlds; they raise on
+#: a samples axis of several ranks, which phase 40 checks).
+CKPT_KWARGS = dict(
+    n_samples=4,
+    draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=5)),
+    nonlinearly_update_kwargs=dict(minimize_kwargs=dict(
+        xtol=1e-3, maxiter=2, cg_kwargs=dict(maxiter=5))),
+    kl_kwargs=dict(minimize_kwargs=dict(xtol=1e-4, maxiter=2, cg_kwargs=dict(maxiter=5))),
+    sample_mode="nonlinear_resample",
+)
+
+
+def digest_tree(tree):
+    """:func:`digest` of a tree's leaves, raveled and joined in flatten
+    order."""
+    from nifty_tpu_torch.tree import tree_leaves
+
+    return digest(torch.cat([x.detach().reshape(-1) for x in tree_leaves(tree)]))
+
+
+def mesh_rank(cases):
+    """What a rank of a phase-37-40 world runs: ``cases`` ``(name, function
+    name, kwargs)``; each function takes the package first and returns
+    picklable results; its seconds are added."""
+    import nifty_tpu_torch as jt
+    from nifty_tpu_torch.parallel.mesh import active_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    jt.logger.setLevel(logging.WARNING)
+    out = {}
+    for name, fn, kwargs in cases:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = globals()[fn](jt, **kwargs)
+        torch.cuda.synchronize()
+        out[name] = dict(res, seconds=time.perf_counter() - t0)
+        mesh = active_mesh()
+        if mesh is not None:
+            mesh.deactivate()
+        jt.config.update("deterministic_reductions", False)
+    return out
+
+
+def _rel_err(got, want):
+    """max |got - want| over max |want|, over the field group's ranks."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def mesh_transforms(jt, samples, field):
+    """Phase 37's transforms: each rank's rows of ``distributed_hartley`` and
+    ``distributed_fftn``, forward and adjoint (autograd), against the
+    whole-field transform on one rank (``ops.harmonic.hartley``,
+    ``torch.fft``); device ms of the 4096^2 pencil Hartley transform."""
+    from nifty_tpu_torch.ops.distributed_fft import distributed_fftn, distributed_hartley
+    from nifty_tpu_torch.ops.harmonic import hartley
+    from nifty_tpu_torch.parallel import collectives as coll
+    from nifty_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(samples, field)
+    fg = mesh.group(mesh.field_axis)
+    dev = jt.config.default_device()
+    gen = torch.Generator(device=dev).manual_seed(37)
+    res = {}
+    for label, shape in MESH_TRANSFORMS.items():
+        x, y, w = (torch.randn(shape, dtype=torch.float64, device=dev, generator=gen)
+                   for _ in range(3))
+        z = torch.complex(x, w)
+        xs, ys, zs, ws = (mesh.own_rows(v) for v in (x, y, z, torch.complex(y, w)))
+        errs = {}
+        errs["hartley"] = _rel_err(distributed_hartley(xs, mesh), mesh.own_rows(hartley(x)))
+        xg = xs.clone().requires_grad_(True)
+        (distributed_hartley(xg, mesh) * ys).sum().backward()
+        errs["hartley adjoint"] = _rel_err(xg.grad, mesh.own_rows(hartley(y)))
+        errs["fftn"] = _rel_err(distributed_fftn(zs, mesh), mesh.own_rows(torch.fft.fftn(z)))
+        zg, zl = zs.clone().requires_grad_(True), z.clone().requires_grad_(True)
+        (distributed_fftn(zg, mesh).conj() * ws).real.sum().backward()
+        (torch.fft.fftn(zl).conj() * torch.complex(y, w)).real.sum().backward()
+        errs["fftn adjoint"] = _rel_err(zg.grad, mesh.own_rows(zl.grad))
+        worst = coll.all_reduce(torch.tensor(list(errs.values()), device=dev), fg,
+                                op=coll.dist.ReduceOp.MAX) if fg is not None else \
+            torch.tensor(list(errs.values()))
+        res[label] = dict(zip(errs, worst.tolist()))
+        if shape == MESH_4096:
+            for _ in range(3):
+                distributed_hartley(xs, mesh)
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(10):
+                distributed_hartley(xs, mesh)
+            stop.record()
+            torch.cuda.synchronize()
+            res["hartley 4096^2 ms"] = start.elapsed_time(stop) / 10
+            res["hartley 4096^2 local ms"] = cuda_ms(lambda: hartley(x), n=10)
+        del x, y, w, z, xs, ys, zs, ws, xg, zg, zl
+    return res
+
+
+def mesh_kernels(jt, samples, field):
+    """Phase 37's kernel checks: this rank's slab of the 4096^2 ``n_bins=128``
+    map and its (row, bin) map, the gather and both segment sums against
+    their plain versions, as the field-sharded distributor runs them."""
+    from nifty_tpu_torch.ops import bin_gather as bg
+    from nifty_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(samples, field)
+    grid = jt.make_grid(MESH_4096, 1.0 / MESH_4096[0], "fourier", n_bins=128)
+    full = np.asarray(grid.harmonic_grid.power_distributor)
+    nb = int(np.asarray(grid.harmonic_grid.mode_lengths).size)
+    rows = mesh.own_rows(torch.from_numpy(full)).numpy()
+    dev = jt.config.default_device()
+    slab = bg.BinIndex(rows, nb=nb).to(dev)
+    rowbin = bg.row_bin_index(rows, nb).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(int(mesh.index(mesh.field_axis)))
+    table = torch.randn((1, nb), dtype=torch.float64, device=dev, generator=gen)
+    cot = torch.randn((1, slab.n), dtype=torch.float64, device=dev, generator=gen)
+    out = dict(gather=bool(torch.equal(bg.bin_gather(table, slab),
+                                       bg.bin_gather_plain(table, slab.idx))))
+    for name, dist in (("segment sum", slab), ("rows x bins segment sum", rowbin)):
+        got = bg.bin_segment_sum(cot, dist)
+        plain = bg.bin_segment_sum_plain(cot, dist.perm, dist.offsets)
+        scale = bg.bin_segment_sum_plain(cot.abs(), dist.perm, dist.offsets).clamp_min(1e-300)
+        out[name] = float(((got - plain).abs() / scale).max())
+    out["map"] = (slab.shape, nb, rowbin.nb)
+    return out
+
+
+def mesh_pairwise(jt, samples):
+    """Phase 37: ``pairwise_mean`` of 8 rows spread over ``samples`` ranks,
+    its digest, and how it ran."""
+    from nifty_tpu_torch.parallel import make_mesh, pairwise_mean
+
+    mesh = make_mesh(samples, _world_ranks() // samples)
+    dev = jt.config.default_device()
+    x = torch.randn((8, 1000), dtype=torch.float64, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(8))
+    got = pairwise_mean(mesh.own_rows(x, mesh.sample_axis), mesh=mesh)
+    return dict(digest=digest_tree(got), one=digest_tree(pairwise_mean(x)),
+                stats=dict(mesh.stats))
+
+
+def _world_ranks():
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def demo4_field(jt, mesh):
+    """`demos/4_multichip.py`'s field on the mesh's field ranks (its grid
+    (32 n_f, 32) at n_f = 2; its priors) with the pencil Hartley."""
+    from nifty_tpu_torch.ops.distributed_fft import distributed_hartley
+
+    cfm = jt.CorrelatedFieldMaker("cf")
+    cfm.set_amplitude_total_offset(offset_mean=1.0, offset_std=(1e-1, 3e-2))
+    cfm.add_fluctuations(MESH_DEMO4, 1.0 / MESH_DEMO4[0], (1.0, 0.5), (-3.0, 0.2))
+    hfn = None if mesh is None else (lambda x, axes=None: distributed_hartley(x, mesh, axes=axes))
+    return cfm.finalize(hartley_fn=hfn)
+
+
+def demo4_likelihood(jt, mesh, noise=0.1):
+    """The demo's truth (a prior draw) and data (white noise of 0.1), drawn
+    whole on every rank, then the likelihood placed on the mesh."""
+    from nifty_tpu_torch.parallel import shard_position
+
+    whole = demo4_field(jt, None)
+    key, k1, k2 = jt.split(0, 3)
+    with torch.no_grad():
+        truth = whole(whole.init(k1))
+        data = truth + noise * jt.random_like(k2, truth)
+    lh = jt.Gaussian(data, noise_cov_inv=lambda x: x / noise ** 2).amend(demo4_field(jt, mesh))
+    return shard_position(lh, mesh), truth, key
+
+
+def mesh_demo4(jt, samples, field, n_iterations=4):
+    """Phase 38: `demos/4_multichip.py`'s loop through the port: each
+    iteration an antithetic linear draw (CG 40) of two keys, the keys'
+    rows spread over the samples ranks, then Newton-CG on the KL (10
+    steps, CG 20, xtol 1e-4); the KL energies and the posterior mode's RMS
+    error against the truth."""
+    from nifty_tpu_torch.ops import bin_gather as bg
+    from nifty_tpu_torch.parallel import collectives as coll
+    from nifty_tpu_torch.parallel import make_mesh, shard_position
+    from nifty_tpu_torch.parallel.mesh import sample_rows
+
+    mesh = make_mesh(samples, field)
+    lh, truth, key = demo4_likelihood(jt, mesh)
+    pos = shard_position(jt.random_like(key, lh.domain), mesh)
+    opt = jt.OptimizeVI(lh, n_total_iterations=n_iterations)
+    bg.reset_launch_counts()
+    energies = []
+    for _ in range(n_iterations):
+        key, sk = jt.split(key, 2)
+        keys = jt.split(sk, max(samples, 2))
+        first, count = sample_rows(mesh, len(keys))
+        smp, _ = opt.draw_linear_samples(pos, keys[first:first + count],
+                                         cg_kwargs=dict(maxiter=40))
+        res = opt.kl_minimize(smp, minimize_kwargs=dict(maxiter=10, xtol=1e-4,
+                                                        cg_kwargs=dict(maxiter=20)))
+        pos = res.x
+        energies.append(float(res.fun))
+    with torch.no_grad():
+        mode = lh.model(pos)
+        sq = coll.all_reduce(((mode - mesh.own_rows(truth)) ** 2).sum().reshape(1),
+                             mesh.group(mesh.field_axis))
+    rms = float(torch.sqrt(sq / truth.numel()))
+    return dict(energies=energies, rms=rms, counts=launch_counts(bg))
+
+
+def mesh_checkpoint_write(jt, samples, field, odir):
+    """Phase 40: ``optimize_kl(checkpoint_format="orbax")`` for 2
+    iterations (`deterministic_reductions`), then a third continued in
+    memory; digests of the whole samples after each."""
+    from nifty_tpu_torch.ops import bin_gather as bg
+    from nifty_tpu_torch.parallel import gather_samples, make_mesh, shard_position
+
+    jt.config.update("deterministic_reductions", True)
+    mesh = make_mesh(samples, field)
+    lh, _, key = demo4_likelihood(jt, mesh)
+    pos = shard_position(jt.random_like(key, lh.domain), mesh)
+    # the lockstep maps refuse this world; "auto" loops over samples
+    opt = jt.OptimizeVI(lh, n_total_iterations=2)
+    try:
+        jt.OptimizeVI(lh, n_total_iterations=2, residual_map="vmap").draw_linear_samples(
+            pos, jt.split(0, 2))
+        refused = False
+    except ValueError:
+        refused = True
+    bg.reset_launch_counts()
+    kw = dict(key=jt.HostKey(40), checkpoint_format="orbax", **CKPT_KWARGS)
+    s2, st2 = jt.optimize_kl(lh, pos, n_total_iterations=2, odir=odir, **kw)
+    s3, st3 = jt.optimize_kl(lh, s2, n_total_iterations=3, odir=os.path.join(odir, "in_memory"),
+                             _optimize_vi_state=st2, **kw)
+    whole = gather_samples(s3, mesh)
+    return dict(energy=float(st3.minimization_state.fun), nit=int(st3.nit),
+                digest=digest_tree((whole.pos, whole._samples)), counts=launch_counts(bg),
+                files=sorted(os.listdir(os.path.join(odir, "last_ckpt"))),
+                auto_maps=(opt.lockstep, opt.kl_map), vmap_refused=refused)
+
+
+def mesh_checkpoint_resume(jt, samples, field, src, odir):
+    """Phase 40: the third iteration resumed from ``src`` (the checkpoint
+    phase 40 wrote on 2 x 2) on this world."""
+    from nifty_tpu_torch.ops import bin_gather as bg
+    from nifty_tpu_torch.parallel import gather_samples, make_mesh
+
+    jt.config.update("deterministic_reductions", True)
+    mesh = make_mesh(samples, field)
+    lh, _, _ = demo4_likelihood(jt, mesh)
+    bg.reset_launch_counts()
+    s3, st3 = jt.optimize_kl(lh, None, n_total_iterations=3, odir=odir, resume=src,
+                             key=jt.HostKey(40), checkpoint_format="orbax", **CKPT_KWARGS)
+    whole = gather_samples(s3, mesh)
+    return dict(energy=float(st3.minimization_state.fun), nit=int(st3.nit),
+                digest=digest_tree((whole.pos, whole._samples)), counts=launch_counts(bg))
+
+
+def mesh_update_4096(jt, samples, field, data_file, out_dir, tag):
+    """Phase 39: phase 6's 4096^2 ``n_bins=128`` model (its data, read from
+    ``data_file``), field- and sample-sharded, under
+    ``deterministic_reductions``: the stages and one update with ``BENCH_KWARGS`` and the sample
+    loop; s/update, peak memory, collectives and kernel launches of the
+    update; the whole samples saved as ``out_dir/<tag>_*.npy`` by rank 0.
+    The stages: the energy, a metric matvec and a 20-step CG draw."""
+    from nifty_tpu_torch.ops import bin_gather as bg
+    from nifty_tpu_torch.ops.distributed_fft import distributed_hartley
+    from nifty_tpu_torch.parallel import collectives as coll
+    from nifty_tpu_torch.parallel import gather_samples, make_mesh, shard_position
+    from nifty_tpu_torch.parallel.mesh import gather_position
+
+    jt.config.update("deterministic_reductions", True)
+    mesh = make_mesh(samples, field)
+    dev = jt.config.default_device()
+    cfm = jt.CorrelatedFieldMaker("cf")
+    cfm.set_amplitude_total_offset(offset_mean=1.0, offset_std=(1e-1, 3e-2))
+    cfm.add_fluctuations(MESH_4096, distances=1.0 / MESH_4096[0], fluctuations=(1.0, 5e-1),
+                         loglogavgslope=(-3.0, 2e-1), flexibility=(1e0, 5e-1),
+                         asperity=(5e-1, 5e-2), n_bins=128)
+    cf = cfm.finalize(hartley_fn=lambda x, axes=None: distributed_hartley(x, mesh, axes=axes))
+    data = torch.from_numpy(np.load(data_file)).to(dev)
+    lh = shard_position(jt.Gaussian(data, noise_cov_inv=lambda x: x / NOISE_STD ** 2).amend(cf),
+                        mesh)
+    del data
+    pos = shard_position(jt.random_like(1, lh.domain), mesh)
+    tan = shard_position(jt.random_like(5, lh.domain), mesh)
+    # the noise of a slab tree: each sharded leaf drawn whole and cut to the
+    # rank's rows, beside a draw of the slab's shape alone
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    jt.random_like(11, tan)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    torch.randn(tan["cfxi"].shape, dtype=torch.float64, device=dev,
+                generator=torch.Generator(device=dev).manual_seed(11))
+    torch.cuda.synchronize()
+    draw_s = dict(slab_tree=t1 - t0, slab_leaf_alone=time.perf_counter() - t1)
+    energy = float(lh(pos))
+    metric = gather_position(lh.metric(pos, tan), mesh)
+    draw, _ = jt.draw_linear_residual(lh, pos, 3, cg_kwargs=dict(maxiter=20))
+    draw = gather_position(draw, mesh)
+    stages = dict(energy=energy, metric=digest_tree(metric), draw=digest_tree(draw))
+    del metric, draw, tan
+    opt = jt.OptimizeVI(lh, n_total_iterations=100, residual_map="smap", kl_map="smap")
+    state = opt.init_state(7, **BENCH_KWARGS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bg.reset_launch_counts()
+    coll.reset_counts()
+    mesh.stats.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    smp, state = opt.update(jt.Samples(pos=pos), state)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts, colls, nbytes = launch_counts(bg), dict(coll.COUNTS), dict(coll.BYTES)
+    stats = dict(mesh.stats)
+    whole = gather_samples(smp, mesh)
+    if mesh.is_root:
+        for name, tree in (("pos", whole.pos), ("samples", whole._samples)):
+            for k, v in tree.items():
+                np.save(os.path.join(out_dir, f"{tag}_{name}_{k}.npy"), v.cpu().numpy())
+    return dict(stages=stages, seconds_update=secs, energy=float(state.minimization_state.fun),
+                newton=int(state.minimization_state.nit), peak_gib=peak, counts=counts,
+                collectives=colls, collective_bytes=nbytes, stats=stats,
+                digest=digest_tree((whole.pos, whole._samples)), noise_draw_s=draw_s)
+
+
+def nccl_mesh_shape():
+    """The NCCL world's mesh: every card a rank, field-sharded over two
+    cards or fewer, else two samples ranks times the rest."""
+    n = torch.cuda.device_count()
+    return (1, n) if n <= 2 else (2, n // 2)
+
+
+def mesh_world_cases(ckpt_dir, data_file, out_dir, world):
+    """The cases of the 4-rank gloo world on one card (``world="gloo"``) or
+    of the NCCL world over every card (``"nccl"``, one rank a card)."""
+    if world == "gloo":
+        return [
+            ("37 transforms", "mesh_transforms", dict(samples=2, field=2)),
+            ("37 kernels", "mesh_kernels", dict(samples=2, field=2)),
+            ("37 pairwise 4", "mesh_pairwise", dict(samples=4)),
+            ("37 pairwise 2", "mesh_pairwise", dict(samples=2)),
+            ("38 demo 4", "mesh_demo4", dict(samples=2, field=2)),
+            ("40 write", "mesh_checkpoint_write", dict(samples=2, field=2, odir=ckpt_dir)),
+            ("40 resume 4x1", "mesh_checkpoint_resume",
+             dict(samples=4, field=1, src=os.path.join(ckpt_dir, "last_ckpt"),
+                  odir=os.path.join(ckpt_dir, "resume_4x1"))),
+            ("39 update", "mesh_update_4096", dict(samples=2, field=2, data_file=data_file,
+                                                   out_dir=out_dir, tag="2x2")),
+        ]
+    samples, field = nccl_mesh_shape()
+    return [
+        ("37 transforms", "mesh_transforms", dict(samples=samples, field=field)),
+        ("37 pairwise 1", "mesh_pairwise", dict(samples=samples)),
+        ("40 resume", "mesh_checkpoint_resume",
+         dict(samples=samples, field=field, src=os.path.join(ckpt_dir, "last_ckpt"),
+              odir=os.path.join(ckpt_dir, "resume_nccl"))),
+        ("39 update", "mesh_update_4096", dict(samples=samples, field=field, data_file=data_file,
+                                               out_dir=out_dir, tag="nccl")),
+    ]
+
+
+def mesh_maps(jt, cf4096):
+    """The maps the mesh phases launch the distributor on (this rank's rows
+    of the full-grid map, the whole map, and their (row, bin) maps), as
+    phase 3 holds them; a field rank other than the first has maps of the
+    same shapes."""
+    from nifty_tpu_torch.ops import bin_gather as bg
+
+    out = {}
+    for label, field in (("4096^2 nb128", cf4096), ("64 x 32", demo4_field(jt, None))):
+        hg = field.target_grids[0].harmonic_grid
+        full, nb = np.asarray(hg.power_distributor), field.dists[0].nb
+        half = full[:full.shape[0] // 2]
+        for name, idx in (("full", full), ("slab", half)):
+            out[f"{label} {name}"] = bg.BinIndex(idx, nb=nb).cuda()
+            out[f"{label} {name} rows x bins"] = bg.row_bin_index(idx, nb).cuda()
+    return out
+
+
+#: rows the mesh phases give each map (see `mesh_world_cases`): phases 39
+#: and 40's sample loops one; phase 38's lockstep draw of a key a rank one,
+#: its stacked KL metric two (four and eight held too)
+MESH_MAP_ROWS = {
+    "4096^2 nb128 full": (1,), "4096^2 nb128 slab": (1,),
+    "4096^2 nb128 full rows x bins": (1,), "4096^2 nb128 slab rows x bins": (1,),
+    "64 x 32 full": (1, 2, 4, 8), "64 x 32 full rows x bins": (1, 2, 4, 8),
+    "64 x 32 slab": (1, 2, 4, 8), "64 x 32 slab rows x bins": (1, 2, 4, 8),
+}
+
+
+def _same_samples(out_dir, a, b):
+    """The largest difference of the two worlds' saved samples and
+    positions."""
+    worst = 0.0
+    for f in sorted(os.listdir(out_dir)):
+        if f.startswith(a + "_"):
+            x = np.load(os.path.join(out_dir, f), mmap_mode="r")
+            y = np.load(os.path.join(out_dir, b + f[len(a):]), mmap_mode="r")
+            worst = max(worst, float(np.abs(x - y).max()))
+    return worst
+
+
+def phase_mesh(jt, tmp, data_file, phase6_energy, smi_line):
+    """Phases 37-40 (see the module docstring): the 4-rank gloo world on
+    card 0, then the NCCL world over every card; returns the kernels'
+    counts of each run."""
+    from nifty_tpu_torch.parallel import run_world
+
+    ckpt, out = os.path.join(tmp, "ckpt"), os.path.join(tmp, "out")
+    os.makedirs(ckpt)
+    os.makedirs(out)
+    torch.cuda.empty_cache()
+    n_cards = torch.cuda.device_count()
+    worlds = {}
+    for world, n, backend in (("gloo", 4, "gloo"), ("nccl", n_cards, "nccl")):
+        t0 = time.perf_counter()
+        ranks = run_world(mesh_rank, n, args=(mesh_world_cases(ckpt, data_file, out, world),),
+                          backend=backend, device="cuda", timeout=420, collective_timeout=300)
+        worlds[world] = ranks
+        print(f"mesh world {world}: {n} ranks ({'sharing card 0, collectives through its memory '
+              '(CUDA IPC) and gloo barriers' if world == 'gloo' else 'one a card'}) "
+              f"{time.perf_counter() - t0:.3f} s with the start of its processes | {smi_line}",
+              flush=True)
+    g, nc = worlds["gloo"][0], worlds["nccl"][0]
+    nccl = "nccl {} x {}".format(*nccl_mesh_shape())
+    seconds = {w: {name: round(v["seconds"], 3) for name, v in ranks[0].items()}
+               for w, ranks in worlds.items()}
+
+    # 37: the transforms, the kernels on the ranks' maps, the fixed-order mean
+    for w, res in (("gloo 2 x 2", g["37 transforms"]), (nccl, nc["37 transforms"])):
+        errs = {k: v for k, v in res.items() if isinstance(v, dict)}
+        print(f"37 {w}: distributed transforms against the whole field's on one rank, max "
+              f"|difference| / max |whole|: {json.dumps(errs)} | 4096^2 pencil Hartley "
+              f"{res['hartley 4096^2 ms']:.3f} ms a call (one rank's whole-field hartley "
+              f"{res['hartley 4096^2 local ms']:.3f} ms)", flush=True)
+        bad = {k: e for k, e in errs.items() if max(e.values()) > 1e-10}
+        if bad:
+            raise AssertionError(f"37 {w}: the distributed transforms disagree: {res}")
+    kern = [r["37 kernels"] for r in worlds["gloo"]]
+    print(f"37 kernels on each rank's maps (slab, rows x bins {kern[0]['map']}): gather bitwise "
+          f"{[k['gather'] for k in kern]}, segment sums' error of sum|cot| "
+          f"{[(k['segment sum'], k['rows x bins segment sum']) for k in kern]}", flush=True)
+    if not all(k["gather"] for k in kern) or max(
+            max(k["segment sum"], k["rows x bins segment sum"]) for k in kern) > 1e-12:
+        raise AssertionError(f"37: a distributor kernel disagrees on a rank's map: {kern}")
+    digests = {f"{n} ranks": g[f"37 pairwise {n}"]["digest"] for n in (4, 2)}
+    digests.update({"1 rank": g["37 pairwise 4"]["one"], nccl: nc["37 pairwise 1"]["digest"]})
+    print(f"37 pairwise_mean of 8 rows over 1, 2 and 4 ranks: {digests} | "
+          f"{g['37 pairwise 4']['stats']}", flush=True)
+    if len(set(digests.values())) != 1:
+        raise AssertionError(f"37: pairwise_mean's bits depend on the world: {digests}")
+    print(f"[phase] 37 the mesh on the card: {seconds['gloo']['37 transforms']} + "
+          f"{seconds['gloo']['37 kernels']} s (gloo 2 x 2), {seconds['nccl']['37 transforms']} s "
+          f"({nccl})", flush=True)
+
+    # 38: demo 4
+    d4 = g["38 demo 4"]
+    gate = DEMO4_JAX_RMS * DEMO4_RMS_MARGIN
+    print(f"38 demos/4_multichip.py on 2 x 2 (64 x 32, 4 iterations): KL energies "
+          f"{[f'{e:.4e}' for e in d4['energies']]} | posterior-mode RMS error {d4['rms']:.4f} "
+          f"(noise 0.1; the JAX demo on 4 virtual CPU devices {DEMO4_JAX_RMS}, gate {gate:.4f}) | "
+          f"launches by map: {maps_text(d4['counts'])}", flush=True)
+    if not d4["rms"] <= gate:
+        raise AssertionError(f"38: posterior-mode RMS error {d4['rms']} above {gate}")
+    require_launches("38 demo 4", d4["counts"])
+    print(f"[phase] 38 demos/4_multichip.py, 2 x 2: {seconds['gloo']['38 demo 4']} s", flush=True)
+
+    # 39: the 4096^2 update
+    stages = {w: worlds[w][0]["39 update"]["stages"] for w in worlds}
+    for w, r in (("gloo 2 x 2", g["39 update"]), (nccl, nc["39 update"])):
+        ranks = worlds["gloo" if w.startswith("gloo") else "nccl"]
+        print(f"39 {w}: s/update {r['seconds_update']:.3f}"
+              + (" (four ranks share one card: not a scaling figure)" if w.startswith("gloo")
+                 else "") + f" | KL energy {r['energy']!r} ({(r['energy'] - phase6_energy) / phase6_energy:+.3e} "
+              f"from phase 6's {phase6_energy!r}: fixed-trip solvers and fixed-order sums) | "
+              f"Newton steps {r['newton']} | peak GiB per rank "
+              f"{[round(x['39 update']['peak_gib'], 3) for x in ranks]} | collectives a rank: "
+              f"{r['collectives']} bytes of their inputs {r['collective_bytes']} | sample "
+              f"reductions {r['stats']} | launches a rank by map: {maps_text(r['counts'])} | "
+              f"slab noise (whole leaves drawn, rows kept) {r['noise_draw_s']} s | "
+              f"{smi_line}", flush=True)
+        require_launches(f"39 {w}", r["counts"])
+    same_stages = stages["gloo"] == stages["nccl"]
+    bitwise = g["39 update"]["digest"] == nc["39 update"]["digest"]
+    diff = 0.0 if bitwise else _same_samples(out, "2x2", "nccl")
+    e2, e1 = g["39 update"]["energy"], nc["39 update"]["energy"]
+    print(f"39 gloo 2 x 2 against {nccl}: stages (energy, metric matvec, 20-step CG draw) "
+          f"bitwise {same_stages} {stages['gloo']} | update bitwise {bitwise}, samples max "
+          f"|difference| {diff!r}, KL energy relative {abs(e2 - e1) / abs(e1)!r}", flush=True)
+    if not same_stages or diff > 1e-9 or abs(e2 - e1) > 1e-9 * abs(e1):
+        raise AssertionError(f"39: the gloo 2 x 2 world and the {nccl} world disagree")
+    print(f"[phase] 39 4096^2 n_bins=128 geoVI update, field- and sample-sharded: "
+          f"{seconds['gloo']['39 update']} s (gloo 2 x 2), {seconds['nccl']['39 update']} s "
+          f"({nccl})", flush=True)
+
+    # 40: the sharded checkpoint
+    w40, r4, rn = g["40 write"], g["40 resume 4x1"], nc["40 resume"]
+    print(f"40 optimize_kl(checkpoint_format='orbax') on 2 x 2, files {w40['files']} | third "
+          f"iteration in memory {w40['energy']!r} {w40['digest']}, resumed on 4 x 1 "
+          f"{r4['energy']!r} {r4['digest']}, on {nccl} {rn['energy']!r} {rn['digest']}",
+          flush=True)
+    print(f"40 the maps on 2 x 2: 'auto' lockstep, kl_map {w40['auto_maps']}; 'vmap' refused "
+          f"{w40['vmap_refused']}", flush=True)
+    if w40["auto_maps"] != (False, "smap") or not w40["vmap_refused"]:
+        raise AssertionError("40: 'auto' must loop over samples and 'vmap' raise on 2 x 2 "
+                             "under deterministic_reductions on the card")
+    if not (w40["nit"] == r4["nit"] == rn["nit"] == 3
+            and w40["digest"] == r4["digest"] == rn["digest"]
+            and w40["energy"] == r4["energy"] == rn["energy"]):
+        raise AssertionError("40: a resumed iteration differs from the one continued in memory")
+    for label, c in (("40 2 x 2", w40["counts"]), ("40 4 x 1", r4["counts"]),
+                     (f"40 {nccl}", rn["counts"])):
+        require_launches(label, c)
+    print(f"[phase] 40 the sharded checkpoint: {seconds['gloo']['40 write']} + "
+          f"{seconds['gloo']['40 resume 4x1']} s (gloo), {seconds['nccl']['40 resume']} s "
+          f"({nccl})",
+          flush=True)
+    return {"demo4": d4["counts"], "mesh_4096_2x2": g["39 update"]["counts"],
+            "mesh_4096_nccl": nc["39 update"]["counts"], "checkpoint_2x2": w40["counts"],
+            "checkpoint_4x1": r4["counts"], "checkpoint_nccl": rn["counts"]}
+
+
 def profile_update(jt, label, lh, top=12, **maps):
     """One warm-up update from bench.py's start, then one under
     :func:`profile_window`."""
@@ -3483,7 +4079,7 @@ def main(argv):
     kernel's."""
     with_profile = "--profile" in argv
     with_witness = "--witness" in argv
-    phase_device()
+    smi_line = phase_device()
     import nifty_tpu_torch as jt
 
     jt.logger.setLevel(logging.WARNING)
@@ -3519,6 +4115,9 @@ def main(argv):
     lh16, cf16, los16 = build_tomography(jt, (16,) * 3, 48, 64, NUTS_SEED, NUTS_SEED + 1)
     # phase 32's map: demo 11's 64^2 fields (both models share it)
     map64sq = demo11_field(jt, True, "true").dist
+    # phases 37-40's maps: a field rank's rows of phase 6's full-grid map and
+    # of demo 4's, the whole maps, and their (row, bin) maps
+    mmaps = mesh_maps(jt, cf4096)
     print(f"field set-up (host mode maps, CSR) {time.perf_counter() - t0:.3f} s, of which 4096^2 "
           f"unbinned {t2 - t1:.3f} s, 512^2 x 64 {t3 - t2:.3f} s, the HEALPix sky (nside "
           f"{sky_sht.nside}, {sky_sht.nrings} rings, Legendre table "
@@ -3573,6 +4172,10 @@ def main(argv):
         # ARPACK matvec (1), the lockstep draw of 2 keys (2) and the curve
         # and the stacked KL stage of 4 samples (4)
         **{f"64^2 unbinned B={rows}": (map64sq, rows) for rows in (1, 2, 4)},
+        # the mesh phases' maps at the rows they give them (MESH_MAP_ROWS),
+        # float64, 10 calls a timing
+        **{f"{label} B={rows}": (mmaps[label], rows, 10)
+           for label, all_rows in MESH_MAP_ROWS.items() for rows in all_rows},
     })
 
     k7_cpu_vs_card = phase_cpu_vs_card(jt)
@@ -3589,8 +4192,12 @@ def main(argv):
         profile_update(jt, "128^2 unbinned", lh128, residual_map="vmap")
     c_adaptive = phase_adaptive(jt, lh128, e128)
     lh4096 = build_likelihood(jt, cf4096, 0)
-    c4096, _, samples4096 = phase("6 4096^2 n_bins=128, 1 update")(drive)(
+    c4096, e4096, samples4096 = phase("6 4096^2 n_bins=128, 1 update")(drive)(
         jt, "4096^2 n_bins=128", lh4096, 1, residual_map="smap", kl_map="smap")
+    # phase 39's data: phase 6's, read by the ranks of its worlds
+    mesh_tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    data_4096 = os.path.join(mesh_tmp, "data_4096.npy")
+    np.save(data_4096, lh4096.likelihood.data.cpu().numpy())
     if with_profile:
         profile_update(jt, "4096^2 n_bins=128", lh4096, residual_map="smap", kl_map="smap")
     d = cf1024.dist
@@ -3727,6 +4334,13 @@ def main(argv):
     c_solvers = phase_solvers(jt, lh128, samples128)
     del lh128, samples128
 
+    # mesh parallelism: a 4-rank gloo world on card 0, then an NCCL world
+    # over every card
+    try:
+        c_mesh = phase_mesh(jt, mesh_tmp, data_4096, e4096, smi_line)
+    finally:
+        shutil.rmtree(mesh_tmp, ignore_errors=True)
+
     src = "nifty_tpu_torch/csrc/bin_gather.cu"
     tpu = "nifty_tpu/ops/pallas_gather.py"
     # each map with the TPU kernels its gather and segment sum replace and
@@ -3756,6 +4370,23 @@ def main(argv):
         ("256^3 nb128 quarter", cf256.dist, *k1k2, {"tomography_256": c_256}),
         ("16^3 unbinned", cf16.dist, *k3k4, {"nuts_geovi": c_geo16, "nuts": c_nuts}),
         ("64^2 unbinned", demo11_map, *k3k4, {"demo11": c_demo11}),
+        # the mesh phases' maps: launches a rank (rank 0's run)
+        ("4096^2 nb128 slab", mmaps["4096^2 nb128 slab"], *k1k2,
+         {"mesh_4096_2x2": c_mesh["mesh_4096_2x2"]}),
+        ("4096^2 nb128 slab rows x bins", mmaps["4096^2 nb128 slab rows x bins"], *k1k2,
+         {"mesh_4096_2x2": c_mesh["mesh_4096_2x2"]}),
+        ("4096^2 nb128 full", mmaps["4096^2 nb128 full"], *k1k2,
+         {"mesh_4096_nccl": c_mesh["mesh_4096_nccl"]}),
+        ("4096^2 nb128 full rows x bins", mmaps["4096^2 nb128 full rows x bins"], *k1k2,
+         {"mesh_4096_nccl": c_mesh["mesh_4096_nccl"]}),
+        ("64 x 32 slab", mmaps["64 x 32 slab"], *k3k4,
+         {"demo4": c_mesh["demo4"], "checkpoint_2x2": c_mesh["checkpoint_2x2"]}),
+        ("64 x 32 slab rows x bins", mmaps["64 x 32 slab rows x bins"], *k3k4,
+         {"checkpoint_2x2": c_mesh["checkpoint_2x2"]}),
+        ("64 x 32 full", mmaps["64 x 32 full"], *k3k4,
+         {"checkpoint_4x1": c_mesh["checkpoint_4x1"], "checkpoint_nccl": c_mesh["checkpoint_nccl"]}),
+        ("64 x 32 full rows x bins", mmaps["64 x 32 full rows x bins"], *k3k4,
+         {"checkpoint_4x1": c_mesh["checkpoint_4x1"], "checkpoint_nccl": c_mesh["checkpoint_nccl"]}),
     ]
     icr_paths = {"demo9": (icr["demo9"], {"demo9": c_demo9}),
                  "4100^2": (icr["4100^2"], {"4100^2": c_4100}),

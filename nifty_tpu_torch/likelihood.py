@@ -260,6 +260,23 @@ class Likelihood(LazyModel):
     def left_sqrt_metric_tangents_shape(self):
         return self._lsm_tan_shp
 
+    def _shard_(self, mesh, min_ndim=2):
+        """On a field-sharded mesh the data-space white noise is the rank's
+        slab: each leaf of at least ``min_ndim`` dimensions whose first
+        axis divides by the field extent (the rule the data follows) takes
+        the rank's rows."""
+        if getattr(self, "_lsm_sharded", False):
+            return
+        p = mesh.size(mesh.field_axis)
+
+        def local(s):
+            if len(s.shape) >= min_ndim and s.shape[0] % p == 0:
+                return ShapeWithDtype((s.shape[0] // p,) + tuple(s.shape[1:]), s.dtype)
+            return s
+
+        self._lsm_tan_shp = tree_map(local, self._lsm_tan_shp)
+        self._lsm_sharded = True
+
     lsm_tangents_shape = left_sqrt_metric_tangents_shape
 
     @property

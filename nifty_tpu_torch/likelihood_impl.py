@@ -45,6 +45,16 @@ class _TreeBuffers(nn.Module):
     def tree(self):
         return tree_unflatten(self._like, list(self.buffers()))
 
+    def _shard_(self, mesh, min_ndim=2):
+        """Keep this rank's slab of each field-sharded leaf on ``mesh``
+        (:func:`~nifty_tpu_torch.parallel.mesh.shard_position`)."""
+        if getattr(self, "_sharded", False):
+            return
+        from .parallel.mesh import shard_tree_buffers
+
+        shard_tree_buffers(self, mesh, min_ndim)
+        self._sharded = True
+
 
 def _as_tensors(tree, device=None):
     """Leaves that are not tensors yet become tensors on ``device`` (default:

@@ -15,8 +15,9 @@ from typing import Any, NamedTuple
 
 import torch
 
+from . import tree
 from .evi import Samples
-from .tree import Vector, get_map, tree_map
+from .tree import Vector, get_map, tree_leaves, tree_map, tree_unflatten
 
 
 class ChiSqStats(NamedTuple):
@@ -66,6 +67,8 @@ def reduced_residual_stats(position_or_samples, func=None, *, map="vmap"):
     map = get_map(map)
     with torch.no_grad():
         batch = _as_stacked_tree(position_or_samples, func, map)
+        if tree._MESH[0] is not None:
+            return _mesh_stats(batch, tree._MESH[0])
 
         def summarize(batched_leaf):
             avg, chisq, dof = _leaf_stats(batched_leaf)
@@ -76,6 +79,31 @@ def reduced_residual_stats(position_or_samples, func=None, *, map="vmap"):
             return ChiSqStats(over_samples(avg), over_samples(chisq), dof)
 
         return tree_map(summarize, batch)
+
+
+def _mesh_stats(batch, mesh):
+    """:func:`reduced_residual_stats` of a rank's stacked rows on a mesh:
+    the entry sums of field-sharded leaves reduce over the field group,
+    the per-sample statistics are gathered over the samples group, so
+    every rank holds the global table."""
+    from .parallel import collectives as coll
+
+    leaves = tree_leaves(batch)
+    flags = mesh.field_flags(batch, len(leaves))
+    fg, sg = mesh.group(mesh.field_axis), mesh.group(mesh.sample_axis)
+    out = []
+    for leaf, sharded in zip(leaves, flags):
+        n = leaf[0].numel() * (mesh.size(mesh.field_axis) if sharded else 1)
+        dof = n * (2 if leaf.is_complex() else 1)
+        flat = leaf.reshape(leaf.shape[0], -1)
+        sums, squares = flat.sum(dim=1), (flat.abs() ** 2).sum(dim=1)
+        if sharded:
+            sums, squares = coll.all_reduce(sums, fg), coll.all_reduce(squares, fg)
+        avg = coll.all_gather(sums / n, sg)
+        chisq = coll.all_gather(squares / dof, sg)
+        out.append(ChiSqStats(*(torch.stack([v.mean(), v.std(correction=0)])
+                                for v in (avg, chisq)), dof))
+    return tree_unflatten(batch, out)
 
 
 def _flatten_with_labels(node, prefix=""):

@@ -41,7 +41,7 @@ from torch import nn
 
 from .. import config
 from ..model import Model, WrappedCall, wrap
-from ..ops.bin_gather import BinIndex, distribute_power
+from ..ops.bin_gather import BinIndex, distribute_power, distribute_power_slab, row_bin_index
 from ..ops.harmonic import (
     fourier_mode_distributor,
     fourier_mode_index_quarter,
@@ -422,6 +422,42 @@ class CorrelatedField(Model):
         )
         self._dofdex_is_identity = dofdex is not None and list(dofdex) == list(range(len(dofdex)))
         self.parameter_ndims = dict(parameter_ndims or {})
+        # on a field-sharded mesh (`_shard_`): the mesh, and each subgrid's
+        # (row, bin) map of its slab
+        self.field_mesh = None
+        self.rowbins = None
+
+    def _shard_(self, mesh, min_ndim=2):
+        """Take this rank's rows of the field on ``mesh``'s field axis: the
+        distributor runs on the slab's rows of the full-grid map (the
+        quarter map's mirror would cross ranks) and, for
+        ``deterministic_reductions``, on their (row, bin) map; the
+        replicated amplitude table's gradient then reduces over the field
+        group.  One Fourier subgrid without ``total_N``; the harmonic
+        transform must be a distributed one (``finalize(hartley_fn=...)``)
+        where the field axis has more than one rank."""
+        if self.field_mesh is not None:
+            return
+        if len(self.dists) != 1 or self.spherical_transform is not None or self.dofdex is not None:
+            raise NotImplementedError(
+                "a field-sharded correlated field has one Fourier subgrid and no total_N")
+        p, f = mesh.size(mesh.field_axis), mesh.index(mesh.field_axis)
+        if p > 1 and self.hartley_fn is hartley:
+            raise ValueError("a field-sharded correlated field needs a distributed Hartley "
+                             "transform: finalize(hartley_fn=...)")
+        hg = self.target_grids[0].harmonic_grid
+        full = np.asarray(hg.power_distributor)
+        n0 = full.shape[0]
+        if n0 % p:
+            raise ValueError(f"the field's first axis ({n0}) does not divide among {p} ranks")
+        rows = full[f * (n0 // p):(f + 1) * (n0 // p)]
+        device = self.dists[0].idx.device
+        nb = self.dists[0].nb
+        self.dists = nn.ModuleList([BinIndex(rows, nb=nb).to(device)])
+        self.rowbins = nn.ModuleList([row_bin_index(rows, nb).to(device)])
+        self.use_quarters = (False,)
+        self.field_mesh = mesh
+        mesh.sharded_latents.add(self.xi_key)
 
     def _one(self, what):
         if len(self.dists) != 1:
@@ -468,7 +504,12 @@ class CorrelatedField(Model):
                 table = self.azm(p)[..., None] * _divide_out_zero_mode(amp_m(p), self.azm(p))
             else:
                 table = _divide_out_zero_mode(amp_m(p), self.azm(p))
-            amp = distribute_power(table, dist)
+            if self.field_mesh is not None:
+                amp = distribute_power_slab(
+                    table, dist, self.rowbins[i], self.field_mesh.group(self.field_mesh.field_axis),
+                    config.get("deterministic_reductions"))
+            else:
+                amp = distribute_power(table, dist)
             if uq:
                 for ax, n in enumerate(shape):
                     amp = _mirror_expand(amp, ax - len(shape), n)

@@ -531,3 +531,106 @@ def segment_sum(cot, dist: BinIndex):
     lead = tuple(cot.shape[: cot.ndim - len(dist.shape)])
     c2 = cot.reshape(-1, dist.n).contiguous()
     return BinSegmentSum.apply(c2, dist).reshape(*lead, dist.nb)
+
+
+# -- the field-sharded distributor --------------------------------------------
+
+
+def row_bin_index(rows, nb: int) -> BinIndex:
+    """The (row, bin) map of a block of rows of an index map: entry ``j``
+    of row ``i`` goes to bin ``idx[i, j] + i * nb`` of ``rows.shape[0] *
+    nb``, so that one segment sum gives every row's per-bin partials (the
+    ``_deterministic_scatter`` of the JAX package, one launch).  A
+    segment's additions depend on its length alone, never on where it
+    starts (:func:`segment_work_items`), so a rank's block of rows sums
+    each (row, bin) as the whole map does."""
+    rows = np.asarray(rows)
+    n0 = rows.shape[0]
+    flat = rows.reshape(n0, -1).astype(np.int64)
+    shifted = flat + (np.arange(n0, dtype=np.int64) * nb)[:, None]
+    return BinIndex(shifted.reshape(rows.shape), nb=n0 * nb)
+
+
+class SlabGather(torch.autograd.Function):
+    """A replicated (B, nb) table -> the rank's slab of its field,
+    ``bin_gather`` on the slab's rows of the full-grid map; derivative:
+    :class:`SlabSegmentSum`."""
+
+    @staticmethod
+    def forward(table, slab, rowbin, group, det):
+        return bin_gather(table, slab)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.args = inputs[1:]
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return (SlabSegmentSum.apply(grad_out.contiguous(), *ctx.args),) + (None,) * 4
+
+    @staticmethod
+    def jvp(ctx, table_dot, *_):
+        return SlabGather.apply(table_dot.contiguous(), *ctx.args)
+
+    @staticmethod
+    def vmap(info, in_dims, table, slab, rowbin, group, det):
+        if in_dims[0] is None:
+            return SlabGather.apply(table, slab, rowbin, group, det), None
+        t = table.movedim(in_dims[0], 0)
+        nv, nrows, nb = t.shape
+        out = SlabGather.apply(t.reshape(nv * nrows, nb).contiguous(), slab, rowbin, group, det)
+        return out.reshape(nv, nrows, -1), 0
+
+
+class SlabSegmentSum(torch.autograd.Function):
+    """The ranks' slab cotangents (B, n_slab) -> the replicated (B, nb)
+    per-bin sums over the whole field; derivative: :class:`SlabGather`.
+
+    Under ``deterministic_reductions`` (``det``): one segment sum over the
+    (row, bin) map (:func:`row_bin_index`) gives each row's per-bin
+    partials, the field group gathers them (B, rows, nb), and the rows are
+    folded in halves, an order fixed by the global row count, so every
+    world size gives the bits of one rank.  Otherwise the segment sum of
+    the slab is all-reduced."""
+
+    @staticmethod
+    def forward(cot, slab, rowbin, group, det):
+        from ..parallel import collectives as coll
+        from ..tree import _fold_halving
+
+        if not det:
+            return coll.all_reduce(bin_segment_sum(cot, slab), group)
+        part = bin_segment_sum(cot, rowbin)
+        part = part.reshape(cot.shape[0], -1, slab.nb)
+        return _fold_halving(coll.all_gather(part, group, dim=1))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.args = inputs[1:]
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return (SlabGather.apply(grad_out.contiguous(), *ctx.args),) + (None,) * 4
+
+    @staticmethod
+    def jvp(ctx, cot_dot, *_):
+        return SlabSegmentSum.apply(cot_dot.contiguous(), *ctx.args)
+
+    @staticmethod
+    def vmap(info, in_dims, cot, slab, rowbin, group, det):
+        if in_dims[0] is None:
+            return SlabSegmentSum.apply(cot, slab, rowbin, group, det), None
+        c = cot.movedim(in_dims[0], 0)
+        nv, nrows, n = c.shape
+        out = SlabSegmentSum.apply(c.reshape(nv * nrows, n).contiguous(), slab, rowbin, group,
+                                   det)
+        return out.reshape(nv, nrows, -1), 0
+
+
+def distribute_power_slab(table, slab: BinIndex, rowbin: BinIndex, group, det: bool):
+    """:func:`distribute_power` of a replicated (..., nb) table onto the
+    rank's slab ``(..., *slab.shape)`` of a field-sharded field; the
+    adjoint reduces over the field ``group`` (see :class:`SlabSegmentSum`)."""
+    lead = tuple(table.shape[:-1])
+    t2 = table.reshape(-1, table.shape[-1]).contiguous()
+    return SlabGather.apply(t2, slab, rowbin, group, det).reshape(*lead, *slab.shape)

@@ -18,9 +18,13 @@ metric once.
 :func:`optimize_kl` runs the whole loop: schedules by iteration, a status report
 with minisanity tables after every iteration, and, with ``odir``, a
 checkpoint after every iteration from which ``resume=True`` continues with
-the bits an uninterrupted run has.  The JAX package's fused/staged program
-split and program-size thresholds are XLA decisions with no counterpart
-here; its orbax checkpoints, HDF5 export and energy-history plot are not
+the bits an uninterrupted run has.  On an active mesh
+(:mod:`nifty_tpu_torch.parallel`) each rank of the samples axis draws and
+curves its block of the samples, and the KL value, gradient and metric
+reduce over the samples group (``kl_reduce``); the checkpoint is then the
+sharded one (``checkpoint_format="orbax"``).  The JAX package's
+fused/staged program split and program-size thresholds are XLA decisions
+with no counterpart here; its HDF5 export and energy-history plot are not
 ported yet.
 """
 
@@ -46,31 +50,31 @@ from .evi import (
 from .likelihood import Likelihood, value_and_grad
 from .logger import logger
 from .minisanity import minisanity
-from .model import LazyModel
-from .sample_io import load_checkpoint, save_checkpoint
+from .model import LazyModel, module_device
+from .parallel.mesh import active_mesh, sample_rows, tree_mean, tree_pairwise_mean
+from .sample_io import (
+    load_checkpoint,
+    load_sharded_checkpoint,
+    save_checkpoint,
+    save_sharded_checkpoint,
+)
 from .solvers.newton_cg import OptimizeResults, _newton_cg
-from .tree import broadcast_rows, get_map, split, stack, tree_add, tree_map, vdot
+from .tree import broadcast_rows, get_map, split, stack, tree_add, tree_leaves, tree_map, vdot
 from .tree import size as tree_size
 
 
-def _pairwise_mean(x):
-    """Fixed-order binary-tree mean along axis 0 (mesh-free analog of the
-    JAX package's ``pairwise_mean``)."""
-    n0 = x.shape[0]
-    n = n0
-    while n > 1:
-        m = n // 2
-        x = torch.cat([x[0:2 * m:2] + x[1:2 * m:2], x[2 * m:]], dim=0)
-        n = x.shape[0]
-    return x[0] / n0
-
-
 def _reduce(tree):
-    """Sample mean of a stacked tree; a fixed pairwise tree under
-    ``deterministic_reductions``."""
+    """Sample mean of a stacked tree (the default ``kl_reduce``); a fixed
+    pairwise tree under ``deterministic_reductions``.  On an active mesh
+    the rows are this rank's block of the samples and the mean is the
+    global one, reduced over the samples group (in the pairwise tree's
+    global order under ``deterministic_reductions``)."""
+    mesh = active_mesh()
     if config.get("deterministic_reductions"):
-        return tree_map(_pairwise_mean, tree)
-    return tree_map(lambda x: x.mean(dim=0), tree)
+        return tree_pairwise_mean(tree, mesh=mesh)
+    if mesh is None:
+        return tree_map(lambda x: x.mean(dim=0), tree)
+    return tree_mean(tree, mesh=mesh)
 
 
 class _StandardHamiltonian(LazyModel):
@@ -97,21 +101,50 @@ class _StandardHamiltonian(LazyModel):
 _BATCHED_MAPS = ("vmap", "v")
 
 
-def _mean_energy_and_grad(likelihood, primals, primals_samples, *, map="smap"):
+def _lockstep_depends_on_world(device) -> bool:
+    """Whether a lockstep (batched) stage would give a sample bits that
+    depend on the world: on a card, under ``deterministic_reductions``,
+    with a mesh active.  A lockstep call stacks one samples rank's share
+    of the rows, and on the card a reduction along each row (``torch.sum``,
+    the sums of a broadcast's gradient) picks its threads by the number of
+    rows, so a row's sum changes bits with the share (card test
+    ``test_row_sums_on_the_card_depend_on_the_row_count``)."""
+    return (torch.device(device).type == "cuda" and bool(config.get("deterministic_reductions"))
+            and active_mesh() is not None)
+
+
+def _refuse_lockstep(tree):
+    """Raise where a lockstep stage on ``tree``'s device would part the
+    worlds (:func:`_lockstep_depends_on_world`) on a samples axis of more
+    than one rank."""
+    mesh = active_mesh()
+    if (_lockstep_depends_on_world(tree_leaves(tree)[0].device)
+            and mesh.size(mesh.sample_axis) > 1):
+        raise ValueError(
+            "the lockstep maps ('vmap') on a samples axis of several ranks give a sample "
+            "bits that depend on the world under deterministic_reductions on the card; "
+            "use the sample loop ('smap', which 'auto' picks there)")
+
+
+def _mean_energy_and_grad(likelihood, primals, primals_samples, *, map="smap",
+                          reduce=_reduce):
     """KL estimate: Hamiltonian value and gradient averaged over the
-    samples centred at ``primals`` (the MAP energy when there are none)."""
+    samples centred at ``primals`` (the MAP energy when there are none).
+    On an active mesh each sample's value is its own (a loop), so that
+    ``reduce`` can order the sum over samples globally."""
     vg = partial(value_and_grad, _StandardHamiltonian(likelihood).energy)
     if not len(primals_samples):
         return vg(primals)
     batch = primals_samples.at(primals).samples
-    if map in _BATCHED_MAPS:
+    if map in _BATCHED_MAPS and active_mesh() is None:
         # the energy of the stacked samples is the sum of theirs
         total, grads = vg(batch)
-        return total / len(primals_samples), _reduce(grads)
-    return _reduce(get_map(map)(vg)(batch))
+        return total / len(primals_samples), reduce(grads)
+    mapped = get_map("smap" if map in _BATCHED_MAPS else map)
+    return reduce(mapped(vg)(batch))
 
 
-def _mean_metric_at(likelihood, primals, primals_samples, *, map="smap"):
+def _mean_metric_at(likelihood, primals, primals_samples, *, map="smap", reduce=_reduce):
     """Sample-averaged metric matvec at ``primals``, linearized once: for
     a batched map one linearization of all samples stacked, else one per
     sample."""
@@ -119,17 +152,20 @@ def _mean_metric_at(likelihood, primals, primals_samples, *, map="smap"):
     if not len(primals_samples):
         return ham.metric_at(primals)
     if map in _BATCHED_MAPS:
+        _refuse_lockstep(primals)
         n = len(primals_samples)
         lh_met = likelihood.metric_at(primals_samples.at(primals).samples)
-        return lambda tangents: tree_add(_reduce(lh_met(broadcast_rows(tangents, n))), tangents)
+        return lambda tangents: tree_add(reduce(lh_met(broadcast_rows(tangents, n))), tangents)
     mets = [ham.metric_at(s) for s in primals_samples.at(primals)]
-    return lambda tangents: _reduce(stack([m(tangents) for m in mets]))
+    return lambda tangents: reduce(stack([m(tangents) for m in mets]))
 
 
-def _mean_metric(likelihood, primals, tangents, primals_samples, *, map="smap"):
+def _mean_metric(likelihood, primals, tangents, primals_samples, *, map="smap",
+                 reduce=_reduce):
     """Sample-averaged metric applied to ``tangents`` (one linearization
     per call; the solvers' inner loops use :func:`_mean_metric_at`)."""
-    return _mean_metric_at(likelihood, primals, primals_samples, map=map)(tangents)
+    return _mean_metric_at(likelihood, primals, primals_samples, map=map,
+                           reduce=reduce)(tangents)
 
 
 def interleave(*trees):
@@ -257,10 +293,10 @@ def get_status_message(samples, state, residual=None, *, name="", map="vmap") ->
     st = state.sample_state
     if isinstance(st, OptimizeResults):
         if st.nit is not None:
-            counts = [int(c) for c in torch.as_tensor(st.nit).reshape(-1).tolist()]
+            counts = _all_samples([int(c) for c in torch.as_tensor(st.nit).reshape(-1).tolist()])
             lines.append(f"{name}: geoVI curve steps per sample {counts}")
     elif torch.is_tensor(st):
-        codes = [int(c) for c in st.reshape(-1).tolist()]
+        codes = _all_samples([int(c) for c in st.reshape(-1).tolist()])
         lines.append(f"{name}: linear-draw CG status per sample {codes}")
         if min(codes) < 0:
             lines.append(
@@ -273,6 +309,24 @@ def get_status_message(samples, state, residual=None, *, name="", map="vmap") ->
     _, tbl = minisanity(samples, map=map)
     lines.append(f"{name}: latent-space residuals\n{tbl}")
     return "\n".join(lines) + "\n"
+
+
+def _all_samples(values: list) -> list:
+    """Per-sample values of every rank of the samples axis, in global
+    order (this rank's alone without a mesh)."""
+    mesh = active_mesh()
+    if mesh is None:
+        return values
+    from .parallel.collectives import all_gather_object
+
+    return [v for part in all_gather_object(values, mesh.group(mesh.sample_axis)) for v in part]
+
+
+def _log_once(msg: str) -> None:
+    """Log ``msg`` from rank 0 of the active mesh only."""
+    mesh = active_mesh()
+    if mesh is None or mesh.is_root:
+        logger.info(msg)
 
 
 def _check_sampling_status(sample_state, draw_linear_kwargs) -> None:
@@ -302,7 +356,10 @@ class OptimizeVI:
     over samples for ``"smap"``/``"lmap"``.  The KL stage stacks the samples
     along a leading axis for ``kl_map="vmap"`` and loops for ``"smap"``.
     ``"auto"`` batches below ``AUTO_SMAP_MIN_SIZE`` latent dof and loops
-    from there on, for both maps.
+    from there on, for both maps; it loops at any size on a card under
+    ``deterministic_reductions`` with a mesh active, where the lockstep
+    maps would give the worlds other bits (and raise on a samples axis of
+    several ranks).
     """
 
     #: Latent sizes at or above which the ``"auto"`` maps loop over samples.
@@ -315,15 +372,16 @@ class OptimizeVI:
     AUTO_SMAP_MIN_SIZE = 2**22
 
     def __init__(self, likelihood: Likelihood, n_total_iterations: int, *,
-                 kl_map="auto", residual_map="auto", mirror_samples=True,
+                 kl_map="auto", residual_map="auto", kl_reduce=_reduce, mirror_samples=True,
                  _get_status_message: Optional[Callable] = None):
         if mirror_samples is False:
             raise NotImplementedError("non-antithetic sampling not supported")
         small = tree_size(likelihood.domain) < self.AUTO_SMAP_MIN_SIZE
+        batch = small and not _lockstep_depends_on_world(module_device(likelihood))
         if isinstance(kl_map, str) and kl_map == "auto":
-            kl_map = "vmap" if small else "smap"
+            kl_map = "vmap" if batch else "smap"
         if isinstance(residual_map, str) and residual_map == "auto":
-            residual_map = "vmap" if small else "smap"
+            residual_map = "vmap" if batch else "smap"
         self.likelihood = likelihood
         self.n_total_iterations = n_total_iterations
         self.kl_map = kl_map
@@ -333,9 +391,10 @@ class OptimizeVI:
         self.lockstep = residual_map is vmap or (
             isinstance(residual_map, str) and residual_map in _BATCHED_MAPS)
         self.residual_map = get_map(residual_map)
-        self.kl_value_and_grad = partial(_mean_energy_and_grad, map=kl_map)
-        self.kl_metric = partial(_mean_metric, map=kl_map)
-        self.kl_metric_at = partial(_mean_metric_at, map=kl_map)
+        self.kl_reduce = kl_reduce
+        self.kl_value_and_grad = partial(_mean_energy_and_grad, map=kl_map, reduce=kl_reduce)
+        self.kl_metric = partial(_mean_metric, map=kl_map, reduce=kl_reduce)
+        self.kl_metric_at = partial(_mean_metric_at, map=kl_map, reduce=kl_reduce)
         if _get_status_message is None:
             _get_status_message = partial(
                 get_status_message,
@@ -349,6 +408,7 @@ class OptimizeVI:
 
     def draw_linear_samples(self, primals, keys, **kwargs):
         if self.lockstep:
+            _refuse_lockstep(primals)
             smpls, smpls_states = draw_linear_residuals(
                 self.likelihood, primals, list(keys), **kwargs)
         else:
@@ -365,6 +425,7 @@ class OptimizeVI:
         tag_keys, tag_signs = _mirror_tags(samples.keys)
 
         if self.lockstep:
+            _refuse_lockstep(samples.pos)
             smpls, smpls_states = nonlinearly_update_residuals(
                 self.likelihood, samples.pos, samples._samples, tag_keys, tag_signs,
                 **kwargs)
@@ -382,7 +443,10 @@ class OptimizeVI:
     def draw_samples(self, samples: Samples, *, key, sample_mode: SMPL_MODE_TYP,
                      n_samples: int, point_estimates, draw_linear_kwargs={},
                      nonlinearly_update_kwargs={}, **kwargs):
+        mesh = active_mesh()
         n_stored = 0 if samples.keys is None else len(samples.keys)
+        if mesh is not None:
+            n_stored *= mesh.size(mesh.sample_axis)
         plan = plan_sampling(sample_mode, n_samples, n_stored)
         if plan is None:
             return samples, 0  # MAP: nothing to draw
@@ -390,7 +454,10 @@ class OptimizeVI:
         if plan.draw:
             keys = samples.keys
             if plan.fresh_keys:
-                keys = split(key, n_samples)
+                # every rank splits the key alike and draws its block of the
+                # keys: a sample's noise follows from its global index alone
+                first, count = sample_rows(mesh, n_samples)
+                keys = split(key, n_samples)[first:first + count]
             samples, st_smpls = self.draw_linear_samples(
                 samples.pos, keys, point_estimates=point_estimates,
                 **draw_linear_kwargs, **kwargs,
@@ -470,26 +537,34 @@ class OptimizeVI:
         state = self.init_state(*args, **kwargs)
         nm = self.__class__.__name__
         for i in range(state.nit, self.n_total_iterations):
-            logger.info(f"{nm}: Starting {i + 1:04d}")
+            _log_once(f"{nm}: Starting {i + 1:04d}")
             samples, state = self.update(samples, state)
-            logger.info(self.get_status_message(samples, state, name=nm))
+            _log_once(self.get_status_message(samples, state, name=nm))
         return samples, state
 
 
-#: File names inside ``odir``.
+#: File names inside ``odir``: the checkpoint of each format, the report.
 CHECKPOINT_NAME = "last.pkl"
+SHARDED_CHECKPOINT_NAME = "last_ckpt"
 MINISANITY_NAME = "minisanity.txt"
+
+
+def _world_size() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
 
 
 def optimize_kl(likelihood: Likelihood, position_or_samples, *, key,
                 n_total_iterations: int, n_samples, point_estimates=(),
                 constants=(), kl_map="auto", residual_map="auto",
-                mirror_samples=True,
+                kl_reduce=_reduce, mirror_samples=True,
                 draw_linear_kwargs=dict(cg_name=None, cg_kwargs=dict()),
                 nonlinearly_update_kwargs=dict(minimize_kwargs=dict()),
                 kl_kwargs=dict(minimize_kwargs=dict()),
                 sample_mode="nonlinear_resample",
                 resume: Union[str, bool] = False,
+                checkpoint_format: Optional[Literal["pickle", "orbax"]] = None,
                 callback: Optional[Callable] = None,
                 odir: Optional[str] = None,
                 _optimize_vi=None, _optimize_vi_state=None):
@@ -503,14 +578,33 @@ def optimize_kl(likelihood: Likelihood, position_or_samples, *, key,
     another one) and continues at its iteration with its key and samples;
     the schedule is rebuilt from the arguments, so pass the same ones.
     ``callback(samples, state)`` runs after every iteration.
+
+    ``checkpoint_format`` takes the JAX package's values: ``"pickle"`` (one
+    file, one process) or ``"orbax"``, which names the port's sharded
+    checkpoint (the JAX package's is an orbax one; orbax is a JAX library):
+    the directory ``odir/last_ckpt`` in which every rank writes its own
+    shards and rank 0 a manifest of the global shapes and layouts
+    (:func:`~nifty_tpu_torch.sample_io.save_sharded_checkpoint`); it
+    resumes on any world size and layout.  ``None`` picks ``"orbax"`` in a
+    world of several ranks, else ``"pickle"``.  On a mesh the reports are
+    logged and written by rank 0 alone.  ``kl_reduce`` is the sample mean
+    of the KL stage (see :class:`OptimizeVI`).
     """
+    if checkpoint_format is None:
+        checkpoint_format = "orbax" if _world_size() > 1 else "pickle"
+    if checkpoint_format not in ("pickle", "orbax"):
+        raise ValueError(f"unknown checkpoint format {checkpoint_format!r}")
+    sharded = checkpoint_format == "orbax"
+    if not sharded and _world_size() > 1:
+        raise ValueError('a world of several ranks checkpoints with checkpoint_format="orbax"')
     opt_vi = _optimize_vi
     if opt_vi is None:
         opt_vi = OptimizeVI(
             likelihood, n_total_iterations, kl_map=kl_map,
-            residual_map=residual_map, mirror_samples=mirror_samples,
+            residual_map=residual_map, kl_reduce=kl_reduce, mirror_samples=mirror_samples,
         )
-    ckpt_fn = os.path.join(odir, CHECKPOINT_NAME) if odir is not None else None
+    ckpt_name = SHARDED_CHECKPOINT_NAME if sharded else CHECKPOINT_NAME
+    ckpt_fn = os.path.join(odir, ckpt_name) if odir is not None else None
     sanity_fn = os.path.join(odir, MINISANITY_NAME) if odir is not None else None
 
     samples = (
@@ -524,7 +618,10 @@ def optimize_kl(likelihood: Likelihood, position_or_samples, *, key,
             raise ValueError(f"no checkpoint to resume from at {src!r}")
         if samples.pos is not None:
             logger.warning("`resume` overrides `position_or_samples`")
-        samples, loaded_state = load_checkpoint(src)
+        if sharded:
+            samples, loaded_state = load_sharded_checkpoint(src, mesh=active_mesh())
+        else:
+            samples, loaded_state = load_checkpoint(src)
         state = loaded_state if state is None else state
 
     if state is None or not state.config:
@@ -542,21 +639,25 @@ def optimize_kl(likelihood: Likelihood, position_or_samples, *, key,
         else:
             state = state._replace(config=schedule)
 
+    mesh = active_mesh()
+    root = mesh is None or mesh.is_root
     if odir:
         os.makedirs(odir, exist_ok=True)
-        if not resume:
+        if not resume and root:
             open(sanity_fn, "w").close()
 
     nm = "OPTIMIZE_KL"
     for i in range(state.nit, opt_vi.n_total_iterations):
-        logger.info(f"{nm}: Starting {i + 1:04d}")
+        _log_once(f"{nm}: Starting {i + 1:04d}")
         samples, state = opt_vi.update(samples, state)
         msg = opt_vi.get_status_message(samples, state, name=nm)
-        logger.info(msg)
-        if sanity_fn is not None:
+        _log_once(msg)
+        if sanity_fn is not None and root:
             with open(sanity_fn, "a") as f:
                 f.write("\n" + msg)
-        if ckpt_fn is not None:
+        if ckpt_fn is not None and sharded:
+            save_sharded_checkpoint(ckpt_fn, samples, state, mesh=mesh)
+        elif ckpt_fn is not None:
             save_checkpoint(ckpt_fn, samples, state)
         if callback is not None:
             callback(samples, state)

@@ -129,4 +129,129 @@ def load_checkpoint(path: str, *, device=None):
     return _samples_from_payload(payload["samples"], device), state
 
 
-__all__ = ["load_checkpoint", "load_samples", "save_checkpoint", "save_samples"]
+# -- the sharded checkpoint --------------------------------------------------
+#
+# A directory: ``manifest.pt`` (rank 0: the world it was written on, the
+# trees' structures with their global shapes, which leaves are
+# field-sharded, the global keys, the iteration and the run's key) and one
+# ``shard_s{s}_f{f}.pt`` a rank (its position slab, from the first rank of
+# each field row only, and its rows of the residuals).  It is written
+# beside its place as ``<path>.tmp`` and moved there whole.
+
+
+def _shard_name(s: int, f: int) -> str:
+    return f"shard_s{s}_f{f}.pt"
+
+
+def save_sharded_checkpoint(path: str, samples: Samples, state, mesh=None):
+    """Write the resumable payload of a VI run (samples with their keys,
+    the iteration, the run's key) from every rank of ``mesh`` (default:
+    the active one; without one, a single process).  Every rank calls it;
+    it returns when the checkpoint is in place."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from .parallel import collectives as coll
+    from .parallel.mesh import active_mesh
+    from .tree import ShapeWithDtype, tree_leaves, tree_unflatten
+
+    mesh = active_mesh() if mesh is None else mesh
+    world = dist.group.WORLD if dist.is_initialized() else None
+    root = mesh is None or mesh.is_root
+    s, f = (0, 0) if mesh is None else (mesh.index(mesh.sample_axis), mesh.index(mesh.field_axis))
+    ps, pf = (1, 1) if mesh is None else (mesh.size(mesh.sample_axis),
+                                          mesh.size(mesh.field_axis))
+    tmp = f"{path}.tmp"
+    if root:
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+    coll.barrier(world)
+    pos, resid = samples.pos, samples._samples
+    pos_leaves = tree_leaves(pos)
+    flags = [False] * len(pos_leaves) if mesh is None else mesh.field_flags(pos, len(pos_leaves))
+    shard = dict(
+        pos=[x.detach().cpu() for x in pos_leaves] if s == 0 else None,
+        samples=None if resid is None else [x.detach().cpu() for x in tree_leaves(resid)],
+    )
+    torch.save(shard, os.path.join(tmp, _shard_name(s, f)))
+    keys = samples.keys
+    if keys is not None and mesh is not None:
+        keys = [k for part in coll.all_gather_object(list(keys), mesh.group(mesh.sample_axis))
+                for k in part]
+    if root:
+        def global_like(tree, leaves, stacked):
+            """The global shapes: the stacked rows of every samples rank,
+            the slabs of every field rank."""
+            like = []
+            for x, sharded in zip(leaves, flags):
+                shape = list(x.shape)
+                if stacked:
+                    shape[0] *= ps
+                if sharded:
+                    shape[int(stacked)] *= pf
+                like.append(ShapeWithDtype(tuple(shape), x.dtype))
+            return tree_unflatten(tree, like)
+
+        manifest = dict(
+            world=(ps, pf), field_sharded=flags,
+            pos_like=global_like(pos, pos_leaves, False),
+            samples_like=None if resid is None else global_like(resid, tree_leaves(resid), True),
+            keys=None if keys is None else _store(list(keys)),
+            nit=int(state.nit), key=_store_leaf(state.key),
+        )
+        torch.save(manifest, os.path.join(tmp, "manifest.pt"))
+    coll.barrier(world)
+    if root:
+        old = f"{path}.old"
+        shutil.rmtree(old, ignore_errors=True)
+        if os.path.exists(path):
+            os.rename(path, old)
+        os.rename(tmp, path)
+        shutil.rmtree(old, ignore_errors=True)
+    coll.barrier(world)
+
+
+def load_sharded_checkpoint(path: str, *, mesh=None, device=None):
+    """``(samples, state)`` of :func:`save_sharded_checkpoint`, written on
+    any world: the global trees are put together from the shards, then
+    given ``mesh`` this rank takes its part
+    (:func:`~nifty_tpu_torch.parallel.mesh.shard_samples`).  ``state``
+    holds the iteration and the key; ``state.config`` is ``None``."""
+    from .optimize_kl import OptimizeVIState
+    from .parallel.mesh import shard_samples
+    from .tree import tree_leaves, tree_unflatten
+
+    device = _device(device)
+
+    def load(name):
+        return torch.load(os.path.join(path, name), weights_only=False)
+
+    manifest = load("manifest.pt")
+    ps, pf = manifest["world"]
+    flags = manifest["field_sharded"]
+    shards = {(s, f): load(_shard_name(s, f)) for s in range(ps) for f in range(pf)}
+    def joined(part, i, s, dim):
+        """Leaf ``i`` of samples rank ``s``: its field ranks' slabs joined."""
+        if not flags[i]:
+            return shards[s, 0][part][i]
+        return torch.cat([shards[s, f][part][i] for f in range(pf)], dim=dim)
+
+    pos = tree_unflatten(manifest["pos_like"], [
+        joined("pos", i, 0, 0).to(device) for i in range(len(flags))])
+    resid = None
+    if manifest["samples_like"] is not None:
+        resid = tree_unflatten(manifest["samples_like"], [
+            torch.cat([joined("samples", i, s, 1) for s in range(ps)]).to(device)
+            for i in range(len(flags))])
+    keys = manifest["keys"]
+    samples = Samples(pos=pos, samples=resid,
+                      keys=None if keys is None else _restore(keys, device))
+    if mesh is not None:
+        samples = shard_samples(samples, mesh)
+    state = OptimizeVIState(nit=manifest["nit"], key=_restore_leaf(manifest["key"], device))
+    return samples, state
+
+
+__all__ = ["load_checkpoint", "load_samples", "load_sharded_checkpoint", "save_checkpoint",
+           "save_samples", "save_sharded_checkpoint"]

@@ -39,10 +39,22 @@ def flatten_rows(tree):
     return torch.cat([x.reshape(x.shape[0], -1) for x in leaves], dim=1)
 
 
+def _require_no_field_mesh():
+    from ..tree import _MESH
+
+    mesh = _MESH[0]
+    if mesh is not None and mesh.size(mesh.field_axis) > 1:
+        raise NotImplementedError(
+            "the first-order minimizers ravel the latent and cannot reduce a field-sharded "
+            "leaf over its ranks; on a field mesh use Newton-CG")
+
+
 def rows_problem(fun_and_grad, x0):
     """The raveled problem of a batched ``fun_and_grad`` at the batched
     start ``x0``: ``(fg, X0, unflatten)`` with ``fg(X) -> ((B,) energies,
-    (B, n) gradients)``."""
+    (B, n) gradients)``.  A raveled row mixes the leaves, so it has no
+    place on a field-sharded mesh."""
+    _require_no_field_mesh()
     like = first_row(x0)
 
     def unflatten(flat):

@@ -17,6 +17,7 @@ import torch
 
 from ..likelihood import value_and_grad
 from ..tree import ravel, stack, tree_device, tree_leaves, tree_map, unravel
+from .descent import _require_no_field_mesh
 from .newton_cg import OptimizeResults
 
 
@@ -38,6 +39,7 @@ def minimize_scipy(fun: Optional[Callable], x0, *, method: str = "L-BFGS-B",
         def fun_and_grad(x):
             return value_and_grad(fun, x)
 
+    _require_no_field_mesh()
     device = tree_device(x0)
     dtype = tree_leaves(x0)[0].dtype
     flat0 = ravel(x0).detach().cpu().numpy().astype(np.float64)

@@ -31,6 +31,10 @@ import torch
 
 from . import config
 
+#: The active mesh (:mod:`nifty_tpu_torch.parallel.mesh`), or ``None``:
+#: set by ``Mesh.activate``; the reductions and draws below read it.
+_MESH = [None]
+
 # --------------------------------------------------------------------------
 # Shape/dtype descriptors
 # --------------------------------------------------------------------------
@@ -278,7 +282,15 @@ def dot(a, b):
 
 
 def tsum(tree):
-    """The sum of every entry of every leaf."""
+    """The sum of every entry of every leaf (on a mesh, of the global
+    leaves: see :func:`vdot_rows`)."""
+    if _MESH[0] is not None:
+        leaves = [x[None] for x in tree_leaves(tree)]
+        if not leaves:
+            return 0.0
+        mesh, flags = _on_mesh(tree, leaves)
+        det = config.get("deterministic_reductions")
+        return _sum_leaves(_mesh_row_sums(leaves, flags, det, mesh))[0]
     acc = 0.0
     for x in tree_leaves(tree):
         acc = acc + x.sum()
@@ -306,14 +318,11 @@ def rows(c, x):
     return c.reshape((-1,) + (1,) * (x.ndim - 1))
 
 
-def _fold_halving_sum_rows(z):
-    """The fold-halving sum of every row of a (B, ...) tensor: a row's
-    trailing axes are summed, then its leading axis is folded in half
-    repeatedly, whatever the number of rows."""
-    if z.ndim == 1:
-        return z
-    if z.ndim > 2:
-        z = z.sum(dim=tuple(range(2, z.ndim)))
+def _fold_halving(z):
+    """(B, n, ...) -> (B, ...): axis 1 folded in half repeatedly (an odd
+    last entry carried), an order fixed by ``n`` alone.  The one fold of
+    the fixed-order reductions (:func:`_fold_halving_sum_rows`, the
+    field-sharded distributor's adjoint)."""
     n = z.shape[1]
     while n > 1:
         m = n // 2
@@ -325,9 +334,94 @@ def _fold_halving_sum_rows(z):
     return z[:, 0]
 
 
+def _fold_halving_sum_rows(z):
+    """The fold-halving sum of every row of a (B, ...) tensor: a row's
+    trailing axes are summed, then its leading axis is folded in half
+    repeatedly, whatever the number of rows."""
+    if z.ndim == 1:
+        return z
+    if z.ndim > 2:
+        z = z.sum(dim=tuple(range(2, z.ndim)))
+    return _fold_halving(z)
+
+
+def _mesh_row_sums(leaves, flags, det, mesh):
+    """The (B,) row sums of each batched leaf on an active mesh: a
+    replicated leaf sums its rows alone; a field-sharded one (``flags``)
+    sums its rank's rows and reduces over the field group.  Under
+    ``deterministic_reductions`` the per-row partials (one a row of the
+    sharded axis) are gathered and folded in halves, the order
+    :func:`_fold_halving_sum_rows` gives one rank holding every row, so
+    any number of ranks gives the same bits; else the rank sums are
+    all-reduced.  One collective serves every sharded leaf of one dtype."""
+    from .parallel import collectives as coll
+
+    group = mesh.group(mesh.field_axis)
+    shard = [i for i, s in enumerate(flags) if s]
+    out = [None] * len(leaves)
+    if det:
+        for i, z in enumerate(leaves):
+            if not flags[i]:
+                out[i] = _fold_halving_sum_rows(z)
+        parts = {i: leaves[i] if leaves[i].ndim == 2
+                 else leaves[i].sum(dim=tuple(range(2, leaves[i].ndim))) for i in shard}
+    else:
+        for i, z in enumerate(leaves):
+            out[i] = z.reshape(z.shape[0], -1).sum(dim=1)
+        parts = {i: out[i][:, None] for i in shard}
+    p = coll.group_size(group)
+    for dtype in dict.fromkeys(q.dtype for q in parts.values()):
+        idx = [i for i in shard if parts[i].dtype == dtype]
+        cat = torch.cat([parts[i] for i in idx], dim=1)
+        if not det:
+            got = coll.SumAcross.apply(cat, group)
+            for j, i in enumerate(idx):
+                out[i] = got[:, j]
+            continue
+        got = coll.GatherAcross.apply(cat, group, 1)
+        got = got.reshape(got.shape[0], p, cat.shape[1])
+        at = 0
+        for i in idx:
+            w = parts[i].shape[1]
+            out[i] = _fold_halving_sum_rows(got[:, :, at:at + w].reshape(got.shape[0], p * w))
+            at += w
+    return out
+
+
+def _on_mesh(tree, leaves):
+    """``(mesh, field flags)`` of a batched tree's leaves on the active
+    mesh, or ``(None, None)`` without one."""
+    mesh = _MESH[0]
+    if mesh is None:
+        return None, None
+    flags = mesh.field_flags(tree, len(leaves))
+    layout = mesh.layout(tree)
+    for x, s, (_, shape) in zip(leaves, flags, layout or ()):
+        if s and x.ndim != len(shape) + 1:
+            raise ValueError(
+                f"a field-sharded leaf takes one row axis on a mesh; got {tuple(x.shape)} for "
+                f"a leaf of {shape}")
+    return mesh, flags
+
+
+def _sum_leaves(vals):
+    acc = vals[0]
+    for v in vals[1:]:
+        acc = acc + v
+    return acc
+
+
 def vdot_rows(a, b):
-    """:func:`vdot` of each row of two batched trees: a (B,) tensor."""
+    """:func:`vdot` of each row of two batched trees: a (B,) tensor.  On a
+    mesh the field-sharded leaves reduce over the field group
+    (:func:`_mesh_row_sums`)."""
     det = config.get("deterministic_reductions")
+    if _MESH[0] is not None:
+        prods = [x.conj() * y for x, y in zip(tree_leaves(a), tree_leaves(b))]
+        if not prods:
+            raise ValueError("`vdot_rows` of trees without leaves")
+        mesh, flags = _on_mesh(a, prods)
+        return _sum_leaves(_mesh_row_sums(prods, flags, det, mesh))
     acc = None
     for x, y in zip(tree_leaves(a), tree_leaves(b)):
         prod = x.conj() * y
@@ -346,6 +440,14 @@ def norm_rows(tree, ord=2, *, ravel=False):
     or ``ravel=True``, takes ``(sum over leaves of ||leaf||_ord^ord)^(1 /
     ord)`` as the JAX package does, so ``ord=inf, ravel=True`` gives
     ``inf ** 0 = 1``."""
+    if (ravel or ord not in (1, 2, np.inf)) and _MESH[0] is not None:
+        leaves = tree_leaves(tree)
+        if not leaves:
+            raise ValueError("`norm_rows` of a tree without leaves")
+        mesh, flags = _on_mesh(tree, leaves)
+        powers = [x.abs() ** ord for x in leaves]
+        det = config.get("deterministic_reductions")
+        return _sum_leaves(_mesh_row_sums(powers, flags, det, mesh)) ** (1.0 / ord)
     if ravel or ord not in (1, 2, np.inf):
         acc = None
         for x in tree_leaves(tree):
@@ -357,6 +459,8 @@ def norm_rows(tree, ord=2, *, ravel=False):
     if ord == 2:
         return torch.sqrt(vdot_rows(tree, tree).real)
     leaves = tree_leaves(tree)
+    if _MESH[0] is not None:
+        return _mesh_norm_rows(tree, leaves, ord)
     if ord == 1:
         if config.get("deterministic_reductions"):
             parts = [_fold_halving_sum_rows(x.abs()) for x in leaves]
@@ -367,6 +471,21 @@ def norm_rows(tree, ord=2, *, ravel=False):
         return torch.stack(
             [x.abs().reshape(x.shape[0], -1).amax(dim=1) for x in leaves]
         ).amax(dim=0)
+
+
+def _mesh_norm_rows(tree, leaves, ord):
+    """:func:`norm_rows` of order 1 or ``inf`` on an active mesh."""
+    from .parallel import collectives as coll
+
+    mesh, flags = _on_mesh(tree, leaves)
+    if ord == 1:
+        det = config.get("deterministic_reductions")
+        return _sum_leaves(_mesh_row_sums([x.abs() for x in leaves], flags, det, mesh))
+    maxes = [x.abs().reshape(x.shape[0], -1).amax(dim=1) for x in leaves]
+    group = mesh.group(mesh.field_axis)
+    maxes = [coll.all_reduce(m, group, op=coll.dist.ReduceOp.MAX) if s else m
+             for m, s in zip(maxes, flags)]
+    return torch.stack(maxes).amax(dim=0)
 
 
 def axpy_rows(c, x, y):
@@ -536,14 +655,26 @@ def unravel(like, flat):
 # --------------------------------------------------------------------------
 
 
-def from_numpy(tree, *, device=None, dtype=None):
+def from_numpy(tree, *, device=None, dtype=None, mesh=None):
     """Turn a tree of numpy (or numpy-convertible) arrays into tensors.
 
     Dicts, lists and tuples keep their type; any object with a ``.tree``
     attribute (a ``Vector`` of either package) becomes a port
     :class:`Vector`.  ``dtype`` applies to floating leaves only;
     ``device`` defaults to the configured device.
+
+    Given a ``mesh``, a global tree becomes this rank's part of it, as
+    :func:`~nifty_tpu_torch.parallel.mesh.shard_position` places it: the
+    leaves it shards are cut to the rank's rows on the host, before the
+    copy to the device, and the layout is recorded on the mesh.
     """
+    if mesh is not None:
+        from .parallel.mesh import shard_position
+
+        host = from_numpy(tree, device="cpu", dtype=dtype)
+        return tree_map(lambda x: x.to(device if device is not None
+                                       else config.default_device()),
+                        shard_position(host, mesh))
     if device is None:
         device = config.default_device()
     if isinstance(tree, dict):
@@ -643,6 +774,21 @@ def random_like(key, primals, rng=None, *, device=None):
     ``rng`` with its host generator and ``device`` cpu, then copies, so an
     ``rng`` written with torch calls serves the host and the card alike.
     """
+    mesh = _MESH[0]
+    if mesh is not None and mesh.size(mesh.field_axis) > 1:
+        slabs = _slab_draws(mesh, primals)
+        if slabs is not None:
+            like, dims = slabs
+            if device is None:
+                device = tree_device(primals)
+            _MESH[0] = None  # the global draw is a single-process one
+            try:
+                full = random_like(key, like, rng, device=device)
+            finally:
+                _MESH[0] = mesh
+            return tree_unflatten(primals, [
+                x if d is None else mesh.own_rows(x, mesh.field_axis, dim=d)
+                for x, d in zip(tree_leaves(full), dims)])
     if _is_noise_provider(key):
         if rng is None:
             return key.normal(primals, device=device)
@@ -656,6 +802,33 @@ def random_like(key, primals, rng=None, *, device=None):
     gen = torch.Generator(device=device)
     gen.manual_seed(int(key))
     return _draw(gen, primals, device, rng)
+
+
+def _slab_draws(mesh, primals):
+    """``(global_like, dims)`` for a draw shaped like ``primals`` on a
+    field-sharded mesh: each leaf that the mesh's layout marks sharded and
+    that has its rank's slab shape is drawn whole (``global_like`` holds its
+    global shape) and cut to the rank's rows along ``dims[i]``; so a
+    sample's noise is the same in any world.  ``None`` where no leaf is a
+    slab (a global tree is drawn as it is)."""
+    layout = mesh.layout(primals)
+    if layout is None:
+        return None
+    p = mesh.size(mesh.field_axis)
+    like, dims = [], []
+    for x, (sharded, shape) in zip(tree_leaves(primals), layout):
+        xs = tuple(x.shape)
+        lead = len(xs) - len(shape)
+        local = (shape[0] // p,) + tuple(shape[1:]) if shape else ()
+        if sharded and lead >= 0 and xs[lead:] == local:
+            like.append(ShapeWithDtype(xs[:lead] + tuple(shape), x.dtype))
+            dims.append(lead)
+        else:
+            like.append(ShapeWithDtype(xs, x.dtype))
+            dims.append(None)
+    if all(d is None for d in dims):
+        return None
+    return tree_unflatten(primals, like), dims
 
 
 class HostKey:

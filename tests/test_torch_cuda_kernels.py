@@ -1110,3 +1110,106 @@ def test_window_wrappers_raise_on_bad_inputs(cuda):
         nw.window_spread(torch.ones((1, tab.npts + 1), dtype=torch.complex128, device=cuda), tab)
     with pytest.raises(ValueError, match="contiguous"):
         nw.window_interp(torch.ones((tab.ncells, 2), dtype=torch.complex128, device=cuda).T, tab)
+
+
+# -- the field-sharded distributor and the mesh's transports -----------------------
+
+
+def _slab_maps(n0, n1, nb, rows, seed):
+    """A random full-grid map of (n0, n1) with every bin occupied, its
+    block of ``rows`` rows (a field rank's slab), and the (row, bin) maps
+    of both."""
+    full = _index_map(nb, n0 * n1, seed).reshape(n0, n1)
+    lo, hi = rows
+    return full, full[lo:hi]
+
+
+@pytest.mark.parametrize("shape", [(64, 48, 40), (512, 512, 113)], ids=["64x48", "512sq"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_slab_and_row_bin_maps_match_plain_versions(cuda, shape, dtype):
+    """The distributor on a field rank's rows of a map (the slab) and on
+    their (row, bin) map: the gather bitwise, the segment sums within the
+    tolerance of the per-bin sum of |cot|, as the field-sharded
+    correlated field launches them."""
+    n0, n1, nb = shape
+    _, slab = _slab_maps(n0, n1, nb, (n0 // 2, n0), seed=n0)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for dist in (bg.BinIndex(slab, nb=nb).to(cuda), bg.row_bin_index(slab, nb).to(cuda)):
+        for nrows in (1, 3):
+            table = torch.randn((nrows, dist.nb), dtype=dtype, device=cuda, generator=gen)
+            cot = torch.randn((nrows, dist.n), dtype=dtype, device=cuda, generator=gen)
+            assert torch.equal(bg.bin_gather(table, dist), bg.bin_gather_plain(table, dist.idx))
+            got = bg.bin_segment_sum(cot, dist)
+            plain = bg.bin_segment_sum_plain(cot, dist.perm, dist.offsets)
+            scale = bg.bin_segment_sum_plain(cot.abs(), dist.perm, dist.offsets)
+            assert bool(torch.all((got - plain).abs() <= RTOL[dtype] * scale))
+
+
+@pytest.mark.parametrize("n0", [64, 512])
+def test_row_bin_sums_do_not_depend_on_the_segment_offset(cuda, n0):
+    """A (row, bin) segment sums in the same order wherever it starts in
+    the CSR: each half of the rows' map gives the bits of the whole map's
+    rows (so every field rank sums its rows as one rank holding them all
+    does)."""
+    nb = 113
+    full, _ = _slab_maps(n0, 256, nb, (0, n0), seed=n0)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    cot = torch.randn((2, full.size), dtype=torch.float64, device=cuda, generator=gen)
+    whole = bg.bin_segment_sum(cot, bg.row_bin_index(full, nb).to(cuda)).reshape(2, n0, nb)
+    half = n0 // 2
+    for lo in (0, half):
+        part = bg.row_bin_index(full[lo:lo + half], nb).to(cuda)
+        sums = bg.bin_segment_sum(cot[:, lo * 256:(lo + half) * 256].contiguous(), part)
+        assert torch.equal(sums.reshape(2, half, nb), whole[:, lo:lo + half])
+
+
+def test_fft_of_contiguous_rows_does_not_depend_on_their_number(cuda):
+    """The pencil transform's FFTs run on contiguous rows with the axis
+    innermost: on the card a row's bits do not depend on how many rows
+    share the call (the 1-rank and the p-rank worlds cut the columns
+    differently)."""
+    from nifty_tpu_torch.ops.distributed_fft import _fft_along
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((2, 4096, 1025), dtype=torch.complex128, device=cuda, generator=gen)
+    whole = _fft_along(x, 1)
+    for cols in (1, 2, 513, 1024):
+        assert torch.equal(_fft_along(x[:, :, :cols].contiguous(), 1), whole[:, :, :cols])
+    r = torch.randn((4096, 4096), dtype=torch.float64, device=cuda, generator=gen)
+    rows = torch.fft.rfft(r, dim=-1)
+    for n in (1, 2048):
+        assert torch.equal(torch.fft.rfft(r[:n].contiguous(), dim=-1), rows[:n])
+
+
+def test_row_sums_on_the_card_depend_on_the_row_count(cuda):
+    """Why the lockstep maps loop over samples on the card under
+    ``deterministic_reductions`` with a mesh active
+    (``optimize_kl._lockstep_depends_on_world``): ``torch.sum`` along the
+    rows of a (B, n) tensor picks its threads by B, so a row's sum takes
+    other bits when a samples rank stacks another share of the rows; the
+    port's fixed-order fold keeps them."""
+    from nifty_tpu_torch.tree import _fold_halving_sum_rows
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((8, 4096), dtype=torch.float64, device=cuda, generator=gen)
+    sums = [x[:b].sum(-1)[0].item() for b in (1, 2, 4, 8)]
+    assert len(set(sums)) > 1, sums
+    folds = [_fold_halving_sum_rows(x[:b])[0].item() for b in (1, 2, 4, 8)]
+    assert len(set(folds)) == 1, folds
+
+
+def test_gloo_ranks_on_one_card_move_tensors_through_ipc(cuda):
+    """A 2 x 2 gloo world on card 0: every collective, through the CUDA IPC
+    mailboxes, gives what the ranks' inputs make it (bitwise; the pencil
+    Hartley transform within 1e-12 of the whole field's)."""
+    import torch_mesh_worker as W
+    from nifty_tpu_torch.parallel import run_world
+
+    ranks = run_world(W.run_cases, 4, args=([("t", "ipc_case", {})],), device="cuda",
+                      timeout=300)
+    for r in ranks:
+        for k, (got, want) in r["t"].items():
+            if k == "hartley":
+                np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
+            else:
+                np.testing.assert_array_equal(got, want, err_msg=k)

@@ -1,0 +1,381 @@
+"""What the ranks of the port's mesh tests run (imports torch, numpy and
+the port only, never jax: the ranks are processes of their own).
+
+:func:`run_cases` is the function a world runs
+(``nifty_tpu_torch.parallel.run_world(run_cases, n, args=(cases,))``):
+each case is ``(name, function name, kwargs)``; the function runs on
+every rank and returns numpy data (rank 0's result is the one compared,
+every rank's where the test says so).  The inputs come as numpy arrays
+from the test, made from a seed, and the noise as a :class:`ReplayKey`
+of noise the test recorded (the JAX package's, where the port is held
+against it).
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+
+import numpy as np
+import torch
+
+import nifty_tpu_torch as jt
+from nifty_tpu_torch.ops.distributed_fft import distributed_fftn, distributed_hartley
+from nifty_tpu_torch.parallel import (
+    gather_samples,
+    make_mesh,
+    pairwise_sum,
+    shard_position,
+    shard_samples,
+)
+from nifty_tpu_torch.parallel import mesh as pmesh
+from nifty_tpu_torch.tree import tree_leaves
+
+jt.logger.setLevel(logging.WARNING)
+
+
+class ReplayKey:
+    """A noise provider that replays recorded draws: ``table`` maps a key's
+    path (the indices of the splits from the root, ``("fold", data)`` for
+    a fold) to the tree of numpy arrays drawn there."""
+
+    def __init__(self, table, path=()):
+        self.table, self.path = table, tuple(path)
+
+    def split(self, num):
+        return [ReplayKey(self.table, self.path + (i,)) for i in range(num)]
+
+    def fold_in(self, data):
+        return ReplayKey(self.table, self.path + ("fold", int(data)))
+
+    def normal(self, primals, device=None):
+        drawn = self.table[self.path]
+        got = [tuple(x.shape) for x in tree_leaves(drawn)]
+        want = [tuple(x.shape) for x in tree_leaves(primals)]
+        if got != want:
+            raise ValueError(f"replayed noise at {self.path} has shapes {got}, not {want}")
+        return jt.from_numpy(drawn, device=device or jt.config.default_device())
+
+
+def run_cases(cases):
+    """Run ``cases`` (see the module docstring) on this rank; returns
+    ``{name: result}``."""
+    torch.set_num_threads(1)
+    out = {}
+    for name, fn, kwargs in cases:
+        out[name] = globals()[fn](**kwargs)
+        mesh = pmesh.active_mesh()
+        if mesh is not None:
+            mesh.deactivate()
+        jt.config.update("deterministic_reductions", False)
+    return out
+
+
+def _np(x):
+    return x.detach().cpu().numpy()
+
+
+def _gathered(x, mesh, dim=0):
+    from nifty_tpu_torch.parallel import collectives as coll
+
+    return _np(coll.all_gather(x, mesh.group(mesh.field_axis), dim))
+
+
+# -- transforms and reductions --------------------------------------------------
+
+
+def hartley_case(x, field):
+    """``distributed_hartley`` of ``x`` on a 1 × field mesh; returns the
+    gathered transform."""
+    mesh = make_mesh(1, field)
+    return _gathered(distributed_hartley(mesh.own_rows(torch.from_numpy(x)), mesh), mesh)
+
+
+def fftn_case(x, field):
+    mesh = make_mesh(1, field)
+    return _gathered(distributed_fftn(mesh.own_rows(torch.from_numpy(x)), mesh), mesh)
+
+
+def hartley_vjp_case(x, y, field):
+    """The gradient of ``<H x, y>`` by autograd, gathered, beside the
+    forward."""
+    mesh = make_mesh(1, field)
+    xs = mesh.own_rows(torch.from_numpy(x)).requires_grad_(True)
+    h = distributed_hartley(xs, mesh)
+    (h * mesh.own_rows(torch.from_numpy(y))).sum().backward()
+    return _gathered(h.detach(), mesh), _gathered(xs.grad, mesh)
+
+
+def fftn_vjp_case(x, y, field):
+    """The gradient of ``Re <F x, y>`` (complex ``x``, ``y``) by autograd."""
+    mesh = make_mesh(1, field)
+    xs = mesh.own_rows(torch.from_numpy(x)).requires_grad_(True)
+    f = distributed_fftn(xs, mesh)
+    (f.conj() * mesh.own_rows(torch.from_numpy(y))).real.sum().backward()
+    return _gathered(xs.grad, mesh)
+
+
+def pairwise_case(x, samples):
+    """``pairwise_sum`` of ``x``'s rows spread over a samples axis; the
+    bits, and how the reduction ran."""
+    mesh = make_mesh(samples, 1)
+    r = pairwise_sum(mesh.own_rows(torch.from_numpy(x), mesh.sample_axis), mesh=mesh)
+    return _np(r), dict(mesh.stats)
+
+
+def shard_samples_case(pos, resid, keys, samples, field):
+    """``shard_samples`` of global samples, this rank's rows, and the
+    round trip through ``gather_samples``."""
+    mesh = make_mesh(samples, field)
+    s = jt.Samples(pos=jt.from_numpy(pos, device="cpu"), samples=jt.from_numpy(resid, device="cpu"),
+                   keys=list(keys))
+    ss = shard_samples(s, mesh)
+    back = gather_samples(ss, mesh)
+    return dict(local=jt.to_numpy(ss._samples), keys=list(ss.keys),
+                back=jt.to_numpy(back._samples), back_pos=jt.to_numpy(back.pos),
+                back_keys=list(back.keys), index=(mesh.index("samples"), mesh.index("field")))
+
+
+def random_like_case(shape, field, seed):
+    """A slab of a field-sharded leaf drawn by ``random_like`` from an int
+    seed and from a ``HostKey``, gathered: equal to the 1-rank draw."""
+    mesh = make_mesh(1, field)
+    like = {"xi": torch.zeros(shape, dtype=torch.float64), "s": torch.zeros((), dtype=torch.float64)}
+    local = shard_position(like, mesh)
+    out = {}
+    for name, key in (("seed", seed), ("host", jt.HostKey(seed))):
+        d = jt.random_like(key, local)
+        out[name] = dict(xi=_gathered(d["xi"], mesh), s=_np(d["s"]))
+    return out
+
+
+# -- correlated-field problems -----------------------------------------------------
+
+
+def correlated_field(dims, mesh, distributed=True):
+    cfm = jt.CorrelatedFieldMaker("cf")
+    cfm.set_amplitude_total_offset(offset_mean=1.0, offset_std=(1e-1, 3e-2))
+    cfm.add_fluctuations(
+        dims, distances=1.0 / dims[0], fluctuations=(1.0, 5e-1),
+        loglogavgslope=(-3.0, 2e-1), flexibility=(1e0, 5e-1), asperity=(5e-1, 5e-2))
+    hfn = None
+    if distributed:
+        def hfn(x, axes=None):
+            return distributed_hartley(x, mesh, axes=axes)
+    return cfm.finalize(hartley_fn=hfn, device="cpu")
+
+
+def field_problem(data, pos, mesh, distributed=True, noise_var=1.0):
+    """The JAX tests' 64^2 problem: the correlated field, a Gaussian of
+    unit noise (or ``noise_var``), placed on the mesh."""
+    cf = correlated_field(tuple(data.shape), mesh, distributed)
+    lh = jt.Gaussian(torch.from_numpy(data), noise_cov_inv=lambda x: x / noise_var).amend(cf)
+    lh = shard_position(lh, mesh)
+    return lh, jt.from_numpy(pos, device="cpu", mesh=mesh)
+
+
+def vi_update_case(data, pos, key_table, samples, field, sample_mode, nl_maxiter,
+                   budgets=(200, 100, 30, 150), det=False, n_samples=2, kl_map="auto",
+                   residual_map="auto"):
+    """One ``OptimizeVI.update`` of ``_field_sharded_vi_run`` (the JAX
+    tests' helper) on a samples × field mesh; returns the global samples,
+    the KL energy and Newton steps, and the mesh's reduction stats."""
+    jt.config.update("deterministic_reductions", det)
+    mesh = make_mesh(samples, field)
+    lh, p = field_problem(data, pos, mesh)
+    opt = jt.OptimizeVI(lh, n_total_iterations=1, kl_map=kl_map, residual_map=residual_map)
+    state = opt.init_state(ReplayKey(key_table),
+                           **_vi_kwargs(budgets, nl_maxiter, n_samples, sample_mode))
+    t0 = time.perf_counter()
+    smp, state = opt.update(jt.Samples(pos=p, samples=None, keys=None), state)
+    seconds = time.perf_counter() - t0
+    whole = gather_samples(smp, mesh)
+    return dict(samples=jt.to_numpy(whole._samples), pos=jt.to_numpy(whole.pos),
+                fun=float(state.minimization_state.fun),
+                nit=int(state.minimization_state.nit), stats=dict(mesh.stats),
+                seconds=seconds)
+
+
+def stages_case(data, pos, tan, key_table, samples, field):
+    """``test_deterministic_mode_stages_bitwise``: the energy, a metric
+    matvec and a 200-step CG draw on a samples × field mesh."""
+    jt.config.update("deterministic_reductions", True)
+    mesh = make_mesh(samples, field)
+    lh, p = field_problem(data, pos, mesh)
+    t = jt.from_numpy(tan, device="cpu", mesh=mesh)
+    energy = float(lh(p))
+    met = pmesh.gather_position(lh.metric(p, t), mesh)
+    draw, _ = jt.draw_linear_residual(lh, p, ReplayKey(key_table),
+                                      cg_kwargs=dict(maxiter=200, absdelta=1e-13))
+    return dict(energy=energy, metric=jt.to_numpy(met),
+                draw=jt.to_numpy(pmesh.gather_position(draw, mesh)))
+
+
+def sample_draw_case(data, pos, key_table, samples):
+    """``test_deterministic_mode_sample_parallel_draw_bitwise``: the
+    antithetic linear draw of two keys spread over a samples axis (a local
+    Hartley transform: the field is not sharded)."""
+    jt.config.update("deterministic_reductions", True)
+    mesh = make_mesh(samples, 1)
+    lh, p = field_problem(data, pos, mesh, distributed=False)
+    opt = jt.OptimizeVI(lh, n_total_iterations=1)
+    first, count = pmesh.sample_rows(mesh, 2)
+    keys = ReplayKey(key_table).split(2)[first:first + count]
+    smp, _ = opt.draw_linear_samples(p, keys, cg_kwargs=dict(maxiter=200, absdelta=1e-13),
+                                     point_estimates=())
+    return jt.to_numpy(gather_samples(smp, mesh)._samples)
+
+
+def kl_step_case(data, pos, key_table, samples, n_keys, cg_kwargs, det=False, pairwise=False):
+    """``test_sharded_kl_step_matches_single_device`` and
+    ``test_kl_with_pairwise_reduce_mesh_independent``: each rank draws its
+    keys' residuals, then the sample-averaged KL value and gradient over
+    the samples axis (``_kl_vg`` with the default reduce, the pairwise one
+    under ``deterministic_reductions``)."""
+    from nifty_tpu_torch.optimize_kl import _mean_energy_and_grad
+
+    jt.config.update("deterministic_reductions", det)
+    mesh = make_mesh(samples, 1)
+    lh, p = field_problem(data, pos, mesh, distributed=False)
+    opt = jt.OptimizeVI(lh, n_total_iterations=1, residual_map="smap")
+    first, count = pmesh.sample_rows(mesh, n_keys)
+    keys = ReplayKey(key_table).split(n_keys)[first:first + count]
+    smp, _ = opt.draw_linear_samples(p, keys, cg_kwargs=cg_kwargs)
+    kw = {}
+    if pairwise:
+        kw["reduce"] = lambda tree: pmesh.tree_pairwise_mean(tree, mesh=mesh)
+    value, grad = _mean_energy_and_grad(lh, p, smp, **kw)
+    return float(value), jt.to_numpy(grad), dict(mesh.stats)
+
+
+def _vi_kwargs(budgets, nl_maxiter, n_samples, sample_mode):
+    draw_mi, nl_cg_mi, kl_mi, kl_cg_mi = budgets
+    return dict(
+        n_samples=n_samples,
+        draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=draw_mi, absdelta=1e-13)),
+        nonlinearly_update_kwargs=dict(minimize_kwargs=dict(
+            xtol=1e-8, maxiter=nl_maxiter, cg_kwargs=dict(maxiter=nl_cg_mi))),
+        kl_kwargs=dict(minimize_kwargs=dict(
+            xtol=1e-9, maxiter=kl_mi, cg_kwargs=dict(maxiter=kl_cg_mi))),
+        sample_mode=sample_mode)
+
+
+def _whole(samples, state, mesh):
+    whole = gather_samples(samples, mesh)
+    return dict(pos=jt.to_numpy(whole.pos), samples=jt.to_numpy(whole._samples),
+                fun=float(state.minimization_state.fun), nit=int(state.nit))
+
+
+def checkpoint_write_case(data, pos, seed, samples, field, odir, budgets, n_samples):
+    """``optimize_kl`` with the sharded checkpoint for two iterations,
+    then a third continued in memory (into ``odir/in_memory``)."""
+    jt.config.update("deterministic_reductions", True)
+    mesh = make_mesh(samples, field)
+    lh, p = field_problem(data, pos, mesh)
+    kw = dict(key=jt.HostKey(seed), checkpoint_format="orbax",
+              **_vi_kwargs(budgets, 3, n_samples, "nonlinear_resample"))
+    s2, st2 = jt.optimize_kl(lh, p, n_total_iterations=2, odir=odir, **kw)
+    s3, st3 = jt.optimize_kl(lh, s2, n_total_iterations=3, odir=f"{odir}/in_memory",
+                             _optimize_vi_state=st2, **kw)
+    return dict(two=_whole(s2, st2, mesh), three=_whole(s3, st3, mesh))
+
+
+def checkpoint_resume_case(data, pos, seed, samples, field, odir, budgets, n_samples):
+    """The third iteration resumed from ``odir``'s sharded checkpoint."""
+    jt.config.update("deterministic_reductions", True)
+    mesh = make_mesh(samples, field)
+    lh, _ = field_problem(data, pos, mesh)
+    s3, st3 = jt.optimize_kl(
+        lh, None, n_total_iterations=3, odir=odir, resume=True, key=jt.HostKey(seed),
+        checkpoint_format="orbax", **_vi_kwargs(budgets, 3, n_samples, "nonlinear_resample"))
+    return _whole(s3, st3, mesh)
+
+
+def kl_reduce_case(data, pos, seed, samples, field, budgets):
+    """``OptimizeVI(kl_reduce=...)``: a reduce that counts its calls and
+    takes the pairwise mean over the samples axis."""
+    jt.config.update("deterministic_reductions", True)
+    mesh = make_mesh(samples, field)
+    lh, p = field_problem(data, pos, mesh)
+    calls = []
+
+    def reduce(tree):
+        calls.append(1)
+        return pmesh.tree_pairwise_mean(tree, mesh=mesh)
+
+    out = {}
+    for name, kl_reduce in (("counted", reduce), ("default", None)):
+        kw = {} if kl_reduce is None else dict(kl_reduce=kl_reduce)
+        opt = jt.OptimizeVI(lh, n_total_iterations=1, **kw)
+        state = opt.init_state(jt.HostKey(seed), **_vi_kwargs(budgets, 0, 2, "linear_resample"))
+        smp, state = opt.update(jt.Samples(pos=p), state)
+        out[name] = _whole(smp, state, mesh)
+    out["calls"] = len(calls)
+    return out
+
+
+def sleep_case(rank, seconds):
+    """Rank ``rank`` sleeps, the others wait for it in a barrier."""
+    import torch.distributed as dist
+
+    if dist.get_rank() == rank:
+        time.sleep(seconds)
+    dist.barrier()
+    return dist.get_rank()
+
+
+def fail_case(rank):
+    import torch.distributed as dist
+
+    if dist.get_rank() == rank:
+        raise ValueError(f"rank {rank} fails")
+    dist.barrier()
+    return dist.get_rank()
+
+
+def ipc_case():
+    """Every collective of a 2 x 2 gloo world on the card (through the
+    CUDA IPC mailboxes) beside what it must give, built from every rank's
+    input here (as numpy)."""
+    import torch.distributed as dist
+
+    from nifty_tpu_torch.ops.harmonic import hartley
+    from nifty_tpu_torch.parallel import collectives as coll
+
+    mesh = make_mesh(2, 2)
+    fg, sg = mesh.group(mesh.field_axis), mesh.group(mesh.sample_axis)
+    s, f = mesh.index(mesh.sample_axis), mesh.index(mesh.field_axis)
+
+    def x_of(r):
+        return torch.arange(24, dtype=torch.float64, device="cuda").reshape(4, 6) + 100 * r
+
+    def z_of(r):
+        return torch.complex(x_of(r), -x_of(r))
+
+    r, peer = dist.get_rank(), 1 - f
+    x, z = x_of(r), z_of(r)
+    row, col = (2 * s, 2 * s + 1), (f, 2 + f)  # the field and the samples group's ranks
+    field = torch.arange(48, dtype=torch.float64, device="cuda").reshape(8, 6) ** 1.5
+    got = dict(
+        gather=coll.all_gather(x, fg, 1), gather_s=coll.all_gather(z, sg, 0),
+        a2a=coll.all_to_all(x, fg, split_dim=1, concat_dim=0),
+        a2a_c=coll.all_to_all(z, fg, split_dim=0, concat_dim=1),
+        exchange=coll.exchange(z, fg, peer, peer), own=coll.exchange(x, fg, f, f),
+        sum=coll.all_reduce(x, fg), max=coll.all_reduce(x, sg, op=dist.ReduceOp.MAX),
+        hartley=distributed_hartley(mesh.own_rows(field), mesh))
+    want = dict(
+        gather=torch.cat([x_of(q) for q in row], 1), gather_s=torch.cat([z_of(q) for q in col]),
+        a2a=torch.cat([x_of(q)[:, 3 * f:3 * f + 3] for q in row]),
+        a2a_c=torch.cat([z_of(q)[2 * f:2 * f + 2] for q in row], 1),
+        exchange=z_of(row[peer]), own=x, sum=x_of(row[0]) + x_of(row[1]),
+        max=torch.maximum(x_of(col[0]), x_of(col[1])), hartley=mesh.own_rows(hartley(field)))
+    return {k: (got[k].cpu().numpy(), want[k].cpu().numpy()) for k in got}
+
+
+def from_numpy_case(tree, samples, field):
+    """``from_numpy(tree, mesh=)``: a global numpy tree becomes this rank's
+    part (its rows of the field-sharded leaves), with the layout recorded."""
+    mesh = make_mesh(samples, field)
+    local = jt.from_numpy(tree, device="cpu", mesh=mesh)
+    return dict(local=jt.to_numpy(local), index=mesh.index(mesh.field_axis),
+                sharded=mesh.field_flags(local, len(tree_leaves(local))))
