@@ -7,7 +7,9 @@ correlated fields on HEALPix and Gauss-Legendre grids, line-of-sight
 tomography of 3-D fields with a NUTS cross-check, radio interferometry
 (a w-stacked NUFFT response), and the inference and diagnostics around
 them: the Wiener filter, parametric VI, the evidence lower bound and the
-first-order and trust-region minimizers; then the same port on several
+first-order and trust-region minimizers, the INI-file driver (demo 7 and
+a config-file twin of phase 9) and the instrumentation at 4096^2; then
+the same port on several
 ranks: the pencil transforms, demo 4, phase 6's update field- and
 sample-sharded, and the sharded checkpoint, in a gloo world of four ranks
 on one card and an NCCL world over every card (it starts both).
@@ -16,7 +18,11 @@ on one card and an NCCL world over every card (it starts both).
 
 Phases (one line each, with its seconds):
 
-1. require a CUDA device and print ``nvidia-smi``'s name and power limit;
+1. require a CUDA device and print ``nvidia-smi``'s name and power limit,
+   then whether the optional host libraries import (``h5py: present`` or
+   ``h5py: absent``, the same for matplotlib): where one is absent the
+   HDF5 export or the figures are not run, where it is present an
+   exception from it fails the run;
 2. build the distributor kernels, the refinement kernels, the HEALPix
    longitude kernels, the ray integral kernels and the NUFFT window
    kernels (``nvcc``, one compiler a source, all started together) and the
@@ -88,7 +94,10 @@ Phases (one line each, with its seconds):
    exp-of-field signal at 128^2, schedules by iteration, ``odir`` in a
    temporary directory), three iterations, then a fourth once resumed from
    the checkpoint (``resume=True``) and once continued in memory: the two
-   fourth iterations must be bitwise equal;
+   fourth iterations must be bitwise equal; ``odir`` must hold the
+   checkpoint, the report and (where matplotlib imports) the energy
+   history's figure; the demo's ``Plot`` summary is drawn (phases 11, 13
+   and 31 draw their demos' figures too, each file's size printed);
 10. the 4096^2 unbinned config (1,197,363 modes; the sample loop for both
     stages): one update;
 11. ``optimize_kl`` as ``demos/10_multifrequency.py`` calls it: 64 pixels
@@ -210,7 +219,7 @@ Phases (one line each, with its seconds):
     Adam steps each of ``MeanFieldVI`` and ``FullCovarianceVI`` (8 mirrored
     samples), 512 samples of each: |corr_MF| < 0.35, |corr_FC| > |corr_MF|,
     the predictive mean within 0.3 of 1; prints ms per Adam step;
-31. ``demos/15_vi_visualized.py`` as written, without its figure: MGVI and
+31. ``demos/15_vi_visualized.py`` as written, with its figure: MGVI and
     geoVI through ``optimize_kl`` (15 iterations of 20 samples at the demo's
     budgets), then 2000 steps each of ``MeanFieldVI`` and
     ``FullCovarianceVI``: each flavour's mean within 3 std of the
@@ -308,11 +317,28 @@ Phases (one line each, with its seconds):
     which there loop over samples; a ``residual_map="vmap"`` draw must
     raise): two iterations, then a third continued in memory; the third
     resumed from the sharded checkpoint on a 4 x 1 world and on the NCCL
-    world, each bitwise equal to the one continued in memory.
+    world, each bitwise equal to the one continued in memory;
+41. (run after phase 9) ``demos/7_config_file.py`` through the port: its
+    INI text (section inheritance, ``n_samples = 1*1,3*2``, a ``*section``
+    builder) read by ``OptimizeKLConfig``, its 64^2 field and seed 11, 4
+    iterations: relative reconstruction error below 0.5, the demo's check;
+    then phase 9's model, keys and budgets written as an INI file (its
+    floats as their ``repr``, its key as ``seed``, ``sample_mode`` through
+    a ``*section`` builder) and run by ``OptimizeKLConfig.from_file(...)
+    .optimize_kl`` with ``export_operator_outputs``: its KL energy after 3
+    iterations bitwise equal to phase 9's, and ``save_samples_to_fits`` of
+    the signal read back equal to the host mean of the card's samples (and
+    to the HDF5 export's mean); fails unless K3 and K4 launched in both;
+42. (run after phase 33) ``exec_time`` of phase 6's 4096^2 ``n_bins=128``
+    likelihood at its posterior position: forward, jvp, value_and_grad and
+    metric ms (one warm-up call, then 3 timed, the card synchronized),
+    printed with the card's name and power limit; ``CountingModel`` around
+    its field through a forward, a jvp and a vjp, with its report; fails
+    unless K1 and K2 launched on the 2049^2 quarter map.
 
 The port places models, latents and data on the card by default; only
 phase 4's CPU run asks for the CPU (``config.update("device", "cpu")``).
-Phases 5 to 16, 23 to 28, 32, 33, 35 and 36 reset the kernels' launch
+Phases 5 to 16, 23 to 28, 32, 33, 35, 36, 41 and 42 reset the kernels' launch
 counts just before they drive their path and fail unless both distributor
 kernels launched
 (phases 11, 12 and 16: on every subgrid's map; phase 23 also both K10
@@ -1123,11 +1149,61 @@ def phase_adaptive(jt, lh, fixed_energy):
     return counts
 
 
-@phase("9 optimize_kl with odir, 3 iterations, resume for a 4th")
-def phase_optimize_kl(jt):
-    """`demos/0_intro.py`'s model and `optimize_kl` call at 128^2."""
-    from nifty_tpu_torch.ops import bin_gather as bg
+def present(name):
+    """Whether the optional host library `name` (h5py for the HDF5 export,
+    matplotlib for the figures) is installed.  The legs that need a missing
+    one are not run; nothing on the device or kernel path needs either.
+    Where one is present, an exception from it fails the run."""
+    import importlib.util
 
+    return importlib.util.find_spec(name) is not None
+
+
+def optional_libraries():
+    """Print `<name>: present (version)` or `<name>: absent` for h5py and
+    matplotlib; matplotlib draws with Agg."""
+    import importlib
+
+    for name in ("h5py", "matplotlib"):
+        if not present(name):
+            print(f"{name}: absent", flush=True)
+            continue
+        mod = importlib.import_module(name)
+        print(f"{name}: present ({mod.__version__})", flush=True)
+        if name == "matplotlib":
+            mod.use("Agg")
+
+
+def write_figures(label, draw):
+    """`draw(directory)` draws a demo's figures into a temporary directory
+    and returns their paths (and those of figures already drawn
+    elsewhere); prints each file's size.  Not run where matplotlib is
+    absent."""
+    if not present("matplotlib"):
+        print(f"{label} figures: not drawn (matplotlib: absent)", flush=True)
+        return
+    with tempfile.TemporaryDirectory() as d:
+        paths = draw(d)
+        sizes = {os.path.basename(f): os.path.getsize(f) for f in paths}
+    print(f"{label} figures: " + ", ".join(f"{k} {v} bytes" for k, v in sizes.items()),
+          flush=True)
+    if min(sizes.values()) <= 1000:
+        raise AssertionError(f"{label}: a figure is nearly empty: {sizes}")
+
+
+def summary_figure(jt, d, name, panels, **kw):
+    """`Plot.output` of `panels` ((array, title) pairs) into `d/name`."""
+    p = jt.Plot()
+    for arr, title in panels:
+        p.add(arr, title=title)
+    path = os.path.join(d, name)
+    p.output(name=path, **kw)
+    return path
+
+
+def demo0_problem(jt):
+    """`demos/0_intro.py`'s model and data at 128^2 and its `optimize_kl`
+    budgets: `(signal, lh, truth, data, k_init, k_opt, budgets)`."""
     signal = pointwise(jt, build_field(jt, (128, 128), offset_mean=2.0), torch.exp)
     k_truth, k_noise, k_init, k_opt = jt.split(42, 4)
     with torch.no_grad():
@@ -1136,17 +1212,27 @@ def phase_optimize_kl(jt):
     lh = jt.Gaussian(data, noise_cov_inv=lambda x: 0.1 ** -2 * x).amend(signal)
     delta, n_samples = 1e-4, 4
     size = jt.tree.size(lh.domain)
+    budgets = dict(
+        n_samples=lambda i: n_samples // 2 if i < 2 else n_samples,
+        draw_linear_kwargs=dict(cg_kwargs=dict(absdelta=delta * size / 10.0, maxiter=100)),
+        nonlinearly_update_kwargs=dict(minimize_kwargs=dict(xtol=delta, maxiter=5)),
+        kl_kwargs=dict(minimize_kwargs=dict(absdelta=delta * size, maxiter=25)),
+        sample_mode=lambda i: "nonlinear_resample" if i >= 2 else "linear_resample")
+    return signal, lh, truth, data, k_init, k_opt, budgets
+
+
+@phase("9 optimize_kl with odir, 3 iterations, resume for a 4th")
+def phase_optimize_kl(jt):
+    """`demos/0_intro.py`'s model and `optimize_kl` call at 128^2, with the
+    demo's figures (its summary and the energy history).  Returns the
+    launch counts and the KL energy after 3 iterations."""
+    from nifty_tpu_torch.ops import bin_gather as bg
+
+    signal, lh, truth, data, k_init, k_opt, budgets = demo0_problem(jt)
 
     def run(position_or_samples, n_total, odir, **kw):
-        return jt.optimize_kl(
-            lh, position_or_samples, key=k_opt, n_total_iterations=n_total,
-            n_samples=lambda i: n_samples // 2 if i < 2 else n_samples,
-            draw_linear_kwargs=dict(
-                cg_kwargs=dict(absdelta=delta * size / 10.0, maxiter=100)),
-            nonlinearly_update_kwargs=dict(minimize_kwargs=dict(xtol=delta, maxiter=5)),
-            kl_kwargs=dict(minimize_kwargs=dict(absdelta=delta * size, maxiter=25)),
-            sample_mode=lambda i: "nonlinear_resample" if i >= 2 else "linear_resample",
-            odir=odir, **kw)
+        return jt.optimize_kl(lh, position_or_samples, key=k_opt, n_total_iterations=n_total,
+                              odir=odir, **budgets, **kw)
 
     with tempfile.TemporaryDirectory() as odir:
         bg.reset_launch_counts()
@@ -1166,8 +1252,21 @@ def phase_optimize_kl(jt):
         samples_r, state_r = run(None, 4, odir, resume=True)
         with open(os.path.join(odir, "minisanity.txt")) as f:
             report = f.read()
-    if files != ["last.pkl", "minisanity.txt"]:
-        raise AssertionError(f"optimize_kl wrote {files}")
+
+        def figures(d):
+            with torch.no_grad():
+                mean, std = jt.mean_and_std([signal(s) for s in samples_r])
+            return [summary_figure(jt, d, "summary.png", [
+                (truth, "truth"), (data, "data"), (mean, "posterior mean"),
+                (std, "posterior std")]), os.path.join(odir, "energy_history.png")]
+
+        write_figures("demo 0", figures)
+    # the JAX package's default `plot_energy_history=True` draws the energy
+    # history where matplotlib imports
+    want = (["energy_history.png"] if present("matplotlib") else []) + [
+        "last.pkl", "minisanity.txt"]
+    if files != want:
+        raise AssertionError(f"optimize_kl wrote {files}, not {want}")
     if not (state_m.nit == state_r.nit == 4):
         raise AssertionError(f"iteration counters {state_m.nit}, {state_r.nit}")
     same = float(state_m.minimization_state.fun) == float(state_r.minimization_state.fun)
@@ -1175,8 +1274,9 @@ def phase_optimize_kl(jt):
         same &= torch.equal(samples_m.pos[k], samples_r.pos[k])
         same &= torch.equal(samples_m._samples[k], samples_r._samples[k])
     seconds = [b - a for a, b in zip(marks, marks[1:])]
+    energy3 = float(state3.minimization_state.fun)
     print(f"optimize_kl: s/iteration {[round(s, 3) for s in seconds]} | KL energy after 3 "
-          f"{float(state3.minimization_state.fun)!r}, after 4 "
+          f"{energy3!r}, after 4 "
           f"{float(state_r.minimization_state.fun)!r} | resumed 4th iteration bitwise equal "
           f"to the one continued in memory: {bool(same)} | launches in 3 iterations gather "
           f"{counts['gather']} segment_sum {counts['segsum']}, by rows of the table: "
@@ -1187,7 +1287,7 @@ def phase_optimize_kl(jt):
     if report.count("OPTIMIZE_KL: iter") != 4:
         raise AssertionError("minisanity.txt does not hold one report per iteration")
     require_launches("optimize_kl", counts)
-    return counts
+    return counts, energy3
 
 
 def run_optimize_kl(jt, label, lh, position, maps=(), **kwargs):
@@ -1222,7 +1322,9 @@ def run_optimize_kl(jt, label, lh, position, maps=(), **kwargs):
 @phase("11 optimize_kl as demos/10_multifrequency.py, 64 x 16, 5 iterations")
 def phase_multifrequency(jt):
     """`demos/10_multifrequency.py`'s model, data and `optimize_kl` call:
-    the posterior mean must be closer to the truth than the noise level."""
+    the posterior mean must be closer to the truth than the noise level.
+    Draws the demo's `Plot` figure (the frequencies as RGB, the posterior's
+    mean and std) and its energy history."""
     noise_std = 0.2
     cf = build_multifrequency(jt, (64,), 16)
     k_truth, k_noise, k_init, k_opt = jt.HostKey(5).split(4)
@@ -1239,8 +1341,24 @@ def phase_multifrequency(jt):
                 xtol=1e-3, maxiter=5, cg_kwargs=dict(maxiter=24))),
             kl_kwargs=dict(minimize_kwargs=dict(xtol=1e-4, maxiter=12, cg_kwargs=dict(maxiter=32))),
             sample_mode="nonlinear_resample", odir=odir)
-    with torch.no_grad():
-        post = cf(samples.samples)
+        with torch.no_grad():
+            post = cf(samples.samples)
+
+        def figures(d):
+            def as_cube(img):
+                # (space, freq) -> (freq, strip height, space), a false-colour strip
+                return np.repeat(img.cpu().numpy().T[:, None, :], 8, axis=1)
+
+            p = jt.Plot()
+            p.add(as_cube(torch.exp(truth)), freqs_as_rgb=True, title="truth (RGB)")
+            p.add(as_cube(torch.exp(post.mean(0))), freqs_as_rgb=True,
+                  title="posterior mean (RGB)")
+            p.add_uncertainty(post, title="posterior")
+            path = os.path.join(d, "rgb_and_uncertainty.png")
+            p.output(name=path, xsize=10, ysize=8)
+            return [path, os.path.join(odir, "energy_history.png")]
+
+        write_figures("demo 10", figures)
     rms = float(torch.sqrt(torch.mean((post.mean(0) - truth) ** 2)))
     print(f"multifrequency optimize_kl: posterior rms error {rms:.4f} (noise level {noise_std}) | "
           f"{len(samples)} samples", flush=True)
@@ -1254,7 +1372,7 @@ def phase_poisson_counts(jt):
     """`demos/2_poisson_counts.py`: Poisson counts of a log-normal field,
     geoVI with the Poissonian's metric square roots, lockstep (`"auto"`).
     The posterior mean of the rates must be closer to the true rates than
-    the counts are."""
+    the counts are.  Draws the demo's `Plot` summary."""
     k_truth, k_init, k_opt = jt.HostKey(42).split(3)
     lh, truth, counts = poisson_likelihood(
         jt, build_poisson_demo_field(jt, (128, 128)), k_truth, seed=42)
@@ -1266,8 +1384,12 @@ def phase_poisson_counts(jt):
         kl_kwargs=dict(minimize_kwargs=dict(xtol=1e-4, maxiter=20)),
         sample_mode="nonlinear_resample")
     with torch.no_grad():
-        rate_mean = lh.model(samples.samples).mean(0)
+        rates = lh.model(samples.samples)
+        rate_mean = rates.mean(0)
     counts = torch.from_numpy(counts).to(truth)
+    write_figures("demo 2", lambda d: [summary_figure(jt, d, "summary.png", [
+        (truth, "truth"), (counts, "counts"), (rate_mean, "posterior mean"),
+        (rates.std(0), "posterior std")])])
     rms_post = float(torch.sqrt(torch.mean((rate_mean - truth) ** 2)))
     rms_counts = float(torch.sqrt(torch.mean((counts - truth) ** 2)))
     _, table = jt.minisanity(samples, lh.normalized_residual)
@@ -2651,13 +2773,21 @@ def phase_demo8(jt):
 DEMO15_SCALE, DEMO15_SLOPE = 10.0, 1.35
 
 
-def demo15_moments():
-    """`demos/15_vi_visualized.py`'s grid quadrature of the exact posterior
-    over (a, b): means and standard deviations."""
-    aa, bb = np.meshgrid(np.linspace(-0.9, 0.9, 401), np.linspace(-4.5, 4.5, 401), indexing="ij")
+def demo15_density():
+    """`demos/15_vi_visualized.py`'s grid of the exact posterior over (a, b):
+    the grid's axes and the normalized density on it."""
+    grid_a, grid_b = np.linspace(-0.9, 0.9, 401), np.linspace(-4.5, 4.5, 401)
+    aa, bb = np.meshgrid(grid_a, grid_b, indexing="ij")
     lh = 0.5 * (DEMO15_SCALE * aa) ** 2 * np.exp(-2 * DEMO15_SLOPE * bb) + DEMO15_SLOPE * bb
     z = np.exp(-(lh + 0.5 * (aa ** 2 + bb ** 2)))
-    z /= z.sum()
+    return grid_a, grid_b, z / z.sum()
+
+
+def demo15_moments():
+    """The grid quadrature of `demo15_density`: means and standard
+    deviations."""
+    grid_a, grid_b, z = demo15_density()
+    aa, bb = np.meshgrid(grid_a, grid_b, indexing="ij")
     ma, mb = (aa * z).sum(), (bb * z).sum()
     return ma, mb, np.sqrt(((aa - ma) ** 2 * z).sum()), np.sqrt(((bb - mb) ** 2 * z).sum())
 
@@ -2665,14 +2795,14 @@ def demo15_moments():
 @phase("31 demos/15_vi_visualized.py: MGVI and geoVI (15 iterations of 20 samples), MFVI and "
        "FCVI (2000 steps)")
 def phase_demo15(jt):
-    """`demos/15_vi_visualized.py` as written, without its figure: a datum 0
-    of mean 10 a and inverse std exp(-1.35 b); MGVI (`linear_resample`) and
-    geoVI (`nonlinear_resample`) through `optimize_kl` with 15 iterations of
-    20 samples at the demo's budgets, then 2000 steps each of `MeanFieldVI`
+    """`demos/15_vi_visualized.py` as written: a datum 0 of mean 10 a and
+    inverse std exp(-1.35 b); MGVI (`linear_resample`) and geoVI
+    (`nonlinear_resample`) through `optimize_kl` with 15 iterations of 20
+    samples at the demo's budgets, then 2000 steps each of `MeanFieldVI`
     and `FullCovarianceVI` with 8 samples and 200 draws each.  The demo's
     check: each flavour's sample mean within 3 std of the grid-quadrature
-    moments.  The port's `optimize_kl` has no energy-history plot yet, so
-    the demo's `plot_energy_history=False` (a no-op) is left out."""
+    moments.  Draws the demo's figure (each flavour's samples over the
+    exact density's contours)."""
 
     def forward(x):
         return (DEMO15_SCALE * x["a"], torch.exp(-DEMO15_SLOPE * x["b"]))
@@ -2693,7 +2823,7 @@ def phase_demo15(jt):
             nonlinearly_update_kwargs=dict(minimize_kwargs=dict(
                 xtol=1e-4, maxiter=10, cg_kwargs=dict(maxiter=20))),
             kl_kwargs=dict(minimize_kwargs=dict(xtol=1e-5, maxiter=15, cg_kwargs=dict(maxiter=20))),
-            odir=None)
+            odir=None, plot_energy_history=False)
         seconds[label] = time.perf_counter() - t0
         s = samples.samples
         clouds[label] = np.stack([s["a"].cpu().numpy(), s["b"].cpu().numpy()], -1)
@@ -2713,6 +2843,25 @@ def phase_demo15(jt):
               f"{pts[:, 1].std():.4f} | {len(pts)} samples in {seconds[label]:.3f} s", flush=True)
         if not (abs(ea - ma) < 3 * sa and abs(eb - mb) < 3 * sb):
             failed.append(label)
+
+    def figure(d):
+        import matplotlib.pyplot as plt
+
+        grid_a, grid_b, z = demo15_density()
+        fig, axs = plt.subplots(2, 2, figsize=(9, 8), sharex=True, sharey=True)
+        for ax, (label, pts) in zip(axs.ravel(), clouds.items()):
+            ax.contour(grid_a, grid_b, z.T, levels=8, linewidths=0.6)
+            ax.scatter(pts[:, 0], pts[:, 1], s=6, alpha=0.6, c="crimson")
+            ax.set_title(label)
+            ax.set_xlabel("a")
+            ax.set_ylabel("b")
+        fig.tight_layout()
+        path = os.path.join(d, "vi_visualized.png")
+        fig.savefig(path, dpi=120)
+        plt.close(fig)
+        return [path]
+
+    write_figures("demo 15", figure)
     if failed:
         raise AssertionError(f"demo 15: {failed} outside 3 std of the exact moments")
 
@@ -3435,6 +3584,208 @@ def k7_kernel_entries(kres, factor_res, runs, checked):
     return entries
 
 
+# -- the config file and instrumentation (phases 41-42) ---------------------------
+
+# `demos/7_config_file.py`'s INI text and seed
+DEMO7_CONFIG = """
+[optimize_kl]
+n_total_iterations = 4
+n_samples = 1*1,3*2
+draw_linear_kwargs = *cg_conservative
+odir = none
+
+[cg_base]
+maxiter = 40
+
+[cg_conservative]
+base = cg_base
+absdelta = 1e-5
+"""
+DEMO7_SEED = 11
+
+
+def ini_sections(text):
+    import configparser
+
+    cp = configparser.ConfigParser()
+    cp.optionxform = str
+    cp.read_string(text)
+    return {name: dict(cp[name]) for name in cp.sections()}
+
+
+def demo7_field(jt):
+    """`demos/7_config_file.py`'s 64^2 field."""
+    dims = (64, 64)
+    return jt.SimpleCorrelatedField(
+        dims, 1.0 / dims[0], offset_mean=0.0, offset_std=(1e-1, 1e-2),
+        fluctuations=(1.0, 0.5), loglogavgslope=(-3.0, 0.5), flexibility=None)
+
+
+def phase9_twin_config(jt, lh, k_opt, odir):
+    """Phase 9's `optimize_kl` arguments as an INI file: its schedules as
+    run-length lists or `*section` builders (the schedule syntax is
+    numeric, so the string schedule `sample_mode` is built), its floats as
+    their `repr`, its key as the int seed `seed`."""
+    delta = 1e-4
+    size = jt.tree.size(lh.domain)
+    return f"""
+[optimize_kl]
+n_total_iterations = 3
+n_samples = 2*2,4
+sample_mode = *sample_mode
+draw_linear_kwargs = *draw_linear
+nonlinearly_update_kwargs = *nonlinearly_update
+kl_kwargs = *kl
+seed = {k_opt!r}
+odir = {odir}
+
+[sample_mode]
+nonlinear_from = 2
+
+[draw_linear]
+absdelta = {delta * size / 10.0!r}
+maxiter = 100
+
+[nonlinearly_update]
+xtol = {delta!r}
+maxiter = 5
+
+[kl]
+absdelta = {delta * size!r}
+maxiter = 25
+"""
+
+
+PHASE9_TWIN_BUILDERS = {
+    "sample_mode": lambda nonlinear_from: (
+        lambda i: "nonlinear_resample" if i >= nonlinear_from else "linear_resample"),
+    "draw_linear": lambda **kw: dict(cg_kwargs=kw),
+    "nonlinearly_update": lambda **kw: dict(minimize_kwargs=kw),
+    "kl": lambda **kw: dict(minimize_kwargs=kw),
+}
+
+
+@phase("41 the config file: demos/7_config_file.py at 64^2, and phase 9's run from an INI file")
+def phase_config_file(jt, phase9_energy):
+    """`demos/7_config_file.py` through the port (its INI text, 64^2, seed
+    11; section inheritance, a run-length `n_samples`, a `*section`
+    builder): its check, relative error below 0.5.  Then phase 9's model,
+    keys and budgets as an INI file read by `OptimizeKLConfig.from_file`,
+    its KL energy after 3 iterations bitwise phase 9's, with
+    `export_operator_outputs` (where h5py imports) and
+    `save_samples_to_fits` of the signal: the FITS mean read back equal to
+    the host mean of the card's samples (and to the HDF5 export's).  Fails
+    unless K3 and K4 launched in each run.  Returns both runs' counts."""
+    from nifty_tpu_torch.ops import bin_gather as bg
+
+    cfg = jt.OptimizeKLConfig(ini_sections(DEMO7_CONFIG),
+                              builders={"cg_conservative": lambda **kw: dict(cg_kwargs=kw)})
+    cf = demo7_field(jt)
+    key, k1, k2, k3 = jt.split(DEMO7_SEED, 4)
+    with torch.no_grad():
+        truth = cf(cf.init(k1))
+        data = truth + 0.1 * jt.random_like(k2, truth)
+    lh = jt.Gaussian(data, noise_std_inv=lambda x: x / 0.1).amend(cf)
+    bg.reset_launch_counts()
+    t0 = time.perf_counter()
+    samples, state = cfg.optimize_kl(lh, jt.Vector(lh.init(k3)), key=key)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    c_demo7 = launch_counts(bg)
+    with torch.no_grad():
+        resid = torch.stack([cf(s) for s in samples]).mean(0) - truth
+    err = float(torch.sqrt(torch.mean(resid ** 2) / torch.mean(truth ** 2)))
+    print(f"demo 7: {int(state.nit)} iterations, {len(samples)} samples in {seconds:.3f} s | KL "
+          f"energy {float(state.minimization_state.fun)!r} | relative reconstruction error "
+          f"{err:.4f} (the demo's check: < 0.5) | launches gather {c_demo7['gather']} segment_sum "
+          f"{c_demo7['segsum']}, by map: {maps_text(c_demo7)}", flush=True)
+    if not err < 0.5:
+        raise AssertionError(f"demo 7: relative reconstruction error {err} is not below 0.5")
+    require_launches("demo 7", c_demo7, (cf.dist,))
+
+    signal, lh, _, _, k_init, k_opt, _ = demo0_problem(jt)
+    with tempfile.TemporaryDirectory() as odir:
+        ini = os.path.join(odir, "phase9.ini")
+        with open(ini, "w") as f:
+            f.write(phase9_twin_config(jt, lh, k_opt, odir))
+        cfg = jt.OptimizeKLConfig.from_file(ini, builders=PHASE9_TWIN_BUILDERS)
+        export = {"signal": signal} if present("h5py") else None
+        if export is None:
+            print("phase 9's twin: no export_operator_outputs (h5py: absent)", flush=True)
+        bg.reset_launch_counts()
+        t0 = time.perf_counter()
+        samples, state = cfg.optimize_kl(lh, jt.random_like(k_init, lh.domain),
+                                         export_operator_outputs=export)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        c_twin = launch_counts(bg)
+        with torch.no_grad():
+            host_mean = np.stack([signal(s).cpu().numpy() for s in samples]).mean(0)
+        base = os.path.join(odir, "signal")
+        jt.save_samples_to_fits(samples, base, signal)
+        fits_mean = jt.read_fits(base + ".mean.fits")
+        h5_same = None
+        if export is not None:
+            import h5py
+
+            with h5py.File(os.path.join(odir, "operator_outputs.h5")) as f:
+                h5_same = bool(np.array_equal(f["signal/mean"][...], fits_mean))
+                h5_shape = f["signal/samples"].shape
+        files = sorted(os.listdir(odir))
+    energy = float(state.minimization_state.fun)
+    print(f"phase 9's twin from an INI file: {int(state.nit)} iterations in {seconds:.3f} s | KL "
+          f"energy after 3 {energy!r}, phase 9's {phase9_energy!r}: bitwise equal "
+          f"{energy == phase9_energy} | odir {files} | FITS mean {fits_mean.shape} equal to the "
+          f"host mean of the card's samples: {bool(np.array_equal(fits_mean, host_mean))}"
+          + ("" if h5_same is None else f", to operator_outputs.h5's mean: {h5_same} (samples "
+             f"{h5_shape})")
+          + f" | launches gather {c_twin['gather']} segment_sum {c_twin['segsum']}, by rows of "
+          f"the table: {rows_text(c_twin)}", flush=True)
+    if energy != phase9_energy:
+        raise AssertionError(f"the config-file run ends at {energy!r}, phase 9 at "
+                             f"{phase9_energy!r}")
+    if not np.array_equal(fits_mean, host_mean) or h5_same is False:
+        raise AssertionError("the exported mean differs from the samples' host mean")
+    require_launches("phase 9's twin", c_twin)
+    return c_demo7, c_twin
+
+
+@phase("42 instrumentation at 4096^2: exec_time of phase 6's likelihood, CountingModel of its "
+       "field")
+def phase_instrumentation(jt, lh, samples, field, smi_line):
+    """`exec_time` of phase 6's 4096^2 `n_bins=128` likelihood at its
+    posterior position (forward, jvp, value_and_grad and metric; one warm-up
+    call, then 3 timed, the card synchronized after each), then
+    `CountingModel` around its correlated field through a forward, a jvp
+    and a vjp, with its report.  Fails unless K1 and K2 launched on the
+    2049^2 quarter map.  Returns the launch counts."""
+    from nifty_tpu_torch.ops import bin_gather as bg
+
+    pos = samples.pos
+    bg.reset_launch_counts()
+    times = jt.exec_time(lh, pos, key=jt.HostKey(42), n=3, verbose=False)
+    cm = jt.CountingModel(field, name="4096^2 n_bins=128 correlated field")
+    tangent = jt.random_like(jt.HostKey(43), pos)
+    with torch.no_grad():
+        out = cm(pos)
+    cm.jvp(pos, tangent)
+    cm.vjp(pos, jt.random_like(jt.HostKey(44), out))
+    torch.cuda.synchronize()
+    counts = launch_counts(bg)
+    print("exec_time 4096^2 n_bins=128 likelihood (" + str(jt.tree.size(pos)) + " dof): "
+          + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in times.items())
+          + f" | {smi_line} | {cm.report()} | launches gather {counts['gather']} segment_sum "
+          f"{counts['segsum']}, by map: {maps_text(counts)}", flush=True)
+    if list(times) != ["forward", "jvp", "value_and_grad", "metric"]:
+        raise AssertionError(f"exec_time returned {list(times)}")
+    if not all(np.isfinite(v) and v > 0 for v in times.values()):
+        raise AssertionError(f"exec_time: {times}")
+    if cm.counts != {"forward": 1, "jvp": 1, "vjp": 1}:
+        raise AssertionError(f"CountingModel counted {cm.counts}")
+    require_launches("instrumentation 4096^2", counts, (field.dist,))
+    return counts
+
+
 # -- mesh parallelism (phases 37-40) ----------------------------------------------
 #
 # The worlds are processes of their own (`nifty_tpu_torch.parallel.run_world`,
@@ -4080,6 +4431,7 @@ def main(argv):
     with_profile = "--profile" in argv
     with_witness = "--witness" in argv
     smi_line = phase_device()
+    optional_libraries()
     import nifty_tpu_torch as jt
 
     jt.logger.setLevel(logging.WARNING)
@@ -4115,6 +4467,10 @@ def main(argv):
     lh16, cf16, los16 = build_tomography(jt, (16,) * 3, 48, 64, NUTS_SEED, NUTS_SEED + 1)
     # phase 32's map: demo 11's 64^2 fields (both models share it)
     map64sq = demo11_field(jt, True, "true").dist
+    # phase 41's map: demo 7's 64^2 field, checked in phase 3 on its own
+    # where it is not demo 11's map
+    map7 = demo7_field(jt).dist
+    same7 = (map7.shape, map7.nb) == (map64sq.shape, map64sq.nb)
     # phases 37-40's maps: a field rank's rows of phase 6's full-grid map and
     # of demo 4's, the whole maps, and their (row, bin) maps
     mmaps = mesh_maps(jt, cf4096)
@@ -4172,6 +4528,9 @@ def main(argv):
         # ARPACK matvec (1), the lockstep draw of 2 keys (2) and the curve
         # and the stacked KL stage of 4 samples (4)
         **{f"64^2 unbinned B={rows}": (map64sq, rows) for rows in (1, 2, 4)},
+        # demo 7's, where it differs, at the rows of a model call (1), the
+        # lockstep draw of 1 and 2 keys and the KL stage of 2 and 4 samples
+        **({} if same7 else {f"64^2 demo 7 B={rows}": (map7, rows) for rows in (1, 2, 4)}),
         # the mesh phases' maps at the rows they give them (MESH_MAP_ROWS),
         # float64, 10 calls a timing
         **{f"{label} B={rows}": (mmaps[label], rows, 10)
@@ -4217,7 +4576,8 @@ def main(argv):
     if with_profile:
         profile_update(jt, "1024^2 unbinned", lh1024, residual_map="smap", kl_map="auto")
     del lh1024
-    c_loop = phase_optimize_kl(jt)
+    c_loop, e_loop = phase_optimize_kl(jt)
+    c_demo7, c_twin = phase_config_file(jt, e_loop)
     d = cf4096u.dist
     print(f"4096^2 unbinned: {d.nb} modes on the {d.shape} quarter map | float64 table "
           f"{d.nb * 8} bytes a row | segment sum work items {d.n_items} ({d.n_short} short bins, "
@@ -4308,6 +4668,7 @@ def main(argv):
     phase_demo15(jt)
     c_demo11, demo11_map = phase_demo11(jt)
     c_ev4096, c_ev128 = phase_evidence(jt, lh4096, samples4096, lh128, samples128, with_profile)
+    c_instr = phase_instrumentation(jt, lh4096, samples4096, cf4096, smi_line)
     del lh4096, samples4096
     torch.cuda.empty_cache()
 
@@ -4353,11 +4714,12 @@ def main(argv):
     k5 = ("K5 route", f"{tpu}:1013"), ("K5 route", f"{tpu}:1013")
     paths = [
         ("4096^2 nb128 quarter", cf4096.dist, *k1k2,
-         {"fixed": c4096, "evidence_4096": c_ev4096}),
+         {"fixed": c4096, "evidence_4096": c_ev4096, "instrumentation_4096": c_instr}),
         ("128^2 unbinned", cf128.dist, *k3k4,
          {"fixed": c128, "adaptive": c_adaptive, "optimize_kl": c_loop,
           "poisson_counts": c_poisson, "bernoulli_map": c_bernoulli_map,
-          "bernoulli_geovi": c_bernoulli_vi, "evidence_128": c_ev128, "solvers_128": c_solvers}),
+          "bernoulli_geovi": c_bernoulli_vi, "evidence_128": c_ev128, "solvers_128": c_solvers,
+          "config_twin": c_twin}),
         ("1024^2 unbinned quarter", cf1024.dist, *k5, {"fixed": c1024, "poisson": c1024p,
                                                         "radio_1024": c_radio}),
         ("4096^2 unbinned quarter", cf4096u.dist, *k5, {"fixed": c4096u}),
@@ -4369,7 +4731,9 @@ def main(argv):
         ("64^3 unbinned", cf64.dist, *k3k4, {"demo1": c_demo1}),
         ("256^3 nb128 quarter", cf256.dist, *k1k2, {"tomography_256": c_256}),
         ("16^3 unbinned", cf16.dist, *k3k4, {"nuts_geovi": c_geo16, "nuts": c_nuts}),
-        ("64^2 unbinned", demo11_map, *k3k4, {"demo11": c_demo11}),
+        ("64^2 unbinned", demo11_map, *k3k4,
+         {"demo11": c_demo11, **({"demo7": c_demo7} if same7 else {})}),
+        *([] if same7 else [("64^2 demo 7", map7, *k3k4, {"demo7": c_demo7})]),
         # the mesh phases' maps: launches a rank (rank 0's run)
         ("4096^2 nb128 slab", mmaps["4096^2 nb128 slab"], *k1k2,
          {"mesh_4096_2x2": c_mesh["mesh_4096_2x2"]}),

@@ -3,7 +3,8 @@ and the sphere), iterative charted refinement, line-of-sight tomography,
 structured kernel interpolation, HMC/NUTS, Wiener filtering, parametric
 VI, the evidence lower bound (ARPACK or stochastic Lanczos quadrature),
 dynamics priors, radio interferometry (the NUFFT and a w-stacked
-response) and the first-order and trust-region minimizers, with
+response), the first-order and trust-region minimizers, the INI-file
+driver, instrumentation, plots and HDF5/FITS export, with
 hand-written CUDA kernels for the power distributor, the refinement step,
 the HEALPix longitude stage, the ray integral and the NUFFT window.
 
@@ -13,6 +14,7 @@ The package mirrors ``nifty_tpu``'s layout and public names and imports
 
 from . import config
 from . import domains, num
+from .config_driver import OptimizeKLConfig
 from .custom_map import lmap, smap, vmap
 from .domains import (
     DOFSpace,
@@ -71,8 +73,10 @@ from .field import (
     makeField,
     power_analyze,
 )
+from .instrumentation import CountingModel, exec_time
 from .logger import logger
 from .minisanity import minisanity, reduced_residual_stats
+from .misc import hvp, interpolate
 from .model import Initializer, LazyModel, Model, WrappedCall, wrap, wrap_left
 from .models import (
     CorrelatedFieldMaker,
@@ -91,6 +95,8 @@ from .models import (
 from .ops.healpix_sht import HEALPixSHT
 from .ops.sht import SphericalHarmonicTransform, SphericalHarmonicTransformOnTheFly
 from .optimize_kl import OptimizeVI, OptimizeVIState, optimize_kl
+from .plot import Plot
+from .pytree_string import PyTreeString, hide_strings, unhide_strings
 from .probing import (
     StatCalculator,
     approximation2endo,
@@ -124,7 +130,16 @@ from .prior import (
     NormalPrior,
     UniformPrior,
 )
-from .sample_io import load_samples, save_samples
+from .sample_io import (
+    load_checkpoint_orbax,
+    load_samples,
+    read_fits,
+    save_checkpoint_orbax,
+    save_samples,
+    save_samples_to_fits,
+    save_samples_to_hdf5,
+    write_fits,
+)
 from .solvers.cg import cg
 from .solvers import (
     OptimizeResults,
@@ -166,6 +181,7 @@ from .tree import (
     Vector,
     dot,
     from_numpy,
+    get_map,
     mean,
     mean_and_std,
     norm,
@@ -178,3 +194,5 @@ from .tree import (
     vdot,
     zeros_like,
 )
+
+__version__ = "0.1.0"

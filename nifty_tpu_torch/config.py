@@ -71,3 +71,8 @@ def default_device() -> torch.device:
 def default_float_dtype() -> torch.dtype:
     """Real dtype of latent state, data and solver vectors."""
     return torch.float64
+
+
+def default_complex_dtype() -> torch.dtype:
+    """complex128 where the default real dtype is float64, else complex64."""
+    return torch.complex128 if default_float_dtype() == torch.float64 else torch.complex64

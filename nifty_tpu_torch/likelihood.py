@@ -22,9 +22,11 @@ backward pass and never the nonlinear model again.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable
 
 import torch
+from torch import nn
 
 from .model import LazyModel, NoValue
 from .tree import (
@@ -177,6 +179,11 @@ def _extract_liquid(full, bool_tree):
     ))
 
 
+def _bind(fn: Callable, kw: dict) -> Callable:
+    """``fn`` with the keywords ``kw`` bound; ``fn`` itself without any."""
+    return partial(fn, **kw) if kw else fn
+
+
 def _parse_lsm_shape(shape):
     leaves = tree_leaves(shape)
     if leaves and all(isinstance(e, ShapeWithDtype) for e in leaves):
@@ -185,30 +192,36 @@ def _parse_lsm_shape(shape):
 
 
 class Likelihood(LazyModel):
-    """Base class; see the module docstring.  ``lh(x)`` is the energy."""
+    """Base class; see the module docstring.  ``lh(x)`` is the energy.
+
+    Every method takes keyword arguments after its tensors (``**kw``) and
+    hands them on: a likelihood composed with a model splits them between
+    the model and the likelihood (:meth:`amend`'s ``likelihood_argnames``).
+    """
 
     def __init__(self, *, domain=NoValue, init=NoValue, lsm_tangents_shape=None):
         super().__init__(domain=domain, init=init)
         self._lsm_tan_shp = _parse_lsm_shape(lsm_tangents_shape)
 
-    def forward(self, primals):
-        return self.energy(primals)
+    def forward(self, primals, **kw):
+        return self.energy(primals, **kw)
 
-    def energy(self, primals):
+    def energy(self, primals, **kw):
         raise NotImplementedError("`energy` is not implemented")
 
-    def transformation(self, primals):
+    def transformation(self, primals, **kw):
         raise NotImplementedError("`transformation` is not implemented")
 
-    def normalized_residual(self, primals):
+    def normalized_residual(self, primals, **kw):
         raise NotImplementedError("`normalized_residual` is not implemented")
 
-    def metric(self, primals, tangents):
-        return self.left_sqrt_metric(primals, self.right_sqrt_metric(primals, tangents))
+    def metric(self, primals, tangents, **kw):
+        return self.left_sqrt_metric(
+            primals, self.right_sqrt_metric(primals, tangents, **kw), **kw)
 
-    def metric_at(self, primals) -> Callable:
+    def metric_at(self, primals, **kw) -> Callable:
         """The metric matvec at fixed ``primals``, all primal work hoisted."""
-        return lambda tangents: self.metric(primals, tangents)
+        return lambda tangents: self.metric(primals, tangents, **kw)
 
     #: Whether ``left_sqrt_metric`` is the vjp of ``transformation``, so
     #: that both square roots can come from the transformation's
@@ -217,16 +230,16 @@ class Likelihood(LazyModel):
     #: root from the transpose of the left one instead.
     lsm_is_transformation_vjp = True
 
-    def left_sqrt_metric(self, primals, tangents):
-        _, fn = vjp(self.transformation, primals)
+    def left_sqrt_metric(self, primals, tangents, **kw):
+        _, fn = vjp(_bind(self.transformation, kw), primals)
         return fn(tangents)
 
-    def right_sqrt_metric(self, primals, tangents):
+    def right_sqrt_metric(self, primals, tangents, **kw):
         # the transpose of the left square root, linearized at `primals`, so
         # leading batch axes of `primals` carry over to the tangents
-        return self.sqrt_metric_at(primals)[1](tangents)
+        return self.sqrt_metric_at(primals, **kw)[1](tangents)
 
-    def sqrt_metric_at(self, primals):
+    def sqrt_metric_at(self, primals, **kw):
         """``(lsm, rsm)`` matvecs at fixed ``primals``: the transformation is
         linearized once, so each matvec is one linear pass.  Without a
         transformation ``rsm`` is the transpose of ``t -> lsm(primals, t)``:
@@ -234,11 +247,11 @@ class Likelihood(LazyModel):
         the JAX package)."""
         if (self.lsm_is_transformation_vjp
                 and type(self).transformation is not Likelihood.transformation):
-            _, fwd, bwd = linearize(self.transformation, primals)
+            _, fwd, bwd = linearize(_bind(self.transformation, kw), primals)
             return bwd, fwd
 
         def lsm(t):
-            return self.left_sqrt_metric(primals, t)
+            return self.left_sqrt_metric(primals, t, **kw)
 
         _, rsm = vjp(lsm, self._lsm_zeros(primals))
         return lsm, rsm
@@ -285,9 +298,12 @@ class Likelihood(LazyModel):
 
     rsm_tangents_shape = right_sqrt_metric_tangents_shape
 
-    def amend(self, f: Callable, /, *, domain=NoValue):
-        """Compose a forward model to the right of this likelihood."""
-        return LikelihoodWithModel(self, f, domain=domain)
+    def amend(self, f: Callable, /, *, domain=NoValue, likelihood_argnames=None):
+        """Compose a forward model to the right of this likelihood; the
+        keywords named in ``likelihood_argnames`` go to the likelihood, the
+        others to ``f``."""
+        return LikelihoodWithModel(self, f, domain=domain,
+                                   likelihood_argnames=likelihood_argnames)
 
     def __add__(self, other):
         return LikelihoodSum(self, other)
@@ -345,36 +361,50 @@ class LikelihoodPartial(Likelihood):
     def splitx(self, primals):
         return parse_point_estimates(self.point_estimates, primals)[1:]
 
-    def energy(self, primals):
-        return self.likelihood.energy(self.insert(primals))
+    def energy(self, primals, **kw):
+        return self.likelihood.energy(self.insert(primals), **kw)
 
-    def transformation(self, primals):
-        return self.likelihood.transformation(self.insert(primals))
+    def transformation(self, primals, **kw):
+        return self.likelihood.transformation(self.insert(primals), **kw)
 
-    def normalized_residual(self, primals):
-        return self.likelihood.normalized_residual(self.insert(primals))
+    def normalized_residual(self, primals, **kw):
+        return self.likelihood.normalized_residual(self.insert(primals), **kw)
 
-    def metric(self, primals, tangents):
-        full = self.likelihood.metric(self.insert(primals), self.insert_zeros(tangents))
+    def metric(self, primals, tangents, **kw):
+        full = self.likelihood.metric(self.insert(primals), self.insert_zeros(tangents), **kw)
         return self.remove(full)
 
-    def metric_at(self, primals):
-        inner = self.likelihood.metric_at(self.insert(primals))
+    def metric_at(self, primals, **kw):
+        inner = self.likelihood.metric_at(self.insert(primals), **kw)
         return lambda t: self.remove(inner(self.insert_zeros(t)))
 
-    def left_sqrt_metric(self, primals, tangents):
-        return self.remove(self.likelihood.left_sqrt_metric(self.insert(primals), tangents))
+    def left_sqrt_metric(self, primals, tangents, **kw):
+        return self.remove(
+            self.likelihood.left_sqrt_metric(self.insert(primals), tangents, **kw))
 
-    def right_sqrt_metric(self, primals, tangents):
+    def right_sqrt_metric(self, primals, tangents, **kw):
         return self.likelihood.right_sqrt_metric(
-            self.insert(primals), self.insert_zeros(tangents))
+            self.insert(primals), self.insert_zeros(tangents), **kw)
 
-    def sqrt_metric_at(self, primals):
-        lsm, rsm = self.likelihood.sqrt_metric_at(self.insert(primals))
+    def sqrt_metric_at(self, primals, **kw):
+        lsm, rsm = self.likelihood.sqrt_metric_at(self.insert(primals), **kw)
         return (
             lambda t: self.remove(lsm(t)),
             lambda t: rsm(self.insert_zeros(t)),
         )
+
+
+class _Chained(nn.Module):
+    """``outer(inner(x, **kw), **left)``: ``left`` the keywords named in
+    ``left_argnames``, the others going to ``inner``."""
+
+    def __init__(self, outer: Callable, inner: Callable, left_argnames: tuple):
+        super().__init__()
+        self.outer, self.inner, self.left_argnames = outer, inner, left_argnames
+
+    def forward(self, primals, **kw):
+        left = {k: kw.pop(k) for k in self.left_argnames if k in kw}
+        return self.outer(self.inner(primals, **kw), **left)
 
 
 class LikelihoodWithModel(Likelihood):
@@ -382,11 +412,13 @@ class LikelihoodWithModel(Likelihood):
 
     The model is the submodule ``model`` (``forward`` is taken by
     ``nn.Module``).  The metric pulls the likelihood's metric back through
-    the model's hoisted linearization.
+    the model's hoisted linearization.  Of the keywords of a call, those
+    named in ``likelihood_argnames`` go to the likelihood, the others to the
+    model.
     """
 
     def __init__(self, likelihood: Likelihood, f: Callable, /, *, domain=NoValue,
-                 init=NoValue):
+                 init=NoValue, likelihood_argnames=None):
         if not callable(f):
             raise TypeError(f"forward model must be callable; got {f!r}")
         if domain is NoValue and isinstance(f, LazyModel):
@@ -400,32 +432,59 @@ class LikelihoodWithModel(Likelihood):
         self.likelihood = likelihood
         self.lsm_is_transformation_vjp = likelihood.lsm_is_transformation_vjp
         self.model = f
+        self.likelihood_argnames = tuple(likelihood_argnames or ())
 
-    def energy(self, primals):
-        return self.likelihood.energy(self.model(primals))
+    def _split_kwargs(self, kw):
+        """``(the likelihood's keywords, the model's)``; a name of
+        ``likelihood_argnames`` that the call does not pass is left to the
+        likelihood's default (the JAX package raises there)."""
+        kr = dict(kw)
+        return {k: kr.pop(k) for k in self.likelihood_argnames if k in kr}, kr
 
-    def transformation(self, primals):
-        return self.likelihood.transformation(self.model(primals))
+    def energy(self, primals, **kw):
+        kl, kr = self._split_kwargs(kw)
+        return self.likelihood.energy(self.model(primals, **kr), **kl)
 
-    def normalized_residual(self, primals):
-        return self.likelihood.normalized_residual(self.model(primals))
+    def transformation(self, primals, **kw):
+        kl, kr = self._split_kwargs(kw)
+        return self.likelihood.transformation(self.model(primals, **kr), **kl)
 
-    def metric(self, primals, tangents):
-        return self.metric_at(primals)(tangents)
+    def normalized_residual(self, primals, **kw):
+        kl, kr = self._split_kwargs(kw)
+        return self.likelihood.normalized_residual(self.model(primals, **kr), **kl)
 
-    def metric_at(self, primals) -> Callable:
-        y, fwd, bwd = linearize(self.model, primals)
-        inner = self.likelihood.metric_at(y)
+    def metric(self, primals, tangents, **kw):
+        return self.metric_at(primals, **kw)(tangents)
+
+    def metric_at(self, primals, **kw) -> Callable:
+        kl, kr = self._split_kwargs(kw)
+        y, fwd, bwd = linearize(_bind(self.model, kr), primals)
+        inner = self.likelihood.metric_at(y, **kl)
         return lambda tangents: bwd(inner(fwd(tangents)))
 
-    def left_sqrt_metric(self, primals, tangents):
-        y, bwd = vjp(self.model, primals)
-        return bwd(self.likelihood.left_sqrt_metric(y, tangents))
+    def left_sqrt_metric(self, primals, tangents, **kw):
+        kl, kr = self._split_kwargs(kw)
+        y, bwd = vjp(_bind(self.model, kr), primals)
+        return bwd(self.likelihood.left_sqrt_metric(y, tangents, **kl))
 
-    def sqrt_metric_at(self, primals):
-        y, fwd, bwd = linearize(self.model, primals)
-        lsm, rsm = self.likelihood.sqrt_metric_at(y)
+    def sqrt_metric_at(self, primals, **kw):
+        kl, kr = self._split_kwargs(kw)
+        y, fwd, bwd = linearize(_bind(self.model, kr), primals)
+        lsm, rsm = self.likelihood.sqrt_metric_at(y, **kl)
         return lambda t: bwd(lsm(t)), lambda t: rsm(fwd(t))
+
+    def amend(self, f: Callable, /, *, domain=NoValue, left_argnames=None,
+              likelihood_argnames=None):
+        """Compose ``f`` to the right of this likelihood's model: the
+        keywords named in ``left_argnames`` go to the model already here,
+        those in ``likelihood_argnames`` (default: this likelihood's) to the
+        likelihood, the others to ``f``."""
+        if domain is NoValue and isinstance(f, LazyModel):
+            domain = f.domain
+        la = self.likelihood_argnames if likelihood_argnames is None else likelihood_argnames
+        chained = _Chained(self.model, f, tuple(left_argnames or ()))
+        return LikelihoodWithModel(self.likelihood, chained, domain=domain,
+                                   likelihood_argnames=la)
 
 
 class LikelihoodSum(Likelihood):
@@ -458,33 +517,34 @@ class LikelihoodSum(Likelihood):
     def _both(self, fn):
         return {self._lkey: fn(self.left_likelihood), self._rkey: fn(self.right_likelihood)}
 
-    def energy(self, primals):
-        return self.left_likelihood.energy(primals) + self.right_likelihood.energy(primals)
+    def energy(self, primals, **kw):
+        return (self.left_likelihood.energy(primals, **kw)
+                + self.right_likelihood.energy(primals, **kw))
 
-    def transformation(self, primals):
-        return self._both(lambda lh: lh.transformation(primals))
+    def transformation(self, primals, **kw):
+        return self._both(lambda lh: lh.transformation(primals, **kw))
 
-    def normalized_residual(self, primals):
-        return self._both(lambda lh: lh.normalized_residual(primals))
+    def normalized_residual(self, primals, **kw):
+        return self._both(lambda lh: lh.normalized_residual(primals, **kw))
 
-    def metric(self, primals, tangents):
-        return tree_add(self.left_likelihood.metric(primals, tangents),
-                        self.right_likelihood.metric(primals, tangents))
+    def metric(self, primals, tangents, **kw):
+        return tree_add(self.left_likelihood.metric(primals, tangents, **kw),
+                        self.right_likelihood.metric(primals, tangents, **kw))
 
-    def metric_at(self, primals):
-        lm = self.left_likelihood.metric_at(primals)
-        rm = self.right_likelihood.metric_at(primals)
+    def metric_at(self, primals, **kw):
+        lm = self.left_likelihood.metric_at(primals, **kw)
+        rm = self.right_likelihood.metric_at(primals, **kw)
         return lambda t: tree_add(lm(t), rm(t))
 
-    def left_sqrt_metric(self, primals, tangents):
+    def left_sqrt_metric(self, primals, tangents, **kw):
         return tree_add(
-            self.left_likelihood.left_sqrt_metric(primals, tangents[self._lkey]),
-            self.right_likelihood.left_sqrt_metric(primals, tangents[self._rkey]),
+            self.left_likelihood.left_sqrt_metric(primals, tangents[self._lkey], **kw),
+            self.right_likelihood.left_sqrt_metric(primals, tangents[self._rkey], **kw),
         )
 
-    def sqrt_metric_at(self, primals):
-        (l_lsm, l_rsm), (r_lsm, r_rsm) = (self.left_likelihood.sqrt_metric_at(primals),
-                                          self.right_likelihood.sqrt_metric_at(primals))
+    def sqrt_metric_at(self, primals, **kw):
+        (l_lsm, l_rsm), (r_lsm, r_rsm) = (self.left_likelihood.sqrt_metric_at(primals, **kw),
+                                          self.right_likelihood.sqrt_metric_at(primals, **kw))
         return (
             lambda t: tree_add(l_lsm(t[self._lkey]), r_lsm(t[self._rkey])),
             lambda t: {self._lkey: l_rsm(t), self._rkey: r_rsm(t)},

@@ -4,3 +4,4 @@ from .lanczos import (
     stochastic_lq_logdet,
     stochastic_lq_tridiags,
 )
+from .unique import amend_unique, unique

@@ -67,6 +67,16 @@ def hartley(x, axes: Optional[Tuple[int, ...]] = None):
     return _unfold_hermitian(half, tuple(x.shape), axes)
 
 
+def fftn(x, axes: Optional[Tuple[int, ...]] = None):
+    """The FFT over ``axes`` (``None``: every axis)."""
+    return torch.fft.fftn(x, dim=axes)
+
+
+def ifftn(x, axes: Optional[Tuple[int, ...]] = None):
+    """The inverse FFT over ``axes`` (``None``: every axis)."""
+    return torch.fft.ifftn(x, dim=axes)
+
+
 def fourier_mode_lengths(shape, distances) -> np.ndarray:
     """|k| for every mode of an fft-ordered full grid (host precompute)."""
     shape = (shape,) if isinstance(shape, int) else tuple(shape)

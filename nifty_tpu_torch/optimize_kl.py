@@ -24,8 +24,10 @@ curves its block of the samples, and the KL value, gradient and metric
 reduce over the samples group (``kl_reduce``); the checkpoint is then the
 sharded one (``checkpoint_format="orbax"``).  The JAX package's
 fused/staged program split and program-size thresholds are XLA decisions
-with no counterpart here; its HDF5 export and energy-history plot are not
-ported yet.
+with no counterpart here.  ``optimize_kl``'s hooks (``transitions``,
+``inspect_callback``, ``terminate_callback``, the HDF5 export of operator
+outputs and the energy-history figure) run where the JAX package runs
+them.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ from .sample_io import (
     load_checkpoint,
     load_sharded_checkpoint,
     save_checkpoint,
+    save_samples_to_hdf5,
     save_sharded_checkpoint,
 )
 from .solvers.newton_cg import OptimizeResults, _newton_cg
@@ -543,10 +546,13 @@ class OptimizeVI:
         return samples, state
 
 
-#: File names inside ``odir``: the checkpoint of each format, the report.
+#: File names inside ``odir``: the checkpoint of each format, the report,
+#: the exported operator outputs and the energy history's figure.
 CHECKPOINT_NAME = "last.pkl"
 SHARDED_CHECKPOINT_NAME = "last_ckpt"
 MINISANITY_NAME = "minisanity.txt"
+OPERATOR_OUTPUTS_NAME = "operator_outputs.h5"
+ENERGY_HISTORY_NAME = "energy_history.png"
 
 
 def _world_size() -> int:
@@ -565,7 +571,12 @@ def optimize_kl(likelihood: Likelihood, position_or_samples, *, key,
                 sample_mode="nonlinear_resample",
                 resume: Union[str, bool] = False,
                 checkpoint_format: Optional[Literal["pickle", "orbax"]] = None,
+                transitions: Optional[Callable[[int], Optional[Callable]]] = None,
                 callback: Optional[Callable] = None,
+                inspect_callback: Optional[Callable] = None,
+                terminate_callback: Optional[Callable] = None,
+                plot_energy_history: bool = True,
+                export_operator_outputs: Optional[dict] = None,
                 odir: Optional[str] = None,
                 _optimize_vi=None, _optimize_vi_state=None):
     """One-stop MGVI/geoVI loop with checkpoint and resume.
@@ -577,7 +588,19 @@ def optimize_kl(likelihood: Likelihood, position_or_samples, *, key,
     ``odir/last.pkl``.  ``resume=True`` loads that checkpoint (``resume=path``
     another one) and continues at its iteration with its key and samples;
     the schedule is rebuilt from the arguments, so pass the same ones.
-    ``callback(samples, state)`` runs after every iteration.
+
+    The hooks, in the order they run in an iteration: ``transitions(i)``
+    before the update returns ``None`` or a map applied to the samples
+    (parts of the model that change between iterations); after the update
+    and its report and checkpoint, ``export_operator_outputs`` (a mapping of
+    names to callables of a sample) writes their sample mean, std and
+    samples to ``odir/operator_outputs.h5``, then ``callback(samples,
+    state)``, ``inspect_callback(samples)`` or ``inspect_callback(samples,
+    iteration)`` (by its signature), and ``terminate_callback(samples,
+    state)``, whose true result ends the loop.  ``plot_energy_history``
+    draws the KL energy of each iteration into ``odir/energy_history.png``
+    after the loop where matplotlib imports (a warning is logged where it
+    does not).
 
     ``checkpoint_format`` takes the JAX package's values: ``"pickle"`` (one
     file, one process) or ``"orbax"``, which names the port's sharded
@@ -586,8 +609,9 @@ def optimize_kl(likelihood: Likelihood, position_or_samples, *, key,
     shards and rank 0 a manifest of the global shapes and layouts
     (:func:`~nifty_tpu_torch.sample_io.save_sharded_checkpoint`); it
     resumes on any world size and layout.  ``None`` picks ``"orbax"`` in a
-    world of several ranks, else ``"pickle"``.  On a mesh the reports are
-    logged and written by rank 0 alone.  ``kl_reduce`` is the sample mean
+    world of several ranks, else ``"pickle"``.  On a mesh the reports and
+    the figure are logged and written by rank 0 alone, and
+    ``export_operator_outputs`` needs a world of one rank.  ``kl_reduce`` is the sample mean
     of the KL stage (see :class:`OptimizeVI`).
     """
     if checkpoint_format is None:
@@ -597,6 +621,10 @@ def optimize_kl(likelihood: Likelihood, position_or_samples, *, key,
     sharded = checkpoint_format == "orbax"
     if not sharded and _world_size() > 1:
         raise ValueError('a world of several ranks checkpoints with checkpoint_format="orbax"')
+    if export_operator_outputs is not None and _world_size() > 1:
+        raise NotImplementedError(
+            "export_operator_outputs in a world of several ranks (the sharded outputs are "
+            "not gathered)")
     opt_vi = _optimize_vi
     if opt_vi is None:
         opt_vi = OptimizeVI(
@@ -647,11 +675,17 @@ def optimize_kl(likelihood: Likelihood, position_or_samples, *, key,
             open(sanity_fn, "w").close()
 
     nm = "OPTIMIZE_KL"
+    energy_history = []
     for i in range(state.nit, opt_vi.n_total_iterations):
         _log_once(f"{nm}: Starting {i + 1:04d}")
+        if transitions is not None:
+            tr = transitions(i)
+            if tr is not None:
+                samples = tr(samples)
         samples, state = opt_vi.update(samples, state)
         msg = opt_vi.get_status_message(samples, state, name=nm)
         _log_once(msg)
+        energy_history.append((state.nit, float(state.minimization_state.fun)))
         if sanity_fn is not None and root:
             with open(sanity_fn, "a") as f:
                 f.write("\n" + msg)
@@ -659,6 +693,43 @@ def optimize_kl(likelihood: Likelihood, position_or_samples, *, key,
             save_sharded_checkpoint(ckpt_fn, samples, state, mesh=mesh)
         elif ckpt_fn is not None:
             save_checkpoint(ckpt_fn, samples, state)
+        if export_operator_outputs is not None and odir is not None:
+            save_samples_to_hdf5(samples, os.path.join(odir, OPERATOR_OUTPUTS_NAME),
+                                 export_operator_outputs, overwrite=True)
         if callback is not None:
             callback(samples, state)
+        if inspect_callback is not None:
+            try:
+                n_par = len(inspect.signature(inspect_callback).parameters)
+            except (TypeError, ValueError):
+                n_par = 2
+            if n_par == 1:
+                inspect_callback(samples)
+            else:
+                inspect_callback(samples, state.nit)
+        if terminate_callback is not None and terminate_callback(samples, state):
+            _log_once(f"{nm}: terminated early by `terminate_callback`")
+            break
+    if plot_energy_history and odir is not None and energy_history and root:
+        _plot_energy_history(os.path.join(odir, ENERGY_HISTORY_NAME), energy_history)
     return samples, state
+
+
+def _plot_energy_history(path: str, energy_history) -> None:
+    """The KL energy of each iteration, drawn into ``path``."""
+    try:
+        import matplotlib
+    except ImportError:
+        logger.warning(f"matplotlib does not import: {path} is not drawn")
+        return
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    nits, energies = zip(*energy_history)
+    fig, ax = plt.subplots(figsize=(6, 4))
+    ax.plot(nits, energies, marker="o")
+    ax.set_xlabel("iteration")
+    ax.set_ylabel("KL energy")
+    fig.tight_layout()
+    fig.savefig(path, dpi=100)
+    plt.close(fig)

@@ -1,6 +1,6 @@
-"""Sample persistence and the single-process checkpoint (counterpart of
-``save_samples`` / ``load_samples`` of :mod:`nifty_tpu.sample_io` and of the
-pickle checkpoint of :mod:`nifty_tpu.optimize_kl`).
+"""Sample persistence, export and checkpoints (counterpart of
+:mod:`nifty_tpu.sample_io` and of the pickle checkpoint of
+:mod:`nifty_tpu.optimize_kl`).
 
 Files are pickles of host numpy arrays, exact for every dtype, so a run
 resumed from a checkpoint continues with the bits an uninterrupted run
@@ -8,12 +8,18 @@ has.  Keys survive: int seeds and noise providers (:class:`~nifty_tpu_torch
 .tree.HostKey`, or any picklable provider) as they are, a
 ``torch.Generator`` as its device and state.  Loading places the arrays on
 the configured default device unless a device is named.
+
+The exports apply operator callables to every sample and write host numpy
+results: ``{name}/{mean,std,samples}`` HDF5 datasets (h5py, imported where
+it is used) and minimal single-HDU FITS images, whose writer is the JAX
+package's own (astropy is not needed).
 """
 
 from __future__ import annotations
 
 import os
 import pickle
+from typing import Callable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -90,6 +96,111 @@ def save_samples(samples: Samples, path: str):
 def load_samples(path: str, *, device=None) -> Samples:
     with open(path, "rb") as f:
         return _samples_from_payload(pickle.load(f), _device(device))
+
+
+def _host(x):
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _op_outputs(samples: Samples, op: Callable) -> np.ndarray:
+    """``op`` of every sample (of the position where there are none),
+    stacked on the host."""
+    with torch.no_grad():
+        if len(samples):
+            return np.stack([_host(op(s)) for s in samples])
+        return _host(op(samples.pos))[None]
+
+
+def save_samples_to_hdf5(samples: Samples, path: str,
+                         ops: Mapping[str, Callable], *,
+                         overwrite: bool = False,
+                         samples_datasets: bool = True):
+    """Write ``{name}/{mean,std,samples}`` datasets of operator outputs."""
+    import h5py
+
+    if os.path.exists(path) and not overwrite:
+        raise FileExistsError(path)
+    with h5py.File(path, "w") as f:
+        for name, op in ops.items():
+            outs = _op_outputs(samples, op)
+            grp = f.create_group(str(name))
+            grp.create_dataset("mean", data=outs.mean(axis=0))
+            if outs.shape[0] > 1:
+                grp.create_dataset("std", data=outs.std(axis=0, ddof=1))
+            if samples_datasets:
+                grp.create_dataset("samples", data=outs)
+
+
+def _fits_card(key, value, comment=""):
+    if isinstance(value, bool):
+        v = "T" if value else "F"
+        card = f"{key:8s}= {v:>20s}"
+    elif isinstance(value, (int, float)):
+        card = f"{key:8s}= {value:>20}"
+    elif value is None:
+        card = f"{key:8s}"
+    else:
+        card = f"{key:8s}= '{value}'"
+    if comment:
+        card += f" / {comment}"
+    return card[:80].ljust(80)
+
+
+def write_fits(path: str, array, *, overwrite: bool = False,
+               extra_header: Optional[Mapping] = None):
+    """Write a minimal single-HDU FITS image (float64, big-endian)."""
+    if os.path.exists(path) and not overwrite:
+        raise FileExistsError(path)
+    data = np.asarray(_host(array), dtype=">f8")
+    cards = [
+        _fits_card("SIMPLE", True, "conforms to FITS standard"),
+        _fits_card("BITPIX", -64),
+        _fits_card("NAXIS", data.ndim),
+    ]
+    for i, n in enumerate(reversed(data.shape)):
+        cards.append(_fits_card(f"NAXIS{i + 1}", int(n)))
+    for k, v in (extra_header or {}).items():
+        cards.append(_fits_card(str(k)[:8].upper(), v))
+    cards.append("END".ljust(80))
+    header = "".join(cards)
+    header += " " * ((2880 - len(header) % 2880) % 2880)
+    payload = data.tobytes()
+    payload += b"\0" * ((2880 - len(payload) % 2880) % 2880)
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii"))
+        f.write(payload)
+
+
+def read_fits(path: str) -> np.ndarray:
+    """Read back a FITS image written by :func:`write_fits`."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    header = raw[: raw.index(b"END")].decode("ascii", errors="ignore")
+    cards = {c.split("=")[0].strip(): c.split("=", 1)[1].split("/")[0].strip()
+             for c in [header[i:i + 80] for i in range(0, len(header), 80)]
+             if "=" in c}
+    naxis = int(cards["NAXIS"])
+    shape = tuple(int(cards[f"NAXIS{i}"]) for i in range(naxis, 0, -1))
+    n_header_blocks = (raw.index(b"END") // 2880) + 1
+    data = np.frombuffer(
+        raw[2880 * n_header_blocks:
+            2880 * n_header_blocks + 8 * int(np.prod(shape))],
+        dtype=">f8",
+    )
+    return data.reshape(shape)
+
+
+def save_samples_to_fits(samples: Samples, file_name_base: str,
+                         op: Callable, *, overwrite: bool = False,
+                         samples_files: bool = False):
+    """Write mean/std (and optionally per-sample) FITS images of ``op``."""
+    outs = _op_outputs(samples, op)
+    write_fits(file_name_base + ".mean.fits", outs.mean(0), overwrite=overwrite)
+    if outs.shape[0] > 1:
+        write_fits(file_name_base + ".std.fits", outs.std(0, ddof=1), overwrite=overwrite)
+    if samples_files:
+        for i, o in enumerate(outs):
+            write_fits(f"{file_name_base}.sample_{i}.fits", o, overwrite=overwrite)
 
 
 def save_checkpoint(path: str, samples: Samples, state):
@@ -253,5 +364,26 @@ def load_sharded_checkpoint(path: str, *, mesh=None, device=None):
     return samples, state
 
 
-__all__ = ["load_checkpoint", "load_samples", "load_sharded_checkpoint", "save_checkpoint",
-           "save_samples", "save_sharded_checkpoint"]
+def save_checkpoint_orbax(path: str, samples: Samples, state=None):
+    """The JAX package's orbax checkpoint call, writing the port's sharded
+    checkpoint (:func:`save_sharded_checkpoint` on the active mesh; orbax
+    is a JAX library).  Without ``state`` the iteration is 0 and the key
+    ``None``."""
+    from .optimize_kl import OptimizeVIState
+
+    save_sharded_checkpoint(path, samples, OptimizeVIState(nit=0, key=None)
+                            if state is None else state)
+
+
+def load_checkpoint_orbax(path: str):
+    """``(samples, aux)`` of :func:`save_checkpoint_orbax`: the global
+    samples on the default device, ``aux`` holding the iteration
+    (``"nit"``) and the run's key (``"key"``)."""
+    samples, state = load_sharded_checkpoint(path)
+    return samples, {"nit": state.nit, "key": state.key}
+
+
+__all__ = ["load_checkpoint", "load_checkpoint_orbax", "load_samples", "load_sharded_checkpoint",
+           "read_fits", "save_checkpoint", "save_checkpoint_orbax", "save_samples",
+           "save_samples_to_fits", "save_samples_to_hdf5", "save_sharded_checkpoint",
+           "write_fits"]
