@@ -334,11 +334,31 @@ Phases (one line each, with its seconds):
     metric ms (one warm-up call, then 3 timed, the card synchronized),
     printed with the card's name and power limit; ``CountingModel`` around
     its field through a forward, a jvp and a vjp, with its report; fails
-    unless K1 and K2 launched on the 2049^2 quarter map.
+    unless K1 and K2 launched on the 2049^2 quarter map;
+43. (run after phase 6) float32 (``config.update("enable_x64", False)``,
+    the JAX package's ``jax_enable_x64`` off): phase 5's 128^2 update
+    (3 updates, lockstep) and phase 6's 4096^2 ``n_bins=128`` update
+    (``smap``) with fields built under float32 on phase 5's and 6's data,
+    each from phase 5's or 6's start and noise rounded to float32 (the
+    float64 draws of their keys: ``WideKey``; a float32 draw of a seed is
+    another stream); then both again in the mixed mode (``transform_compute_dtype=
+    "float32"``, float64 state: phases 5's and 6's own likelihoods); then
+    the port of ``tests/test_f32_acceptance.py`` at its own configuration
+    (64^2, 4 iterations of 2 pairs, ``nonlinear_resample``; the data, start
+    and noise of the float64 run) in float64 and in float32.  Prints s/update, the final KL
+    energy beside phase 5's or 6's float64 one (pinned: 18004.496506889875
+    and 300277779.29776883), working memory (the peak allocation above
+    what was allocated when the run started) and the distributor kernels'
+    calls by dtype; fails unless every float32 run's latents and energy are
+    float32 and finite and its distributor launches (both kernels) are all
+    float32, the mixed runs' all float64, and unless the acceptance run
+    meets that test's criteria (rms error of the float32 posterior mean at
+    most 1.1 times the float64 one's; the two means apart by at most the
+    mean float64 posterior std).
 
 The port places models, latents and data on the card by default; only
 phase 4's CPU run asks for the CPU (``config.update("device", "cpu")``).
-Phases 5 to 16, 23 to 28, 32, 33, 35, 36, 41 and 42 reset the kernels' launch
+Phases 5 to 16, 23 to 28, 32, 33, 35, 36 and 41 to 43 reset the kernels' launch
 counts just before they drive their path and fail unless both distributor
 kernels launched
 (phases 11, 12 and 16: on every subgrid's map; phase 23 also both K10
@@ -350,8 +370,8 @@ the gather two where a large table is first copied rows-innermost), by
 rows and by map.  Any failure raises, so the exit code is nonzero and no
 result line is printed.  The last two lines are a JSON object of the kernels'
 numbers and the device line.  The object has one entry for each kernel,
-map and number of rows that the main path launched (float64, the main
-path's type; ``launches`` are the wrapper's calls with that many rows and
+map, number of rows and float type that the main path launched (float32:
+phase 43's float32 runs; ``launches`` are the wrapper's calls with that many rows and
 ``kernel_launches`` the kernels those calls launched, as the wrapper summed
 them from its C entry's return values in that run;
 ``ms``, ``plain_ms`` and ``library_ms`` are device times from CUDA-graph
@@ -1049,6 +1069,7 @@ def launch_counts(bg):
         counts[f"{kind}_kernels_by_rows"] = dict(fn.kernel_launches_by_rows)
         counts[f"{kind}_by_map"] = dict(fn.launches_by_map)
         counts[f"{kind}_kernels_by_map"] = dict(fn.kernel_launches_by_map)
+        counts[f"{kind}_by_dtype"] = dict(fn.launches_by_dtype)
     return counts
 
 
@@ -1147,6 +1168,192 @@ def phase_adaptive(jt, lh, fixed_energy):
         raise AssertionError(
             f"adaptive KL energy {energy} is not within 2 % of the fixed budgets' {fixed_energy}")
     return counts
+
+
+# tests/test_f32_acceptance.py's configuration: 64^2, 4 iterations of 2
+# antithetic pairs, its solver budgets
+ACCEPTANCE_KWARGS = dict(
+    n_samples=2,
+    draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=100, absdelta=1e-11)),
+    nonlinearly_update_kwargs=dict(minimize_kwargs=dict(
+        xtol=1e-6, maxiter=5, cg_kwargs=dict(maxiter=40))),
+    kl_kwargs=dict(minimize_kwargs=dict(
+        xtol=1e-7, maxiter=15, cg_kwargs=dict(maxiter=60))),
+    sample_mode="nonlinear_resample",
+)
+class WideKey:
+    """A noise provider for phase 43: the draws of the int key `seed` in
+    float64 (complex128 for a complex leaf), as phases 5 and 6 draw them,
+    rounded to each leaf's dtype.  A float32 run with these keys starts
+    from the float64 run's position and noise, rounded; a float64 run sees
+    the int key's own bits."""
+
+    def __init__(self, jt, seed):
+        self.jt, self.seed = jt, int(seed)
+
+    def split(self, num=2):
+        return [WideKey(self.jt, s) for s in self.jt.tree.split(self.seed, num)]
+
+    def fold_in(self, data):
+        return WideKey(self.jt, self.jt.tree.fold_in(self.seed, data))
+
+    def normal(self, primals, device=None):
+        return self.draw(primals, self.jt.tree.normal, device=device)
+
+    def draw(self, primals, rng, device=None):
+        t = self.jt.tree
+        wide = t.tree_map(lambda x: t.ShapeWithDtype(
+            x.shape, torch.complex128 if x.dtype.is_complex else torch.float64), primals)
+        device = device if device is not None else t.tree_device(primals)
+        return t.tree_map(lambda d, x: d.to(x.dtype),
+                          t.random_like(self.seed, wide, rng, device=device), primals)
+
+
+def require_dtype(label, counts, dtype):
+    """Every distributor call of the run took `dtype` values ("f32" or
+    "f64")."""
+    for kind in ("gather", "segsum"):
+        if counts[f"{kind}_by_dtype"] != {dtype: counts[kind]}:
+            raise AssertionError(f"{label}: {kind} calls by dtype "
+                                 f"{counts[f'{kind}_by_dtype']}, not all {dtype}")
+
+
+def dtype_text(counts):
+    return " ".join(f"{kind} {counts[f'{kind}_by_dtype']}" for kind in ("gather", "segsum"))
+
+
+def acceptance_run(jt, x64, store, dims=(64, 64), n_iter=4):
+    """`tests/test_f32_acceptance.py`'s `_run` in the port: the flagship
+    correlated-field geoVI flow through `optimize_kl`, the data drawn once
+    by the float64 run (a seeded numpy latent and noise), the start and
+    the noise the float64 draws of the keys (`WideKey`); returns the
+    posterior mean and std (as float64 numpy), the launch counts, the KL
+    energy and the seconds."""
+    from nifty_tpu_torch.ops import bin_gather as bg
+
+    jt.config.update("enable_x64", x64)
+    cf = build_field(jt, dims)
+    if "data" not in store:
+        rng = np.random.default_rng(0)
+        with torch.no_grad():
+            truth = cf(jt.from_numpy({k: rng.standard_normal(v.shape)
+                                      for k, v in cf.domain.items()})).cpu().numpy()
+        store["truth"] = truth
+        store["data"] = truth + 0.1 * rng.standard_normal(truth.shape)
+    lh = jt.Gaussian(store["data"], noise_cov_inv=lambda x: x / 0.01).amend(cf)
+    bg.reset_launch_counts()
+    synchronize(jt)
+    t0 = time.perf_counter()
+    samples, state = jt.optimize_kl(
+        lh, jt.random_like(WideKey(jt, 3), lh.domain), key=WideKey(jt, 42),
+        n_total_iterations=n_iter, plot_energy_history=False, **ACCEPTANCE_KWARGS)
+    synchronize(jt)
+    secs = time.perf_counter() - t0
+    counts = launch_counts(bg)
+    with torch.no_grad():
+        post = torch.stack([cf(s) for s in samples])
+    want = torch.float64 if x64 else torch.float32
+    if post.dtype != want or not bool(torch.isfinite(post).all()):
+        raise AssertionError(f"acceptance run in {want}: a posterior of {post.dtype}, finite "
+                             f"{bool(torch.isfinite(post).all())}")
+    return (post.mean(0).double().cpu().numpy(), post.std(0).double().cpu().numpy(), counts,
+            float(state.minimization_state.fun), secs)
+
+
+def acceptance_check(truth, m64, s64, m32):
+    """`tests/test_f32_acceptance.py`'s criteria: the float32 posterior
+    mean `m32` recovers `truth` with an rms error at most 1.1 times the
+    float64 one's (`m64`), and lies within the mean float64 posterior std
+    (`s64`) of `m64` everywhere.  Returns the numbers; raises, with them,
+    where a criterion fails."""
+    rms64 = float(np.sqrt(((m64 - truth) ** 2).mean()))
+    rms32 = float(np.sqrt(((m32 - truth) ** 2).mean()))
+    sigma = float(s64.mean())
+    max_delta = float(np.abs(m32 - m64).max())
+    got = dict(rms32=rms32, rms64=rms64, ratio=rms32 / rms64, max_delta=max_delta, sigma=sigma)
+    if not (rms32 <= 1.1 * rms64 and max_delta <= sigma):
+        raise AssertionError(f"f32 acceptance fails (rms ratio at most 1.1, max delta at most "
+                             f"sigma): {got}")
+    return got
+
+
+@phase("43 float32: phases 5 and 6 with enable_x64 off, both in the mixed mode, and the port "
+       "of tests/test_f32_acceptance.py (64^2, 4 iterations of 2 pairs)")
+def phase_float32(jt, cells, smi_line):
+    """`cells`: {label: (float64 likelihood, dims, n_bins, updates, maps,
+    phase 5's or 6's KL energy and working memory)}.  The float32 runs
+    start from phase 5's or 6's position and noise, rounded (`WideKey`).
+    A run's working memory is its peak allocation above what was allocated
+    when it started (the models and data of every phase are on the card
+    then).  Returns the launch counts of each run, by run name."""
+    out = {}
+    jt.config.update("enable_x64", False)
+    try:
+        for label, (lh, dims, n_bins, n, maps, (energy64, peak64)) in cells.items():
+            cf = build_field(jt, dims, n_bins)
+            # phase 5's or 6's data (float64), narrowed by the likelihood
+            lh32 = jt.Gaussian(lh.likelihood.data,
+                               noise_cov_inv=lambda x: x / NOISE_STD ** 2).amend(cf)
+            with torch.no_grad():
+                start_gap = max(float((a.double() - b.float().double()).abs().max()) for a, b in zip(
+                    jt.tree.tree_leaves(jt.random_like(WideKey(jt, 1), lh32.domain)),
+                    jt.tree.tree_leaves(jt.random_like(1, lh.domain))))
+            if start_gap != 0.0:
+                raise AssertionError(f"{label} float32: the start is not phase 5's or 6's "
+                                     f"rounded (max difference {start_gap})")
+            base = torch.cuda.memory_allocated()
+            counts, energy, samples = drive(jt, f"{label} float32", lh32, n,
+                                            key=WideKey(jt, 7), pos_key=WideKey(jt, 1), **maps)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            leaves = jt.tree.tree_leaves((samples.pos, samples._samples))
+            if {x.dtype for x in leaves} != {torch.float32}:
+                raise AssertionError(f"{label} float32: samples of {({x.dtype for x in leaves})}")
+            require_dtype(f"{label} float32", counts, "f32")
+            print(f"{label} float32, from float64's start and noise rounded: KL energy "
+                  f"{energy!r}, float64 (phase 5 / 6) {energy64!r}: relative "
+                  f"{(energy - energy64) / abs(energy64):+.5f} | working memory {peak:.3f} GiB "
+                  f"against float64's {peak64:.3f} GiB ({peak / peak64:.3f}) | distributor calls "
+                  f"by dtype {dtype_text(counts)} | {smi_line}", flush=True)
+            out[f"float32 {label}"] = counts
+            del cf, lh32, samples
+            torch.cuda.empty_cache()
+    finally:
+        jt.config.update("enable_x64", True)
+    jt.config.update("transform_compute_dtype", "float32")
+    try:
+        for label, (lh, dims, n_bins, n, maps, (energy64, peak64)) in cells.items():
+            base = torch.cuda.memory_allocated()
+            counts, energy, _ = drive(jt, f"{label} mixed", lh, n, **maps)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            require_dtype(f"{label} mixed", counts, "f64")
+            print(f"{label} mixed (float64 state, float32 transforms): KL energy {energy!r}, "
+                  f"relative to float64's {(energy - energy64) / abs(energy64):+.5f} | working "
+                  f"memory {peak:.3f} GiB ({peak / peak64:.3f} of float64's) | distributor calls by "
+                  f"dtype {dtype_text(counts)} | {smi_line}", flush=True)
+            out[f"mixed {label}"] = counts
+            torch.cuda.empty_cache()
+    finally:
+        jt.config.update("transform_compute_dtype", None)
+    store = {}
+    try:
+        m64, s64, c64, e64, t64 = acceptance_run(jt, True, store)
+        m32, _, c32, e32, t32 = acceptance_run(jt, False, store)
+    finally:
+        jt.config.update("enable_x64", True)
+    require_launches("acceptance float64", c64)
+    require_launches("acceptance float32", c32)
+    require_dtype("acceptance float64", c64, "f64")
+    require_dtype("acceptance float32", c32, "f32")
+    acc = acceptance_check(store["truth"], m64, s64, m32)
+    print(f"f32 acceptance (64^2, 4 iterations of 2 pairs): float64 {t64:.3f} s, KL energy "
+          f"{e64!r}; float32 {t32:.3f} s, KL energy {e32!r} | rms error of the posterior mean "
+          f"float32 {acc['rms32']:.6e} float64 {acc['rms64']:.6e} (ratio {acc['ratio']:.4f}, at "
+          f"most 1.1) | max |m32 - m64| {acc['max_delta']:.6e} = "
+          f"{acc['max_delta'] / acc['sigma']:.4f} of the mean float64 posterior std "
+          f"{acc['sigma']:.6e} (at most 1) | distributor calls by dtype float64 run "
+          f"{dtype_text(c64)}, float32 run {dtype_text(c32)} | {smi_line}", flush=True)
+    out["acceptance float64"], out["acceptance float32"] = c64, c32
+    return out
 
 
 def present(name):
@@ -4382,10 +4589,11 @@ def profile_window(label, run, top=12, sums=None):
               f"{sum(e.count for e in hits)} calls", flush=True)
 
 
-def kernel_entries(kres, paths, src):
+def kernel_entries(kres, paths, src, dtype="float64"):
     """The `kernels` line: one entry for each kernel, map and number of rows
-    that the runs in `paths` launched, with phase 3's numbers (`kres`) for
-    that shape; fails on a shape that phase 3 did not check."""
+    that the runs in `paths` launched on `dtype` values, with phase 3's
+    numbers (`kres`) for that shape and type; fails on a shape that phase 3
+    did not check."""
     kernels = []
     for grid, dist, tpu_gather, tpu_segsum, runs in paths:
         for name, kind, (k, replaces) in (("bin_gather", "gather", tpu_gather),
@@ -4394,11 +4602,11 @@ def kernel_entries(kres, paths, src):
             kernels_by_rows = [on_map(c, f"{kind}_kernels_by_map", dist) for c in runs.values()]
             for nrows in sorted(set().union(*by_rows.values())):
                 label = f"{grid} B={nrows}"
-                if (label, "float64") not in kres:
+                if (label, dtype) not in kres:
                     raise AssertionError(
-                        f"the main path launched {name} at {label}, a shape that phase 3 "
-                        f"did not hold against the plain version")
-                r64 = kres[(label, "float64")]
+                        f"the main path launched {name} at {label} in {dtype}, a shape that "
+                        f"phase 3 did not hold against the plain version")
+                r = kres[(label, dtype)]
                 counted = [(c[nrows], k[nrows]) for c, k in zip(by_rows.values(), kernels_by_rows)
                            if c.get(nrows)]
                 # launches: calls of the wrapper with this many rows in the
@@ -4408,15 +4616,15 @@ def kernel_entries(kres, paths, src):
                 # plain_ms, library_ms: device times (CUDA-graph replay);
                 # host_ms, plain_host_ms: host-paced.
                 kernels.append(dict(
-                    name=f"{name} ({k}, {label}, float64)", route="cuda", source=src,
+                    name=f"{name} ({k}, {label}, {dtype})", route="cuda", source=src,
                     replaces=replaces, launches=counted[0][0],
                     kernel_launches=counted[0][1],
                     launches_by_run={run: c.get(nrows, 0) for run, c in by_rows.items()},
-                    max_abs_err=r64[f"{kind}_err"],
-                    ms=r64[f"{kind}_device_ms"], plain_ms=r64[f"{kind}_plain_device_ms"],
-                    bound_ms=r64[f"{kind}_bound_ms"], bound_by=r64[f"{kind}_bound_by"],
-                    library_ms=r64[f"{kind}_library_device_ms"],
-                    host_ms=r64[f"{kind}_ms"], plain_host_ms=r64[f"{kind}_plain_ms"],
+                    max_abs_err=r[f"{kind}_err"],
+                    ms=r[f"{kind}_device_ms"], plain_ms=r[f"{kind}_plain_device_ms"],
+                    bound_ms=r[f"{kind}_bound_ms"], bound_by=r[f"{kind}_bound_by"],
+                    library_ms=r[f"{kind}_library_device_ms"],
+                    host_ms=r[f"{kind}_ms"], plain_host_ms=r[f"{kind}_plain_ms"],
                 ))
     return kernels
 
@@ -4542,8 +4750,10 @@ def main(argv):
     lh128 = build_likelihood(jt, cf128, 0)
     # bench.py's maps: 128^2 "vmap" (lockstep residual stages, the KL stage
     # stacks the samples), 4096^2 the sample loop for both stages
+    base = torch.cuda.memory_allocated()
     c128, e128, samples128 = phase("5 128^2 unbinned, lockstep, 3 updates")(drive)(
         jt, "128^2 unbinned", lh128, 3, residual_map="vmap")
+    peak128 = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     print(f"128^2 unbinned: launches with the residual stages in lockstep gather "
           f"{c128['gather']} segment_sum {c128['segsum']}; with the sample loop they were "
           f"{LOOP_COUNTS_128['gather']} / {LOOP_COUNTS_128['segsum']}", flush=True)
@@ -4551,14 +4761,22 @@ def main(argv):
         profile_update(jt, "128^2 unbinned", lh128, residual_map="vmap")
     c_adaptive = phase_adaptive(jt, lh128, e128)
     lh4096 = build_likelihood(jt, cf4096, 0)
+    base = torch.cuda.memory_allocated()
     c4096, e4096, samples4096 = phase("6 4096^2 n_bins=128, 1 update")(drive)(
         jt, "4096^2 n_bins=128", lh4096, 1, residual_map="smap", kl_map="smap")
+    peak4096 = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     # phase 39's data: phase 6's, read by the ranks of its worlds
     mesh_tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     data_4096 = os.path.join(mesh_tmp, "data_4096.npy")
     np.save(data_4096, lh4096.likelihood.data.cpu().numpy())
     if with_profile:
         profile_update(jt, "4096^2 n_bins=128", lh4096, residual_map="smap", kl_map="smap")
+    c_f32 = phase_float32(jt, {
+        "128^2 unbinned": (lh128, (128, 128), None, 3, dict(residual_map="vmap"),
+                           (e128, peak128)),
+        "4096^2 n_bins=128": (lh4096, (4096, 4096), 128, 1,
+                              dict(residual_map="smap", kl_map="smap"), (e4096, peak4096))},
+        smi_line)
     d = cf1024.dist
     print(f"1024^2 unbinned: {d.nb} modes on the {d.shape} quarter map | index "
           f"{str(d.idx_narrow.dtype).replace('torch.', '')} | float64 table {d.nb * 8} bytes a "
@@ -4714,9 +4932,11 @@ def main(argv):
     k5 = ("K5 route", f"{tpu}:1013"), ("K5 route", f"{tpu}:1013")
     paths = [
         ("4096^2 nb128 quarter", cf4096.dist, *k1k2,
-         {"fixed": c4096, "evidence_4096": c_ev4096, "instrumentation_4096": c_instr}),
+         {"fixed": c4096, "evidence_4096": c_ev4096, "instrumentation_4096": c_instr,
+          "mixed": c_f32["mixed 4096^2 n_bins=128"]}),
         ("128^2 unbinned", cf128.dist, *k3k4,
-         {"fixed": c128, "adaptive": c_adaptive, "optimize_kl": c_loop,
+         {"fixed": c128, "mixed": c_f32["mixed 128^2 unbinned"], "adaptive": c_adaptive,
+          "optimize_kl": c_loop,
           "poisson_counts": c_poisson, "bernoulli_map": c_bernoulli_map,
           "bernoulli_geovi": c_bernoulli_vi, "evidence_128": c_ev128, "solvers_128": c_solvers,
           "config_twin": c_twin}),
@@ -4732,7 +4952,8 @@ def main(argv):
         ("256^3 nb128 quarter", cf256.dist, *k1k2, {"tomography_256": c_256}),
         ("16^3 unbinned", cf16.dist, *k3k4, {"nuts_geovi": c_geo16, "nuts": c_nuts}),
         ("64^2 unbinned", demo11_map, *k3k4,
-         {"demo11": c_demo11, **({"demo7": c_demo7} if same7 else {})}),
+         {"demo11": c_demo11, **({"demo7": c_demo7} if same7 else {}),
+          "acceptance": c_f32["acceptance float64"]}),
         *([] if same7 else [("64^2 demo 7", map7, *k3k4, {"demo7": c_demo7})]),
         # the mesh phases' maps: launches a rank (rank 0's run)
         ("4096^2 nb128 slab", mmaps["4096^2 nb128 slab"], *k1k2,
@@ -4756,7 +4977,15 @@ def main(argv):
                  "4100^2": (icr["4100^2"], {"4100^2": c_4100}),
                  "sphere nside 256": (sphere, {"sphere": c_sphere}),
                  "sphere x radius": (radial, {"sphere_x_radius": c_radial})}
+    # phase 43's float32 runs, on maps of phases 5, 6 and 32
+    paths32 = [
+        ("4096^2 nb128 quarter", cf4096.dist, *k1k2,
+         {"float32": c_f32["float32 4096^2 n_bins=128"]}),
+        ("128^2 unbinned", cf128.dist, *k3k4, {"float32": c_f32["float32 128^2 unbinned"]}),
+        ("64^2 unbinned", demo11_map, *k3k4, {"acceptance": c_f32["acceptance float32"]}),
+    ]
     print(json.dumps({"kernels": kernel_entries(kres, paths, src)
+                      + kernel_entries(kres, paths32, src, "float32")
                       + icr_kernel_entries(kres_icr, icr_paths)
                       + hp_kernel_entries(kres_hp, {"demo16": k10_demo16}, hp_rings, 512, 256)
                       + los_kernel_entries(kres_los, {"demo1": k11_demo1, "tomography_256": k11_256,

@@ -1,15 +1,21 @@
 """Global configuration of the PyTorch port (counterpart of
 :mod:`nifty_tpu.config`).
 
-The keys and their allowed values are the JAX package's.  The precision
-policy differs: the port keeps its latent state, solver scalars and energy
-reductions in float64 on every device (an H100 runs complex128 FFTs
-natively), so :func:`default_float_dtype` is float64.  Pure float32 is
-known to stall Newton-CG and stays on the roadmap.
+The keys and their allowed values are the JAX package's, with two of the
+port's own: ``"device"``, and ``"enable_x64"``, the counterpart of
+``jax.config.jax_enable_x64`` that switches the JAX package.  By default
+(``True``) latent state, data, solver scalars and energy reductions are
+float64 on every device (an H100 runs complex128 FFTs natively);
+``update("enable_x64", False)`` makes :func:`default_float_dtype` float32
+and the correlated field's path, its likelihoods, solvers, geoVI stages
+and ``optimize_kl`` run in float32 end to end.  A model takes the dtype in
+force when it is built (its buffers and its domain's
+:class:`~nifty_tpu_torch.tree.ShapeWithDtype` leaves) and keeps it.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _config = {
@@ -28,12 +34,15 @@ _config = {
     # device: the card.  ``update("device", "cpu")`` asks for the CPU; with
     # the default and no card, :func:`default_device` raises.
     "device": "cuda",
+    # False: the default real dtype is float32 (jax_enable_x64 off).
+    "enable_x64": True,
 }
 
 _ALLOWED = {
     "hartley_convention": ("non_canonical_hartley", "canonical_hartley"),
     "deterministic_reductions": (True, False),
     "transform_compute_dtype": (None, "float32"),
+    "enable_x64": (True, False),
 }
 
 
@@ -69,8 +78,34 @@ def default_device() -> torch.device:
 
 
 def default_float_dtype() -> torch.dtype:
-    """Real dtype of latent state, data and solver vectors."""
-    return torch.float64
+    """Real dtype of latent state, data and solver vectors: float64 iff
+    ``enable_x64``, else float32."""
+    return torch.float64 if _config["enable_x64"] else torch.float32
+
+
+_NARROW = {torch.float64: torch.float32, torch.complex128: torch.complex64}
+_NUMPY = {torch.float64: np.float64, torch.float32: np.float32}
+
+
+def canonical_dtype(dtype: torch.dtype) -> torch.dtype:
+    """``dtype`` as JAX holds it: with ``enable_x64`` off float64 and
+    complex128 become float32 and complex64."""
+    return dtype if _config["enable_x64"] else _NARROW.get(dtype, dtype)
+
+
+def canonical(x: torch.Tensor) -> torch.Tensor:
+    """``x`` cast to :func:`canonical_dtype` of its dtype (itself where that
+    is its own)."""
+    dtype = canonical_dtype(x.dtype)
+    return x if dtype == x.dtype else x.to(dtype)
+
+
+def host_floats(values) -> torch.Tensor:
+    """A host table as a CPU tensor of :func:`default_float_dtype`: computed
+    in float64 and cast once, as the JAX package's float64 numpy constants
+    become float32 where x64 is off."""
+    host = np.asarray(values, dtype=np.float64)
+    return torch.from_numpy(host.astype(_NUMPY[default_float_dtype()], copy=False))
 
 
 def default_complex_dtype() -> torch.dtype:

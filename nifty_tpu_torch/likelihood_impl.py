@@ -58,23 +58,26 @@ class _TreeBuffers(nn.Module):
 
 def _as_tensors(tree, device=None):
     """Leaves that are not tensors yet become tensors on ``device`` (default:
-    the configured default device)."""
+    the configured default device); every leaf takes the precision in force
+    (:func:`~nifty_tpu_torch.config.canonical`)."""
     if device is None and not all(torch.is_tensor(d) for d in tree_leaves(tree)):
         device = config.default_device()
-    return tree_map(lambda d: d if torch.is_tensor(d) else torch.as_tensor(d, device=device), tree)
+    return tree_map(lambda d: config.canonical(
+        d if torch.is_tensor(d) else torch.as_tensor(d, device=device)), tree)
 
 
 def _sampling_dtype(dtype) -> torch.dtype:
     """The white noise's dtype: Python's ``float`` (the JAX package's
-    default) is float64, ``complex`` complex128; numpy dtypes map to
-    their torch namesakes."""
-    if isinstance(dtype, torch.dtype):
-        return dtype
+    default) is the default float dtype, ``complex`` the default complex
+    one; numpy dtypes map to their torch namesakes, in the precision in
+    force."""
     if dtype is float:
-        return torch.float64
+        return config.default_float_dtype()
     if dtype is complex:
-        return torch.complex128
-    return getattr(torch, np.dtype(dtype).name)
+        return config.default_complex_dtype()
+    if not isinstance(dtype, torch.dtype):
+        dtype = getattr(torch, np.dtype(dtype).name)
+    return config.canonical_dtype(dtype)
 
 
 def _shapes(tree, dtype):
@@ -99,7 +102,8 @@ def _as_diag_ops(cov_inv, std_inv, data):
            "std_inv": std_inv if callable(std_inv) else None}
     device = tree_leaves(data)[0].device
     diags = nn.ModuleDict({
-        name: _TreeBuffers(tree_map(lambda v: torch.as_tensor(v, device=device), op))
+        name: _TreeBuffers(tree_map(
+            lambda v: config.canonical(torch.as_tensor(v, device=device)), op))
         for name, op in (("cov_inv", cov_inv), ("std_inv", std_inv))
         if op is not None and not callable(op)
     })
@@ -196,7 +200,7 @@ def _scalar_or_buffer(module, name, value, device):
     if isinstance(value, (int, float)):
         setattr(module, name, float(value))
     else:
-        module.register_buffer(name, torch.as_tensor(value, device=device))
+        module.register_buffer(name, config.canonical(torch.as_tensor(value, device=device)))
 
 
 class StudentT(_DiagNoise, _DataLikelihood):
@@ -426,7 +430,8 @@ class InverseGamma(Likelihood):
             alpha = _as_tensors(alpha, tree_leaves(beta)[0].device)
         else:
             alpha = tree_map(lambda b: torch.as_tensor(
-                alpha, dtype=torch.promote_types(b.dtype, torch.float64), device=b.device,
+                alpha, dtype=torch.promote_types(b.dtype, config.default_float_dtype()),
+                device=b.device,
             ).expand(b.shape).clone(), beta)
         self._beta = _TreeBuffers(beta)
         self._alpha = _TreeBuffers(alpha)

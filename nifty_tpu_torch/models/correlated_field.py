@@ -285,12 +285,8 @@ class NonParametricAmplitude(Model):
         self.fluctuation_amplitude = fluct_m
         self.slope = slope_m
         self.wiggle = wiggle_m
-        self.register_buffer(
-            "log_k_rel", torch.from_numpy(np.asarray(hg.relative_log_mode_lengths, np.float64))
-        )
-        self.register_buffer(
-            "multiplicity", torch.from_numpy(np.asarray(hg.mode_multiplicity, np.float64))
-        )
+        self.register_buffer("log_k_rel", config.host_floats(hg.relative_log_mode_lengths))
+        self.register_buffer("multiplicity", config.host_floats(hg.mode_multiplicity))
 
     def forward(self, primals):
         """The table on the power bins, shape (..., nb); leading axes of the
@@ -344,12 +340,8 @@ class MaternAmplitude(Model):
         self.cutoff = cutoff_m
         self.loglogslope = slope_m
         hg = grid.harmonic_grid
-        self.register_buffer(
-            "mode_lengths", torch.from_numpy(np.asarray(hg.mode_lengths, np.float64))
-        )
-        self.register_buffer(
-            "multiplicity", torch.from_numpy(np.asarray(hg.mode_multiplicity, np.float64))
-        )
+        self.register_buffer("mode_lengths", config.host_floats(hg.mode_lengths))
+        self.register_buffer("multiplicity", config.host_floats(hg.mode_multiplicity))
 
     def forward(self, primals):
         """The table on the power bins, shape (..., nb); leading axes of the
@@ -763,7 +755,7 @@ class CorrelatedFieldMaker:
         gen = key
         if not isinstance(gen, torch.Generator):
             gen = torch.Generator().manual_seed(42 if key is None else int(key))
-        scm = torch.ones(nsamples, dtype=torch.float64)
+        scm = torch.ones(nsamples, dtype=config.default_float_dtype())
         for fl in self.fluctuation_amplitudes():
             dom = {**fl.domain, self._prefix + "zeromode": ShapeWithDtype(())}
             batched = {k: ShapeWithDtype((nsamples,) + tuple(v.shape), v.dtype)

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import config
 from ..model import LazyModel, Model
 from ..prior import LogNormalPrior, NormalPrior
 from ..tree import ShapeWithDtype, random_like
@@ -128,7 +129,7 @@ class _Constant(nn.Module):
     def __init__(self, value):
         super().__init__()
         if not torch.is_tensor(value):
-            value = torch.from_numpy(np.asarray(value, dtype=np.float64))
+            value = config.host_floats(value)
         self.register_buffer("value", value)
 
     def forward(self, x):
@@ -163,7 +164,7 @@ class GaussMarkovProcess(Model):
         super().__init__(domain=domain, init=init)
         self.process = process
         self.name = name
-        self.register_buffer("dt", torch.from_numpy(dt))
+        self.register_buffer("dt", config.host_floats(dt))
         self.x0 = x0 if isinstance(x0, LazyModel) else _Constant(x0)
         self.params = nn.ModuleDict({
             k: v if isinstance(v, LazyModel) else _Constant(v)

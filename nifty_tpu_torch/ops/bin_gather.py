@@ -53,7 +53,8 @@ tensor it launches its kernel or raises.  ``bin_gather.launches`` and
 those calls launched; ``launches_by_rows`` and ``kernel_launches_by_rows``
 hold the same two counts by the number of rows B the calls served, and
 ``launches_by_map`` and ``kernel_launches_by_map`` by the map (its shape
-and bin count) and B, for runs that distribute onto several maps.
+and bin count) and B, for runs that distribute onto several maps, and
+``launches_by_dtype`` the calls by the values' float type.
 
 :class:`BinGather` and :class:`BinSegmentSum` are the
 ``torch.autograd.Function`` pair: each one's derivative is the other, with
@@ -368,14 +369,16 @@ def bin_gather(table, dist: BinIndex):
             torch._C._cuda_getCurrentRawStream(dev))
     if rc < 0:
         raise RuntimeError(f"CUDA kernel launch failed with cudaError {-rc}")
-    _count(bin_gather, dist, nrows, rc)
+    _count(bin_gather, dist, nrows, rc, table.dtype)
     return out
 
 
-def _count(wrapper, dist: BinIndex, nrows: int, kernels: int):
-    """One call of ``wrapper``'s kernel route, which launched ``kernels``."""
+def _count(wrapper, dist: BinIndex, nrows: int, kernels: int, dtype: torch.dtype):
+    """One call of ``wrapper``'s kernel route on ``dtype`` values, which
+    launched ``kernels``."""
     by_map = (dist.shape, dist.nb, nrows)
     wrapper.launches += 1
+    wrapper.launches_by_dtype[_FLOAT_DTYPES[dtype]] += 1
     wrapper.launches_by_rows[nrows] += 1
     wrapper.launches_by_map[by_map] += 1
     wrapper.kernel_launches += kernels
@@ -425,7 +428,7 @@ def bin_segment_sum(cot, dist: BinIndex):
     b = dist._buffers
     out, kernels = _launch_segment_sum(cot, dist, b["seg_bins"], b["seg_los"], b["seg_lens"],
                                        dist._counts_c, b["seg_pieces"])
-    _count(bin_segment_sum, dist, cot.shape[0], kernels)
+    _count(bin_segment_sum, dist, cot.shape[0], kernels, cot.dtype)
     return out
 
 
@@ -452,6 +455,7 @@ def reset_launch_counts():
         fn.launches = fn.kernel_launches = 0
         fn.launches_by_rows, fn.kernel_launches_by_rows = Counter(), Counter()
         fn.launches_by_map, fn.kernel_launches_by_map = Counter(), Counter()
+        fn.launches_by_dtype = Counter()
 
 
 reset_launch_counts()

@@ -610,8 +610,10 @@ def optimize_kl(likelihood: Likelihood, position_or_samples, *, key,
     (:func:`~nifty_tpu_torch.sample_io.save_sharded_checkpoint`); it
     resumes on any world size and layout.  ``None`` picks ``"orbax"`` in a
     world of several ranks, else ``"pickle"``.  On a mesh the reports and
-    the figure are logged and written by rank 0 alone, and
-    ``export_operator_outputs`` needs a world of one rank.  ``kl_reduce`` is the sample mean
+    the figure are logged and written by rank 0 alone, as is
+    ``operator_outputs.h5``, whose outputs are first gathered from every
+    rank (:func:`~nifty_tpu_torch.sample_io.save_samples_to_hdf5`).
+    ``kl_reduce`` is the sample mean
     of the KL stage (see :class:`OptimizeVI`).
     """
     if checkpoint_format is None:
@@ -621,10 +623,6 @@ def optimize_kl(likelihood: Likelihood, position_or_samples, *, key,
     sharded = checkpoint_format == "orbax"
     if not sharded and _world_size() > 1:
         raise ValueError('a world of several ranks checkpoints with checkpoint_format="orbax"')
-    if export_operator_outputs is not None and _world_size() > 1:
-        raise NotImplementedError(
-            "export_operator_outputs in a world of several ranks (the sharded outputs are "
-            "not gathered)")
     opt_vi = _optimize_vi
     if opt_vi is None:
         opt_vi = OptimizeVI(

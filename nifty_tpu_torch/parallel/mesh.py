@@ -199,6 +199,11 @@ class Mesh:
         ``None`` where its structure has no layout."""
         return self._layouts.get(_structure(tree))
 
+    def field_shapes(self) -> set:
+        """The global shapes of the field-sharded leaves of every tree whose
+        layout the mesh records."""
+        return {shape for entry in self._layouts.values() for s, shape in entry if s}
+
     def field_flags(self, tree, n_leaves: int):
         """Which of ``tree``'s leaves are field-sharded; raises where that
         is unknown and the field axis has more than one rank."""

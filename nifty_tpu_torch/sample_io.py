@@ -17,6 +17,7 @@ package's own (astropy is not needed).
 
 from __future__ import annotations
 
+import hashlib
 import os
 import pickle
 from typing import Callable, Mapping, Optional
@@ -102,27 +103,79 @@ def _host(x):
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
-def _op_outputs(samples: Samples, op: Callable) -> np.ndarray:
+def _op_outputs(samples: Samples, op: Callable, mesh=None, name="") -> np.ndarray:
     """``op`` of every sample (of the position where there are none),
-    stacked on the host."""
+    stacked on the host.
+
+    On a ``mesh`` every rank calls it and gets the global stack: the
+    outputs of a rank's samples (its block of the stacked rows) are
+    gathered over the samples axis in rank order, which is the global
+    sample order of one rank.  On a field axis of several ranks an output
+    is gathered along its first axis where it is a known slab
+    (:func:`_field_slab`), and kept where it is the same on every field
+    rank."""
     with torch.no_grad():
         if len(samples):
-            return np.stack([_host(op(s)) for s in samples])
-        return _host(op(samples.pos))[None]
+            outs = torch.stack([torch.as_tensor(op(s)) for s in samples])
+        else:
+            outs = torch.as_tensor(op(samples.pos))[None]
+        if mesh is not None:
+            from .parallel import collectives as coll
+
+            if mesh.size(mesh.field_axis) > 1 and _field_slab(outs, mesh, name):
+                outs = coll.all_gather(outs, mesh.group(mesh.field_axis), dim=1)
+            if len(samples) and mesh.size(mesh.sample_axis) > 1:
+                outs = coll.all_gather(outs, mesh.group(mesh.sample_axis), dim=0)
+    return _host(outs)
+
+
+def _field_slab(outs: torch.Tensor, mesh, name: str) -> bool:
+    """Whether the stacked outputs ``outs`` of a field rank are its slab of
+    a field (``True``) or the same on every field rank (``False``).  A slab
+    has at least two axes, and its first axis times the field extent
+    gives the global shape of a leaf that the mesh field-shards (a latent
+    or a data leaf placed with
+    :func:`~nifty_tpu_torch.parallel.mesh.shard_position`); its bits
+    differ between the field ranks.  An output of neither kind (say, a
+    field cut to one axis, or a replicated table of a slab's shape) raises:
+    its layout is unknown."""
+    from .parallel import collectives as coll
+
+    p, shape = mesh.size(mesh.field_axis), tuple(outs.shape[1:])
+    slab = len(shape) >= 2 and (shape[0] * p,) + shape[1:] in mesh.field_shapes()
+    host = np.ascontiguousarray(_host(outs))
+    digest = (host.shape, str(host.dtype), hashlib.sha256(host.tobytes()).hexdigest())
+    same = len(set(coll.all_gather_object(digest, mesh.group(mesh.field_axis)))) == 1
+    if slab != same:
+        return slab
+    raise ValueError(
+        f"operator output {name!r} of shape {shape} a sample on a field axis of {p} ranks: "
+        + ("a slab's shape, but the same on every field rank" if slab else
+           "different on the field ranks, but no slab of a field-sharded leaf")
+        + "; its layout is unknown, so it is not exported")
 
 
 def save_samples_to_hdf5(samples: Samples, path: str,
                          ops: Mapping[str, Callable], *,
                          overwrite: bool = False,
                          samples_datasets: bool = True):
-    """Write ``{name}/{mean,std,samples}`` datasets of operator outputs."""
+    """Write ``{name}/{mean,std,samples}`` datasets of operator outputs.
+
+    On an active mesh every rank calls it: the outputs are gathered
+    (:func:`_op_outputs`) and rank 0 alone writes the file, with the
+    datasets one rank holding every sample and the whole field writes."""
+    from .parallel.mesh import active_mesh
+
+    mesh = active_mesh()
+    outputs = {name: _op_outputs(samples, op, mesh, name) for name, op in ops.items()}
+    if mesh is not None and not mesh.is_root:
+        return
     import h5py
 
     if os.path.exists(path) and not overwrite:
         raise FileExistsError(path)
     with h5py.File(path, "w") as f:
-        for name, op in ops.items():
-            outs = _op_outputs(samples, op)
+        for name, outs in outputs.items():
             grp = f.create_group(str(name))
             grp.create_dataset("mean", data=outs.mean(axis=0))
             if outs.shape[0] > 1:

@@ -15,12 +15,15 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from . import config
 from .tree import tree_map
 
 
 def _scalar_or_tensor(x):
+    """A Python float, or a tensor of the default float dtype (fixed when
+    the transform is made)."""
     x = np.asarray(x, dtype=np.float64)
-    return float(x) if x.ndim == 0 else torch.from_numpy(x.copy())
+    return float(x) if x.ndim == 0 else config.host_floats(x.copy())
 
 
 # -- normal ----------------------------------------------------------------
@@ -156,11 +159,12 @@ def interp(x, xp, fp):
 
 
 class _Table:
-    """A host table of float64 values, copied once to each device it is
-    asked for."""
+    """A host table computed in float64 and held in the default float dtype
+    (fixed when the table is made), copied once to each device it is asked
+    for."""
 
     def __init__(self, values):
-        self._host = torch.as_tensor(np.asarray(values, dtype=np.float64))
+        self._host = config.host_floats(values)
         self._on = {}
 
     def on(self, device):

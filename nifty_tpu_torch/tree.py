@@ -660,8 +660,11 @@ def from_numpy(tree, *, device=None, dtype=None, mesh=None):
 
     Dicts, lists and tuples keep their type; any object with a ``.tree``
     attribute (a ``Vector`` of either package) becomes a port
-    :class:`Vector`.  ``dtype`` applies to floating leaves only;
-    ``device`` defaults to the configured device.
+    :class:`Vector`.  ``dtype`` applies to floating leaves only; without
+    it a leaf takes the precision in force, as ``jnp.asarray`` does
+    (:func:`~nifty_tpu_torch.config.canonical`: with ``enable_x64`` off a
+    float64 leaf becomes float32).  ``device`` defaults to the configured
+    device.
 
     Given a ``mesh``, a global tree becomes this rank's part of it, as
     :func:`~nifty_tpu_torch.parallel.mesh.shard_position` places it: the
@@ -685,7 +688,9 @@ def from_numpy(tree, *, device=None, dtype=None, mesh=None):
         return Vector(from_numpy(tree.tree, device=device, dtype=dtype))
     arr = np.array(tree, copy=True)
     t = torch.from_numpy(arr)
-    if dtype is not None and t.is_floating_point():
+    if dtype is None:
+        t = config.canonical(t)
+    elif t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)
 

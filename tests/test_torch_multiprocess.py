@@ -10,6 +10,7 @@ The ranks run ``tests/torch_mesh_worker.py`` (no jax); each world
 computes every case it serves at once, in one module fixture.
 """
 
+import importlib.util
 import os
 import shutil
 import time
@@ -87,11 +88,17 @@ def runs(tmp_path_factory):
                   nl_maxiter=0, budgets=(200, 100, 30, 150))
     data32, pos32 = _problem(32)
     ckpt = dict(data=data32, pos=pos32, seed=11, budgets=CKPT_BUDGETS, n_samples=4)
+    # the HDF5 export needs h5py (the card's machine has none)
+    export = dict(data=data32, pos=pos32, seed=13, budgets=CKPT_BUDGETS, n_samples=2)
+    exports = {w: os.path.join(odir, f"export_{w}") for w in ("1x1", "1x2", "2x1")}
+    has_h5py = importlib.util.find_spec("h5py") is not None
     t0 = time.perf_counter()
     two = run_world(W.run_cases, 2, args=([
         ("update", "vi_update_case", dict(update, samples=1, field=2)),
         ("write", "checkpoint_write_case", dict(ckpt, samples=1, field=2, odir=odir)),
-    ],), timeout=WORLD_TIMEOUT, threads=1)
+    ] + [(f"export_{w}", "export_case", dict(export, samples=int(w[0]), field=int(w[2]),
+                                            odir=exports[w]))
+         for w in ("1x2", "2x1") if has_h5py],), timeout=WORLD_TIMEOUT, threads=1)
     dirs = {}
     for label in ("1x1", "4x1"):
         dirs[label] = os.path.join(odir, label)
@@ -105,8 +112,9 @@ def runs(tmp_path_factory):
     one = W.run_cases([
         ("update", "vi_update_case", dict(update, samples=1, field=1)),
         ("resume", "checkpoint_resume_case", dict(ckpt, samples=1, field=1, odir=dirs["1x1"])),
-    ])
-    return dict(two=two, four=four, one=one, odir=odir, worlds_s=worlds_s)
+    ] + ([("export_1x1", "export_case", dict(export, samples=1, field=1, odir=exports["1x1"]))]
+         if has_h5py else []))
+    return dict(two=two, four=four, one=one, odir=odir, worlds_s=worlds_s, exports=exports)
 
 
 def test_two_process_field_mesh_matches_single_process(runs):
@@ -153,6 +161,57 @@ def test_kl_reduce_is_the_kl_stages_reduction(runs):
     for k in out["default"]["samples"]:
         np.testing.assert_array_equal(out["counted"]["samples"][k],
                                       out["default"]["samples"][k])
+
+
+def _h5(path):
+    import h5py
+
+    with h5py.File(path) as f:
+        return {f"{g}/{d}": f[g][d][()] for g in f for d in f[g]}
+
+
+@pytest.mark.parametrize("world", ["1x2", "2x1"])
+def test_operator_outputs_exported_from_several_ranks(runs, world):
+    """``optimize_kl(export_operator_outputs=)`` on a world of two ranks
+    (the field sharded, or the samples): rank 0 writes
+    ``operator_outputs.h5`` with the datasets of one rank, bit for bit
+    under ``deterministic_reductions``: the field (a slab a rank on the
+    field mesh), and a table of one axis and one of two that every rank
+    holds whole; ``save_samples_to_hdf5`` of the same samples without it
+    within 1e-12.  A CPU test: the card's machine has no h5py."""
+    pytest.importorskip("h5py")
+    got_dir, want_dir = runs["exports"][world], runs["exports"]["1x1"]
+    for r in runs["two"]:
+        assert "operator_outputs.h5" in r[f"export_{world}"][0]
+    got = _h5(os.path.join(got_dir, "operator_outputs.h5"))
+    want = _h5(os.path.join(want_dir, "operator_outputs.h5"))
+    assert sorted(got) == sorted(want) == [
+        "amplitude/mean", "amplitude/samples", "amplitude/std",
+        "field/mean", "field/samples", "field/std",
+        "outer/mean", "outer/samples", "outer/std"]
+    assert want["outer/samples"].ndim == 3
+    assert want["field/samples"].shape == (4, 32, 32)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    got = _h5(os.path.join(got_dir, "direct.h5"))
+    want = _h5(os.path.join(want_dir, "direct.h5"))
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=0,
+                                   atol=1e-12 * np.abs(want[k]).max(), err_msg=k)
+
+
+def test_export_raises_where_an_output_layout_is_unknown(runs):
+    """On a field axis of two ranks an output that is neither a slab of a
+    field-sharded leaf nor the same on every rank is not written: a field
+    cut to one axis, and zeros of a slab's shape, raise on both ranks.
+    With one field rank (1 x 1, 2 x 1) both are written."""
+    pytest.importorskip("h5py")
+    for r in runs["two"]:
+        errors = r["export_1x2"][1]
+        assert "different on the field ranks" in errors["column"]
+        assert "the same on every field rank" in errors["zeros"]
+        assert r["export_2x1"][1] == {"column": None, "zeros": None}
+    assert runs["one"]["export_1x1"][1] == {"column": None, "zeros": None}
 
 
 def test_a_failing_rank_fails_the_world():

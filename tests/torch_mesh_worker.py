@@ -291,6 +291,47 @@ def checkpoint_resume_case(data, pos, seed, samples, field, odir, budgets, n_sam
     return _whole(s3, st3, mesh)
 
 
+def export_case(data, pos, seed, samples, field, odir, budgets, n_samples):
+    """``optimize_kl`` with ``export_operator_outputs`` for two iterations
+    under ``deterministic_reductions``: the field (a slab a rank on a
+    field-sharded mesh), its amplitude table and the table's outer product
+    with itself (two axes; both the same on every rank), which rank 0
+    writes to ``odir/operator_outputs.h5``; then, without
+    ``deterministic_reductions``, ``save_samples_to_hdf5`` of the run's
+    samples to ``odir/direct.h5``.  Last, the export of an output whose
+    field layout is unknown: a field cut to its first column (different on
+    the field ranks, one axis), and zeros of a slab's shape (the same on
+    every rank).  Returns the files each rank found and the error each
+    unknown output raised (``None`` where it was written)."""
+    import os
+
+    jt.config.update("deterministic_reductions", True)
+    mesh = make_mesh(samples, field)
+    cf = correlated_field(tuple(data.shape), mesh)
+    lh = shard_position(jt.Gaussian(torch.from_numpy(data), noise_cov_inv=lambda x: x).amend(cf),
+                        mesh)
+    p = jt.from_numpy(pos, device="cpu", mesh=mesh)
+    ops = {"field": cf, "amplitude": cf.amplitude,
+           "outer": lambda x: torch.outer(cf.amplitude(x), cf.amplitude(x))}
+    smp, _ = jt.optimize_kl(lh, p, n_total_iterations=2, odir=odir, key=jt.HostKey(seed),
+                            export_operator_outputs=ops, plot_energy_history=False,
+                            **_vi_kwargs(budgets, 3, n_samples, "nonlinear_resample"))
+    jt.config.update("deterministic_reductions", False)
+    jt.save_samples_to_hdf5(smp, os.path.join(odir, "direct.h5"), ops, overwrite=True)
+    files = sorted(os.listdir(odir))
+    slab = (data.shape[0] // field,) + tuple(data.shape[1:])
+    unknown = {}
+    for name, op in (("column", lambda x: cf(x)[:, 0]),
+                     ("zeros", lambda x: torch.zeros(slab, dtype=torch.float64))):
+        try:
+            jt.save_samples_to_hdf5(smp, os.path.join(odir, f"{name}.h5"), {name: op},
+                                    overwrite=True)
+            unknown[name] = None
+        except ValueError as e:
+            unknown[name] = str(e)
+    return files, unknown
+
+
 def kl_reduce_case(data, pos, seed, samples, field, budgets):
     """``OptimizeVI(kl_reduce=...)``: a reduce that counts its calls and
     takes the pairwise mean over the samples axis."""
