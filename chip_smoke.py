@@ -12,7 +12,9 @@ a config-file twin of phase 9) and the instrumentation at 4096^2; then
 the same port on several
 ranks: the pencil transforms, demo 4, phase 6's update field- and
 sample-sharded, and the sharded checkpoint, in a gloo world of four ranks
-on one card and an NCCL world over every card (it starts both).
+on one card and an NCCL world over every card (it starts both), where
+phase 27's 256^3 tomography runs field- and sample-sharded and phase
+19's 4100^2 ICR chart sample-sharded.
 
     python3 chip_smoke.py
 
@@ -56,7 +58,9 @@ Phases (one line each, with its seconds):
    tomography fields' maps: the 16^3 and 64^3 unbinned full-grid maps at 1,
    4 and 8 rows and the 129^3 quarter map of 256^3 with ``n_bins=128``
    (2,146,689 entries) at 1 and 2, and demo 11's 64^2 full-grid map at 1,
-   2 and 4;
+   2 and 4; and the mesh phases' maps: a field rank's rows of the
+   full-grid maps of phase 6's 4096^2, demo 4's and phase 27's 256^3
+   field, the whole maps, and their (row, bin) maps;
 4. one 32^2 update on the CPU (plain versions) and on the card (kernels)
    from the same latents and host-drawn noise, once with the sample loop
    (``residual_map="smap"``) and once with the lockstep batched solvers
@@ -193,6 +197,18 @@ Phases (one line each, with its seconds):
     the touched cells' values or the cotangents, and the output, once
     each) and the share of it reached, the plain versions' and the library
     routes' ms (``torch.sparse.mm`` of the rays' CSR matrix; ``index_add_``);
+    and the same for every table of the slabs phase 44 launches on (rows
+    0-127 and 128-255 of the 256^3 grid, a field rank's of the 2 x 2
+    world, and all 256 rows, the 1 x 1 world's; and rows 0-7 of a 16^3
+    grid): each slab's own table (the adjoint's CSR by cell) and its
+    virtual-ray tables, one a width (the (ray, row) pairs' entries padded
+    to a power of two); then each slab's whole forward under
+    ``deterministic_reductions`` (every virtual-ray table, the partials
+    placed in (rows, rays)) and its adjoint against their plain versions
+    (1e-12 / 1e-5 of the per-output sum of |term|, the forward bitwise
+    reproducible), with float64 device ms beside the bound, the plain
+    versions' ms and ``torch.sparse.mm`` of the virtual rays' CSR and of
+    the slab table's transpose;
 26. ``demos/1_tomography.py``'s ``main()`` as written: a 64^3 field, 128
     rays x 128 points, ``optimize_kl`` with 5 iterations of 4 pairs,
     ``linear_resample``, draw CG 60, KL 15 x ``xtol`` 1e-4: the mean
@@ -293,7 +309,12 @@ Phases (one line each, with its seconds):
     beside one rank's; each rank's slab of the 4096^2 ``n_bins=128`` map and
     its (row, bin) map, the gather bitwise and both segment sums within
     1e-12 of sum|cot| of their plain versions; ``pairwise_mean`` of 8 rows
-    bitwise equal over 1, 2 and 4 ranks;
+    bitwise equal over 1, 2 and 4 ranks; and on each rank of the 2 x 2
+    world K11's slab route on its rows of phase 44's 256^3 grid (a field
+    drawn whole from a seed, the rank's rows taken): the ray values of
+    ``integrate_slab`` (the (ray, row) partials gathered over the field
+    group and folded) and the slab adjoint within 1e-12 of the per-output
+    sum of |term| of the whole grid's plain versions;
 38. ``demos/4_multichip.py`` through the port on the 2 x 2 world: its grid
     (64 x 32), priors, noise 0.1 and budgets (an antithetic linear draw of
     2 keys with CG 40, Newton-CG on the KL, 10 steps of CG 20), 4
@@ -355,6 +376,32 @@ Phases (one line each, with its seconds):
     meets that test's criteria (rms error of the float32 posterior mean at
     most 1.1 times the float64 one's; the two means apart by at most the
     mean float64 posterior std).
+44. (run with phases 37-40, in their worlds) phase 27's 256^3 model
+    (``n_bins=128``, 1024 rays x 256 points), its data and noise at full
+    width, field- and sample-sharded on the 2 x 2 world and on the NCCL
+    world, under ``deterministic_reductions``: the correlated field on a
+    rank's rows of its full-grid map (the (row, bin) map for the
+    amplitude's gradient), the pencil Hartley, ``exp`` and K11 on the
+    rank's slab (the ray values, data and noise whole on every rank); one
+    update from phase 27's state and start at its budgets
+    (``TOMO256_KWARGS``: draw CG 40, geoVI 3 x CG 15, KL 6 x CG 20, 2
+    pairs), the sample loop; s/update per world, peak memory a rank, the
+    collectives of the update by kind and bytes, K11's launches a rank by
+    (table, rows) and the distributor's by map, the KL energy beside phase
+    27's first update (printed, not gated); fails unless every rank's
+    latents are finite, the two worlds' whole samples (their digest) and
+    KL energies are bitwise equal, and on every rank K11 launched on its
+    slab's tables in both directions, the gather on its slab's rows of the
+    map and the segment sum on their (row, bin) map;
+45. (run with phases 37-40) phase 19's 4100^2 chart, data and start on a
+    4 x 1 gloo world and on the NCCL world, the samples sharded and the
+    latents whole on every rank (ICR has no field-sharded form), under
+    ``deterministic_reductions`` with the maps left at "auto" (the sample
+    loop on a card mesh, checked): one update at ``MESH_ICR_KWARGS``
+    (``BENCH_KWARGS``' 4 pairs, shorter fixed trips);
+    s/update, peak memory, K9's launches a rank by (level, rows); fails
+    unless both K9 kernels launched at every level on every rank and the
+    two worlds are bitwise equal.
 
 The port places models, latents and data on the card by default; only
 phase 4's CPU run asks for the CPU (``config.update("device", "cpu")``).
@@ -391,7 +438,8 @@ numbers (a shape phase 22 did not check fails the run): ``plain_ms`` and
 ``table_ms`` by CUDA events, ``library_ms`` the ``torch.fft`` route (one
 batched transform a distinct ring length) from a CUDA-graph replay.
 K11's entries are one for each direction, table and number of rows phases
-26 to 28 launched (``launches_by_run`` names the run), with phase 25's
+26 to 28 and 44 launched (``launches_by_run`` names the run; phase 44's
+are a rank's of each field index of 2 x 2 and of 1 x 1), with phase 25's
 numbers (a shape phase 25 did not check fails the run): ``plain_ms`` and
 ``library_ms`` by CUDA events.  K7's entries are one for each direction,
 w-plane grid and number of rows phase 35 launched, with phase 34's numbers
@@ -783,7 +831,8 @@ def phase_build():
 def phase_kernels(cases):
     """`cases`: {label: (BinIndex on the card, batch rows)}, or (BinIndex,
     rows, calls a timing): the mesh phases' maps, float64 alone (their
-    type) with 10 calls a timing.  A map of a million entries a call or
+    type) with 10 calls a timing (3 for 256^3's, whose plain segment sum
+    takes 68-117 ms a call).  A map of a million entries a call or
     more is timed over 10 calls (its plain segment sum takes up to 46 ms a
     call), a smaller one over 50."""
     from nifty_tpu_torch.ops import bin_gather as bg
@@ -2465,14 +2514,40 @@ NUTS_SEED = 7
 NUTS_TRANSITIONS = 80
 
 
-def build_tomography(jt, dims, n_rays, n_points, ray_seed, key, flexible=True, n_bins=None):
-    """The tomography model of `demos/1_tomography.py` (`main()`: no
+#: `main_at_scale()`'s budgets (phases 27 and 44): draw CG 40; geoVI 3 x CG
+#: 15, `xtol` 1e-3; KL 6 x CG 20, `xtol` 1e-4; 2 pairs
+TOMO256_KWARGS = dict(
+    n_samples=2, draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=40)),
+    nonlinearly_update_kwargs=dict(minimize_kwargs=dict(
+        xtol=1e-3, maxiter=3, cg_kwargs=dict(maxiter=15))),
+    kl_kwargs=dict(minimize_kwargs=dict(xtol=1e-4, maxiter=6, cg_kwargs=dict(maxiter=20))),
+    sample_mode="nonlinear_resample")
+#: phases 27's and 44's grid, rays (from numpy's generator 5) and points;
+#: their field has `n_bins=128`
+TOMO256_RAYS = dict(dims=(256,) * 3, n_rays=1024, n_points=256, ray_seed=5)
+
+
+def tomography_rays(jt, dims, n_rays, n_points, ray_seed):
+    """The response of :func:`tomography_model`: `n_rays` rays between
+    uniform points in [0.05, 0.95]^3 (numpy, from `ray_seed`) sampled at
+    `n_points` points."""
+    rng = np.random.default_rng(ray_seed)
+    start = rng.uniform(0.05, 0.95, size=(n_rays, 3))
+    end = rng.uniform(0.05, 0.95, size=(n_rays, 3))
+    return jt.SamplingCartesianGridLOS(start, end, shape=dims,
+                                       distances=tuple(1.0 / d for d in dims),
+                                       n_sampling_points=n_points)
+
+
+def tomography_model(jt, dims, n_rays, n_points, ray_seed, flexible=True, n_bins=None,
+                     hartley_fn=None):
+    """The forward model of `demos/1_tomography.py` (`main()`: no
     flexibility or asperity; `main_at_scale()`: both, and `n_bins`) and of
-    `tests/test_tomography_3d.py` (both): a correlated field `cf` on `dims`,
-    `n_rays` rays between uniform points in [0.05, 0.95]^3 (numpy, from
-    `ray_seed`) sampled at `n_points` points, the model x -> los(exp(cf(x))),
-    data from a prior draw (latents drawn on the host from `key`) plus white
-    noise of 5 % of the mean |truth|.  Returns the likelihood, `cf` and the
+    `tests/test_tomography_3d.py` (both): a correlated field `cf` on `dims`
+    (its Hartley transform `hartley_fn`, the local one by default), the
+    rays of :func:`tomography_rays`, the model x -> los(exp(cf(x))) with
+    the field and the response as submodules (so that `shard_position`
+    reaches both).  Returns the model, `cf` and the
     response."""
     cfm = jt.CorrelatedFieldMaker("cf")
     cfm.set_amplitude_total_offset(offset_mean=0.0, offset_std=(1e-1, 3e-2))
@@ -2481,21 +2556,26 @@ def build_tomography(jt, dims, n_rays, n_points, ray_seed, key, flexible=True, n
         kw["n_bins"] = n_bins
     cfm.add_fluctuations(dims, distances=1.0 / dims[0], fluctuations=(1.0, 5e-1),
                          loglogavgslope=(-4.0, 5e-1), **kw)
-    cf = cfm.finalize()
-    rng = np.random.default_rng(ray_seed)
-    start = rng.uniform(0.05, 0.95, size=(n_rays, 3))
-    end = rng.uniform(0.05, 0.95, size=(n_rays, 3))
-    los = jt.SamplingCartesianGridLOS(start, end, shape=dims,
-                                      distances=tuple(1.0 / d for d in dims),
-                                      n_sampling_points=n_points)
+    cf = cfm.finalize(hartley_fn=hartley_fn)
+    los = tomography_rays(jt, dims, n_rays, n_points, ray_seed)
     fwd = jt.Model(lambda x: los(torch.exp(cf(x))), domain=cf.domain, init=cf.init)
+    fwd.cf, fwd.los = cf, los
+    return fwd, cf, los
+
+
+def build_tomography(jt, dims, n_rays, n_points, ray_seed, key, flexible=True, n_bins=None):
+    """:func:`tomography_model`'s likelihood: data from a prior draw
+    (latents drawn on the host from `key`) plus white noise of 5 % of the
+    mean |truth|.  Returns the likelihood, `cf`, the response and the
+    noise's standard deviation."""
+    fwd, cf, los = tomography_model(jt, dims, n_rays, n_points, ray_seed, flexible, n_bins)
     k_truth, k_noise = jt.HostKey(key).split(2)
     with torch.no_grad():
         truth = fwd(fwd.init(k_truth))
         noise_std = 0.05 * float(truth.abs().mean())
         data = truth + noise_std * jt.random_like(k_noise, truth)
     lh = jt.Gaussian(data, noise_cov_inv=lambda x: x / noise_std ** 2).amend(fwd)
-    return lh, cf, los
+    return lh, cf, los, noise_std
 
 
 def reduced_chi2(lh, samples):
@@ -2515,7 +2595,7 @@ def los_counts():
 
 def los_text(counts):
     return " ".join(f"{kind} " + ", ".join(
-        f"{shape[0][0]}^{len(shape[0])} x {shape[1]} rays x {shape[2]} entries B={b}: {n}"
+        f"{grid_text(shape[0])} x {shape[1]} rays x {shape[2]} entries B={b}: {n}"
         for (shape, b), n in sorted(c.items())) for kind, c in counts.items())
 
 
@@ -2674,6 +2754,156 @@ def phase_los_kernels(cases):
     return results
 
 
+#: the slabs of phase 44's worlds (a field rank of 2 x 2, and the whole grid
+#: of 1 x 1) and a 16^3 one, whose tables phase 25 holds
+LOS_SLAB_ROWS = {"256^3": ((0, 128), (128, 256), (0, 256)), "16^3": ((0, 8),)}
+
+
+class LosPart:
+    """A table of a line-of-sight slab as phase 25 holds it: the slab's
+    own table (`width=None`) or its virtual-ray table of that width, by
+    float type (`slabs`: {dtype: LosSlab})."""
+
+    def __init__(self, slabs, width=None):
+        self.slabs, self.width = slabs, width
+
+    def table(self, dtype):
+        slab = self.slabs[dtype]
+        return slab.table if self.width is None else slab.buckets[slab.widths.index(self.width)]
+
+
+def los_slabs(responses):
+    """{(grid, rows): {dtype: LosSlab}} of `LOS_SLAB_ROWS` from
+    `responses` ({grid: SamplingCartesianGridLOS}), float64 and float32."""
+    return {(grid, rows): {dt: los.slab_tables(rows, dt) for dt in (torch.float64, torch.float32)}
+            for grid, los in responses.items() for rows in LOS_SLAB_ROWS[grid]}
+
+
+def slab_cases(slabs):
+    """Phase 25's cases of the slabs' tables, one row each (the sample loop's):
+    the slab table (the adjoint, and the forward without
+    `deterministic_reductions`) and every virtual-ray table."""
+    cases = {}
+    for (grid, rows), by_dtype in slabs.items():
+        slab = by_dtype[torch.float64]
+        label = f"{grid} rows {rows[0]}-{rows[1] - 1}"
+        cases[f"{label} slab table B=1"] = (LosPart(by_dtype), 1)
+        for wdt in slab.widths:
+            cases[f"{label} virtual rays of {wdt} B=1"] = (LosPart(by_dtype, wdt), 1)
+    return cases
+
+
+def slab_library_routes(slab, f, ybar):
+    """The slab's forward and adjoint as one PyTorch call each, which the
+    port never calls: ``torch.sparse.mm`` of the virtual rays' CSR matrix
+    (their valid entries, in place of the (ray, row) partials) and of the
+    slab table's transpose (its CSR by cell), times the rays' scales."""
+    dev = f.device
+    rows, cols, vals, dest = [], [], [], []
+    for tab, d in zip(slab.buckets, slab.dests):
+        valid = tab.idx >= 0
+        rows.append(d[:, None].expand(-1, tab.nent)[valid])
+        cols.append(tab.idx[valid].long())
+        vals.append((tab.w * tab.scale[:, None])[valid])
+    order = torch.argsort(torch.cat(rows), stable=True)
+    nout = (slab.rows[1] - slab.rows[0]) * slab.nrays
+    fwd = torch.sparse_coo_tensor(torch.stack([torch.cat(rows)[order], torch.cat(cols)[order]]),
+                                  torch.cat(vals)[order], (nout, slab.ncells)).to_sparse_csr()
+    t = slab.table
+    crow = torch.zeros(slab.ncells + 1, dtype=torch.int64, device=dev)
+    crow[t.cells + 1] = (t.seg_off[1:] - t.seg_off[:-1]).long()
+    adj = torch.sparse_csr_tensor(torch.cumsum(crow, 0), t.seg_ray.long(), t.seg_w,
+                                  (slab.ncells, slab.nrays))
+
+    def forward():
+        return torch.sparse.mm(fwd, f.T).T.reshape(f.shape[0], -1, slab.nrays)
+
+    def adjoint():
+        return torch.sparse.mm(adj, (ybar * t.scale).T).T
+
+    return forward, adjoint
+
+
+@phase("25 the slabs of K11 (phase 44's worlds): the (ray, row) partials and the adjoint vs "
+       "plain")
+def phase_los_slabs(slabs):
+    """Each slab's forward under `deterministic_reductions` (its virtual-ray
+    tables, the (ray, row) partials) and its adjoint (the slab table's CSR
+    by cell) on the card against their plain versions (within 1e-12 / 1e-5
+    of the per-output sum of |term|), float64 and float32; float64 device
+    ms of the whole forward (every virtual-ray table, 50 calls in a
+    replayed CUDA graph) and of the adjoint beside the bound (the valid
+    entries' indices and weights, the rays' scales, the touched cells'
+    values or the cotangents, and the output, once each), the plain
+    versions and ``torch.sparse.mm`` of the CSR and its transpose (CUDA
+    events around 5 calls).  Returns the numbers by (grid, rows)."""
+    from nifty_tpu_torch.ops import los_interp as li
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    out = {}
+    for (grid, rows), by_dtype in slabs.items():
+        for dtype, slab in by_dtype.items():
+            f = torch.randn((1, slab.ncells), dtype=dtype, device=dev, generator=gen)
+            ybar = torch.randn((1, slab.nrays), dtype=dtype, device=dev, generator=gen)
+            got = li.slab_row_partials(f, slab), li.los_integrate_adjoint(ybar, slab.table)
+            want = li.slab_forward_plain(f, slab, True), li.slab_adjoint_plain(ybar, slab)
+            scales = (li.slab_row_partials(f.abs(), slab,
+                                           lambda x, t: li.sum_abs_terms(t, f=x)),
+                      li.sum_abs_terms(slab.table, ybar=ybar))
+            tiny = torch.finfo(dtype).tiny
+            rels = [float(((g - w).abs() / sc.clamp_min(tiny)).max())
+                    for g, w, sc in zip(got, want, scales)]
+            again = li.slab_row_partials(f, slab)
+            if max(rels) > LOS_RTOL[dtype] or not torch.equal(got[0], again):
+                raise AssertionError(f"the slab route of K11 is off its plain versions by {rels} "
+                                     f"of the per-output sum of |term|, or does not repeat "
+                                     f"({grid}, rows {rows}, {dtype})")
+            if dtype != torch.float64:
+                continue
+            lib_fwd, lib_adj = slab_library_routes(slab, f, ybar)
+            for g, w, sc in zip((lib_fwd(), lib_adj()), want, scales):
+                if float(((g - w).abs() / sc.clamp_min(tiny)).max()) > 1e-10:
+                    raise AssertionError(f"a library route disagrees with the plain version "
+                                         f"({grid}, rows {rows})")
+            t = slab.table
+            size = f.element_size()
+            tables = t.n_valid * (4 + size) + t.nrays * size
+            r = dict(rel=rels, n_virtual=slab.n_virtual, widths=slab.widths,
+                     forward_err=float((got[0] - want[0]).abs().max()),
+                     adjoint_err=float((got[1] - want[1]).abs().max()),
+                     forward_ms=device_ms(lambda: li.slab_row_partials(f, slab)),
+                     adjoint_ms=device_ms(lambda: li.los_integrate_adjoint(ybar, slab.table)),
+                     forward_plain_ms=cuda_ms(lambda: li.slab_forward_plain(f, slab, True), n=5),
+                     adjoint_plain_ms=cuda_ms(lambda: li.slab_adjoint_plain(ybar, slab), n=5),
+                     forward_library_ms=cuda_ms(lib_fwd, n=5),
+                     adjoint_library_ms=cuda_ms(lib_adj, n=5),
+                     forward_bound_ms=1e3 * (tables + (t.n_touched + (rows[1] - rows[0])
+                                                       * t.nrays) * size) / PEAK_BYTES_PER_S,
+                     adjoint_bound_ms=1e3 * (tables + (t.nrays + t.ncells) * size)
+                     / PEAK_BYTES_PER_S)
+            out[grid, rows] = r
+            print(f"{grid} slab rows {rows[0]}-{rows[1] - 1}: {t.nrays} rays ({t.n_valid} entries "
+                  f"in the slab, {t.n_touched} cells touched), {slab.n_virtual} virtual rays "
+                  f"(ray, row) in tables of widths {slab.widths} "
+                  f"({[b.nrays for b in slab.buckets]} rays) | float64 ms: forward (every "
+                  f"virtual-ray table, the partials placed) {r['forward_ms']:.5f} (bound "
+                  f"{r['forward_bound_ms']:.5f}; plain {r['forward_plain_ms']:.4f}, "
+                  f"torch.sparse.mm {r['forward_library_ms']:.4f}) | adjoint "
+                  f"{r['adjoint_ms']:.5f} (bound {r['adjoint_bound_ms']:.5f}; plain "
+                  f"{r['adjoint_plain_ms']:.4f}, torch.sparse.mm of the transpose "
+                  f"{r['adjoint_library_ms']:.4f}) | rel err of sum|term| f64 {rels[0]:.2e} / "
+                  f"{rels[1]:.2e}", flush=True)
+    return out
+
+
+def grid_text(dims):
+    """`256^3` for a cube, `128x256x256` otherwise."""
+    dims = tuple(dims)
+    return f"{dims[0]}^{len(dims)}" if len(set(dims)) == 1 else "x".join(map(str, dims))
+
+
 def los_kernel_entries(kres, runs):
     """The `kernels` line's entries of K11 and its adjoint: one for each
     direction, table and number of rows that the runs ({run: K11 counts})
@@ -2689,7 +2919,7 @@ def los_kernel_entries(kres, runs):
             r = kres[shape]
             (dims, nrays, nent), nrows = shape
             entries.append(dict(
-                name=f"{name} (K11, {dims[0]}^{len(dims)} x {nrays} rays x {nent} entries "
+                name=f"{name} (K11, {grid_text(dims)} x {nrays} rays x {nent} entries "
                      f"B={nrows}, float64)",
                 route="cuda", source="nifty_tpu_torch/csrc/los_interp.cu",
                 replaces="nifty_tpu/responses/los.py:39 (XLA in the JAX package, not Pallas)",
@@ -2764,26 +2994,19 @@ def phase_demo1(jt, lh, cf):
 def phase_tomography_256(jt, lh, cf, with_profile):
     """`main_at_scale()` at its full width: `OptimizeVI` with the sample loop
     for both stages, 2 samples, `nonlinear_resample` at the demo's budgets
-    (draw CG 40; geoVI 3 x CG 15, `xtol` 1e-3; KL 6 x CG 20, `xtol` 1e-4),
-    from 0.1 times a latent draw, 3 updates.  Prints each iteration's
-    seconds, samples/s, KL energy, reduced chi^2 and peak device memory.
-    The check: every latent finite and the reduced chi^2 in [0.5, 3]; fails
-    unless all four kernels launched."""
+    (`TOMO256_KWARGS`), from 0.1 times a latent draw, 3 updates.  Prints
+    each iteration's seconds, samples/s, KL energy, reduced chi^2 and peak
+    device memory.  The check: every latent finite and the reduced chi^2
+    in [0.5, 3]; fails unless all four kernels launched.  Returns the
+    counts and the first update's KL energy (phase 44's yardstick)."""
     from nifty_tpu_torch.ops import bin_gather as bg
 
     opt = jt.OptimizeVI(lh, n_total_iterations=3, residual_map="smap", kl_map="smap")
-    k_state, k_pos = jt.HostKey(DEMO1_SEED + 1).split(2)
-    state = opt.init_state(
-        k_state, n_samples=2, draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=40)),
-        nonlinearly_update_kwargs=dict(minimize_kwargs=dict(
-            xtol=1e-3, maxiter=3, cg_kwargs=dict(maxiter=15))),
-        kl_kwargs=dict(minimize_kwargs=dict(xtol=1e-4, maxiter=6, cg_kwargs=dict(maxiter=20))),
-        sample_mode="nonlinear_resample")
-    samples = jt.Samples(pos={k: 0.1 * v for k, v in jt.random_like(k_pos, lh.domain).items()},
-                         samples=None, keys=None)
+    state, pos = tomography_256_start(jt, opt, lh)
+    samples = jt.Samples(pos=pos, samples=None, keys=None)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    seconds = []
+    seconds, energies = [], []
     for i in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2791,6 +3014,7 @@ def phase_tomography_256(jt, lh, cf, with_profile):
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         chi2 = reduced_chi2(lh, samples)
+        energies.append(float(state.minimization_state.fun))
         print(f"256^3 iteration {i + 1}: {seconds[-1]:.3f} s | geoVI samples/s "
               f"{2 * 2 / seconds[-1]:.4f} | KL energy {float(state.minimization_state.fun)!r} | "
               f"reduced chi^2 {chi2:.4f} | peak mem "
@@ -2807,7 +3031,16 @@ def phase_tomography_256(jt, lh, cf, with_profile):
     require_launches("256^3", counts, (cf.dist,))
     if with_profile:
         profile_window("256^3 tomography", lambda: kl_text(opt.update(samples, state)))
-    return counts, k11
+    return counts, k11, energies[0]
+
+
+def tomography_256_start(jt, opt, lh):
+    """Phase 27's state (`TOMO256_KWARGS`) and start (0.1 times a latent
+    draw), both from `DEMO1_SEED + 1` on the host: the start of phase 44's
+    worlds too."""
+    k_state, k_pos = jt.HostKey(DEMO1_SEED + 1).split(2)
+    state = opt.init_state(k_state, **TOMO256_KWARGS)
+    return state, {k: 0.1 * v for k, v in jt.random_like(k_pos, lh.domain).items()}
 
 
 @phase("28 the NUTS cross-check of tests/test_tomography_3d.py: 16^3, geoVI then NUTS")
@@ -4029,6 +4262,18 @@ CKPT_KWARGS = dict(
 )
 
 
+#: phase 45's budgets: `BENCH_KWARGS`' 4 pairs (a key for each rank of 4 x
+#: 1) at shorter fixed trips (draw CG 20, geoVI 2 x CG 10, KL 3 x CG 15).
+#: Under `deterministic_reductions` every solver runs all its trips, and
+#: the 1 x 1 world runs the 8 samples in turn: at `BENCH_KWARGS` the two
+#: worlds took more of the script's time limit than the other phases leave
+MESH_ICR_KWARGS = dict(
+    BENCH_KWARGS, draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=20)),
+    nonlinearly_update_kwargs=dict(minimize_kwargs=dict(
+        xtol=1e-3, maxiter=2, cg_kwargs=dict(maxiter=10))),
+    kl_kwargs=dict(minimize_kwargs=dict(xtol=1e-4, maxiter=3, cg_kwargs=dict(maxiter=15))))
+
+
 def digest_tree(tree):
     """:func:`digest` of a tree's leaves, raveled and joined in flatten
     order."""
@@ -4142,7 +4387,39 @@ def mesh_kernels(jt, samples, field):
         scale = bg.bin_segment_sum_plain(cot.abs(), dist.perm, dist.offsets).clamp_min(1e-300)
         out[name] = float(((got - plain).abs() / scale).max())
     out["map"] = (slab.shape, nb, rowbin.nb)
+    out.update(mesh_los_slab(jt, mesh))
     return out
+
+
+def mesh_los_slab(jt, mesh):
+    """Phase 37's check of K11's slab route: phase 44's 256^3 rays on this
+    rank's rows of a field drawn whole from a seed; the ray values by
+    `integrate_slab` (the kernels, the (ray, row) partials gathered over
+    the field group and folded) against the whole grid's plain forward,
+    and the slab adjoint (the kernel) against the plain adjoint's rows,
+    within 1e-12 of the per-output sum of |term|."""
+    from nifty_tpu_torch.ops import los_interp as li
+
+    dev = jt.config.default_device()
+    los = tomography_rays(jt, **TOMO256_RAYS)
+    p, i = mesh.size(mesh.field_axis), mesh.index(mesh.field_axis)
+    n0 = TOMO256_RAYS["dims"][0]
+    slab = los.slab_tables((i * n0 // p, (i + 1) * n0 // p), torch.float64)
+    whole = los.table(torch.float64)
+    gen = torch.Generator(device=dev).manual_seed(44)
+    f = torch.randn((1,) + TOMO256_RAYS["dims"], dtype=torch.float64, device=dev, generator=gen)
+    ybar = torch.randn((1, whole.nrays), dtype=torch.float64, device=dev, generator=gen)
+    local = mesh.own_rows(f, dim=1)
+    got = li.integrate_slab(local, slab, mesh.group(mesh.field_axis), True)
+    flat = f.reshape(1, -1)
+    fwd_rel = float(((got - li.los_integrate_plain(flat, whole)).abs()
+                     / li.sum_abs_terms(whole, f=flat).clamp_min(1e-300)).max())
+    adj = li.los_integrate_adjoint(ybar, slab.table).reshape(local.shape)
+    want = mesh.own_rows(li.los_integrate_adjoint_plain(ybar, whole).reshape(f.shape), dim=1)
+    scale = mesh.own_rows(li.sum_abs_terms(whole, ybar=ybar).reshape(f.shape), dim=1)
+    adj_rel = float(((adj - want).abs() / scale.clamp_min(1e-300)).max())
+    return {"K11 slab forward": fwd_rel, "K11 slab adjoint": adj_rel,
+            "K11 slab rows": slab.rows}
 
 
 def mesh_pairwise(jt, samples):
@@ -4345,6 +4622,108 @@ def mesh_update_4096(jt, samples, field, data_file, out_dir, tag):
                 digest=digest_tree((whole.pos, whole._samples)), noise_draw_s=draw_s)
 
 
+def mesh_tomography_256(jt, samples, field, data_file, noise_std, out_dir, tag):
+    """Phase 44: phase 27's 256^3 model (its data, read from `data_file`,
+    and its noise) at full width, field- and sample-sharded, under
+    `deterministic_reductions`: one update from phase 27's state and start
+    (`TOMO256_KWARGS`, the sample loop); s/update, peak memory, the
+    collectives of the update by kind and bytes, K11's launches by (table,
+    rows) and the distributor's by map, whether this rank's latents are
+    finite, the whole samples' digest (saved as `out_dir/<tag>_*.npy` by
+    rank 0)."""
+    from nifty_tpu_torch.ops import bin_gather as bg
+    from nifty_tpu_torch.ops import los_interp as li
+    from nifty_tpu_torch.ops.distributed_fft import distributed_hartley
+    from nifty_tpu_torch.parallel import collectives as coll
+    from nifty_tpu_torch.parallel import gather_samples, make_mesh, shard_position
+    from nifty_tpu_torch.tree import tree_leaves
+
+    jt.config.update("deterministic_reductions", True)
+    mesh = make_mesh(samples, field)
+    dev = jt.config.default_device()
+    fwd, cf, los = tomography_model(
+        jt, **TOMO256_RAYS, n_bins=128,
+        hartley_fn=lambda x, axes=None: distributed_hartley(x, mesh, axes=axes))
+    data = torch.from_numpy(np.load(data_file)).to(dev)
+    lh = shard_position(jt.Gaussian(data, noise_cov_inv=lambda x: x / noise_std ** 2).amend(fwd),
+                        mesh)
+    opt = jt.OptimizeVI(lh, n_total_iterations=3, residual_map="smap", kl_map="smap")
+    state, pos = tomography_256_start(jt, opt, lh)
+    pos = shard_position(pos, mesh)
+    slab_maps = (cf.dists[0].shape, cf.dists[0].nb, cf.rowbins[0].nb)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bg.reset_launch_counts()
+    li.reset_launch_counts()
+    coll.reset_counts()
+    mesh.stats.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    smp, state = opt.update(jt.Samples(pos=pos), state)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts, k11 = launch_counts(bg), los_counts()
+    colls, nbytes, stats = dict(coll.COUNTS), dict(coll.BYTES), dict(mesh.stats)
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in tree_leaves(smp.pos) + tree_leaves(smp._samples))
+    whole = gather_samples(smp, mesh)
+    if mesh.is_root:
+        for name, tree in (("pos", whole.pos), ("samples", whole._samples)):
+            for k, v in tree.items():
+                np.save(os.path.join(out_dir, f"{tag}_{name}_{k}.npy"), v.cpu().numpy())
+    slab = los.slab(torch.float64)
+    return dict(seconds_update=secs, energy=float(state.minimization_state.fun),
+                newton=int(state.minimization_state.nit), peak_gib=peak, counts=counts,
+                k11=k11, collectives=colls, collective_bytes=nbytes, stats=stats, finite=finite,
+                digest=digest_tree((whole.pos, whole._samples)), slab_maps=slab_maps,
+                rows=slab.rows, widths=slab.widths, n_virtual=slab.n_virtual)
+
+
+def mesh_icr_4100(jt, samples, tag):
+    """Phase 45: phase 19's 4100^2 chart, data and start (key 7, position
+    1) with the samples over a `samples` x 1 mesh under
+    `deterministic_reductions`, the maps left at "auto" (the sample loop
+    there): one update at `MESH_ICR_KWARGS`; s/update, peak memory, K9's
+    launches by (level,
+    rows) on this rank (fails unless both K9 kernels launched at every
+    level), the collectives, the whole samples' digest."""
+    from nifty_tpu_torch.ops import icr_refine as ir
+    from nifty_tpu_torch.parallel import collectives as coll
+    from nifty_tpu_torch.parallel import gather_samples, make_mesh, shard_position
+
+    jt.config.update("deterministic_reductions", True)
+    mesh = make_mesh(samples, 1)
+    t0 = time.perf_counter()
+    gp = jt.RefinementField(chart_4100(jt), matern32())
+    _, response = masked_signal(jt, gp, int(np.prod(gp.chart.shape)), DEMO9_MASK_SEED)
+    lh, _ = icr_gaussian(jt, response, jt.HostKey(19), 19, DEMO9_NOISE)
+    lh = shard_position(lh, mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    opt, smp, state = start(jt, lh, MESH_ICR_KWARGS)
+    smp = jt.Samples(pos=shard_position(smp.pos, mesh))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ir.reset_launch_counts()
+    coll.reset_counts()
+    mesh.stats.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    smp, state = opt.update(smp, state)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = icr_counts()
+    require_icr_launches(f"45 {tag}", counts, gp)
+    whole = gather_samples(smp, mesh)
+    return dict(seconds_update=secs, build_s=build_s, energy=float(state.minimization_state.fun),
+                peak_gib=peak, counts=counts, collectives=dict(coll.COUNTS),
+                stats=dict(mesh.stats), auto_maps=(opt.lockstep, opt.kl_map),
+                levels=[lv.key for lv in gp.levels],
+                digest=digest_tree((whole.pos, whole._samples)))
+
+
 def nccl_mesh_shape():
     """The NCCL world's mesh: every card a rank, field-sharded over two
     cards or fewer, else two samples ranks times the rest."""
@@ -4352,9 +4731,11 @@ def nccl_mesh_shape():
     return (1, n) if n <= 2 else (2, n // 2)
 
 
-def mesh_world_cases(ckpt_dir, data_file, out_dir, world):
+def mesh_world_cases(ckpt_dir, data_file, out_dir, world, tomo):
     """The cases of the 4-rank gloo world on one card (``world="gloo"``) or
-    of the NCCL world over every card (``"nccl"``, one rank a card)."""
+    of the NCCL world over every card (``"nccl"``, one rank a card);
+    `tomo`: phase 44's data file and noise."""
+    data_256, noise_256 = tomo
     if world == "gloo":
         return [
             ("37 transforms", "mesh_transforms", dict(samples=2, field=2)),
@@ -4368,6 +4749,10 @@ def mesh_world_cases(ckpt_dir, data_file, out_dir, world):
                   odir=os.path.join(ckpt_dir, "resume_4x1"))),
             ("39 update", "mesh_update_4096", dict(samples=2, field=2, data_file=data_file,
                                                    out_dir=out_dir, tag="2x2")),
+            ("44 tomography", "mesh_tomography_256",
+             dict(samples=2, field=2, data_file=data_256, noise_std=noise_256, out_dir=out_dir,
+                  tag="tomo_2x2")),
+            ("45 icr", "mesh_icr_4100", dict(samples=4, tag="4x1")),
         ]
     samples, field = nccl_mesh_shape()
     return [
@@ -4378,18 +4763,23 @@ def mesh_world_cases(ckpt_dir, data_file, out_dir, world):
               odir=os.path.join(ckpt_dir, "resume_nccl"))),
         ("39 update", "mesh_update_4096", dict(samples=samples, field=field, data_file=data_file,
                                                out_dir=out_dir, tag="nccl")),
+        ("44 tomography", "mesh_tomography_256",
+         dict(samples=samples, field=field, data_file=data_256, noise_std=noise_256,
+              out_dir=out_dir, tag="tomo_nccl")),
+        ("45 icr", "mesh_icr_4100", dict(samples=samples * field, tag="nccl")),
     ]
 
 
-def mesh_maps(jt, cf4096):
+def mesh_maps(jt, cf4096, cf256):
     """The maps the mesh phases launch the distributor on (this rank's rows
-    of the full-grid map, the whole map, and their (row, bin) maps), as
-    phase 3 holds them; a field rank other than the first has maps of the
-    same shapes."""
+    of the full-grid map, the whole map, and their (row, bin) maps: phase
+    6's 4096^2 field, demo 4's and phase 27's 256^3 one), as phase 3 holds
+    them; a field rank other than the first has maps of the same shapes."""
     from nifty_tpu_torch.ops import bin_gather as bg
 
     out = {}
-    for label, field in (("4096^2 nb128", cf4096), ("64 x 32", demo4_field(jt, None))):
+    for label, field in (("4096^2 nb128", cf4096), ("64 x 32", demo4_field(jt, None)),
+                         ("256^3 nb128", cf256)):
         hg = field.target_grids[0].harmonic_grid
         full, nb = np.asarray(hg.power_distributor), field.dists[0].nb
         half = full[:full.shape[0] // 2]
@@ -4399,14 +4789,16 @@ def mesh_maps(jt, cf4096):
     return out
 
 
-#: rows the mesh phases give each map (see `mesh_world_cases`): phases 39
-#: and 40's sample loops one; phase 38's lockstep draw of a key a rank one,
-#: its stacked KL metric two (four and eight held too)
+#: rows the mesh phases give each map (see `mesh_world_cases`): phases 39,
+#: 40 and 44's sample loops one; phase 38's lockstep draw of a key a rank
+#: one, its stacked KL metric two (four and eight held too)
 MESH_MAP_ROWS = {
     "4096^2 nb128 full": (1,), "4096^2 nb128 slab": (1,),
     "4096^2 nb128 full rows x bins": (1,), "4096^2 nb128 slab rows x bins": (1,),
     "64 x 32 full": (1, 2, 4, 8), "64 x 32 full rows x bins": (1, 2, 4, 8),
     "64 x 32 slab": (1, 2, 4, 8), "64 x 32 slab rows x bins": (1, 2, 4, 8),
+    "256^3 nb128 full": (1,), "256^3 nb128 slab": (1,),
+    "256^3 nb128 full rows x bins": (1,), "256^3 nb128 slab rows x bins": (1,),
 }
 
 
@@ -4422,10 +4814,11 @@ def _same_samples(out_dir, a, b):
     return worst
 
 
-def phase_mesh(jt, tmp, data_file, phase6_energy, smi_line):
-    """Phases 37-40 (see the module docstring): the 4-rank gloo world on
-    card 0, then the NCCL world over every card; returns the kernels'
-    counts of each run."""
+def phase_mesh(jt, tmp, data_file, phase6_energy, smi_line, tomo):
+    """Phases 37-40, 44 and 45 (see the module docstring): the 4-rank gloo
+    world on card 0, then the NCCL world over every card; returns the
+    kernels' counts of each run.  `tomo`: phase 44's data file and noise,
+    and phase 27's first KL energy."""
     from nifty_tpu_torch.parallel import run_world
 
     ckpt, out = os.path.join(tmp, "ckpt"), os.path.join(tmp, "out")
@@ -4436,7 +4829,8 @@ def phase_mesh(jt, tmp, data_file, phase6_energy, smi_line):
     worlds = {}
     for world, n, backend in (("gloo", 4, "gloo"), ("nccl", n_cards, "nccl")):
         t0 = time.perf_counter()
-        ranks = run_world(mesh_rank, n, args=(mesh_world_cases(ckpt, data_file, out, world),),
+        ranks = run_world(mesh_rank, n, args=(mesh_world_cases(ckpt, data_file, out, world,
+                                                                tomo[:2]),),
                           backend=backend, device="cuda", timeout=420, collective_timeout=300)
         worlds[world] = ranks
         print(f"mesh world {world}: {n} ranks ({'sharing card 0, collectives through its memory '
@@ -4465,6 +4859,13 @@ def phase_mesh(jt, tmp, data_file, phase6_energy, smi_line):
     if not all(k["gather"] for k in kern) or max(
             max(k["segment sum"], k["rows x bins segment sum"]) for k in kern) > 1e-12:
         raise AssertionError(f"37: a distributor kernel disagrees on a rank's map: {kern}")
+    print(f"37 K11's slab route on each rank's rows {[k['K11 slab rows'] for k in kern]} of the "
+          f"256^3 grid (phase 44's rays): the ray values gathered from the (ray, row) partials "
+          f"and the slab adjoint against the whole grid's plain versions, error of sum|term| "
+          f"{[(k['K11 slab forward'], k['K11 slab adjoint']) for k in kern]}", flush=True)
+    if max(max(k["K11 slab forward"], k["K11 slab adjoint"]) for k in kern) > LOS_RTOL[
+            torch.float64]:
+        raise AssertionError(f"37: K11's slab route disagrees with the whole grid's: {kern}")
     digests = {f"{n} ranks": g[f"37 pairwise {n}"]["digest"] for n in (4, 2)}
     digests.update({"1 rank": g["37 pairwise 4"]["one"], nccl: nc["37 pairwise 1"]["digest"]})
     print(f"37 pairwise_mean of 8 rows over 1, 2 and 4 ranks: {digests} | "
@@ -4537,9 +4938,95 @@ def phase_mesh(jt, tmp, data_file, phase6_energy, smi_line):
           f"{seconds['gloo']['40 resume 4x1']} s (gloo), {seconds['nccl']['40 resume']} s "
           f"({nccl})",
           flush=True)
+    mesh_tomography_report(worlds, nccl, tomo[2], seconds, smi_line)
+    mesh_icr_report(worlds, nccl, seconds, smi_line)
     return {"demo4": d4["counts"], "mesh_4096_2x2": g["39 update"]["counts"],
+            **{f"tomography_2x2_rank{r}": worlds["gloo"][r]["44 tomography"]["counts"]
+               for r in range(4)},
+            "tomography_nccl": nc["44 tomography"]["counts"],
+            **{f"k11_tomography_2x2_rank{r}": worlds["gloo"][r]["44 tomography"]["k11"]
+               for r in range(4)},
+            "k11_tomography_nccl": nc["44 tomography"]["k11"],
+            "icr_4x1": g["45 icr"]["counts"], "icr_nccl": nc["45 icr"]["counts"],
             "mesh_4096_nccl": nc["39 update"]["counts"], "checkpoint_2x2": w40["counts"],
             "checkpoint_4x1": r4["counts"], "checkpoint_nccl": rn["counts"]}
+
+
+def mesh_tomography_report(worlds, nccl, e27, seconds, smi_line):
+    """Phase 44's lines and gates: every rank's latents finite, both worlds
+    bitwise equal (the whole samples' digest and the KL energy), and on
+    every rank K11 launched on its slab tables (both directions) and both
+    distributor kernels on its slab's maps."""
+    for w, label in (("gloo", "gloo 2 x 2"), ("nccl", nccl)):
+        ranks = [r["44 tomography"] for r in worlds[w]]
+        r = ranks[0]
+        print(f"44 {label}: s/update {r['seconds_update']:.3f}"
+              + (" (four ranks share one card: not a scaling figure)" if w == "gloo" else "")
+              + f" | KL energy {r['energy']!r} ({(r['energy'] - e27) / e27:+.3e} from phase 27's "
+              f"first update without a mesh, {e27!r}: fixed-trip solvers and fixed-order sums; "
+              f"reported, not gated) | Newton steps {r['newton']} | peak GiB per rank "
+              f"{[round(x['peak_gib'], 3) for x in ranks]} | collectives a rank: "
+              f"{r['collectives']} bytes of their inputs {r['collective_bytes']} | sample "
+              f"reductions {r['stats']} | slab rows per rank {[x['rows'] for x in ranks]}, "
+              f"{r['n_virtual']} virtual rays in widths {r['widths']} | {smi_line}", flush=True)
+        for i, x in enumerate(ranks):
+            print(f"44 {label} rank {i}: K11 launches by (table, rows): {los_text(x['k11'])} | "
+                  f"distributor launches by map (slab {x['slab_maps']}): "
+                  f"{maps_text(x['counts'])}", flush=True)
+            if not x["finite"]:
+                raise AssertionError(f"44 {label}: a latent of rank {i} is not finite")
+            # the gather on the slab's rows of the map, the segment sum on
+            # their (row, bin) map (`deterministic_reductions`); K11 on the
+            # slab's tables in both directions
+            shape, nb, nb_rows = x["slab_maps"]
+            for kind, bins in (("gather", nb), ("segsum", nb_rows)):
+                if sum(c for (shape_, nb_, _), c in x["counts"][f"{kind}_by_map"].items()
+                       if (shape_, nb_) == (shape, bins)) <= 0:
+                    raise AssertionError(f"44 {label} rank {i}: {kind} never launched on the "
+                                         f"slab's map {shape}, {bins} bins: {x['counts']}")
+            for kind, c in x["k11"].items():
+                if sum(n for ((shape_, _, _), _), n in c.items() if shape_ == shape) <= 0:
+                    raise AssertionError(f"44 {label} rank {i}: K11 {kind} never launched on the "
+                                         f"slab's tables {shape}: {x['k11']}")
+    g, nc = worlds["gloo"][0]["44 tomography"], worlds["nccl"][0]["44 tomography"]
+    bitwise = g["digest"] == nc["digest"] and g["energy"] == nc["energy"]
+    print(f"44 gloo 2 x 2 against {nccl}: samples' digest {g['digest']} / {nc['digest']}, KL "
+          f"energy {g['energy']!r} / {nc['energy']!r}: bitwise {bitwise}", flush=True)
+    if not bitwise:
+        raise AssertionError(f"44: the gloo 2 x 2 world and the {nccl} world differ")
+    print(f"[phase] 44 256^3 tomography geoVI update, field- and sample-sharded: "
+          f"{seconds['gloo']['44 tomography']} s (gloo 2 x 2), "
+          f"{seconds['nccl']['44 tomography']} s ({nccl})", flush=True)
+
+
+def mesh_icr_report(worlds, nccl, seconds, smi_line):
+    """Phase 45's lines and gates: 'auto' looped over samples, and the two
+    worlds bitwise equal (each rank failed already unless K9 launched at
+    every level)."""
+    for w, label in (("gloo", "gloo 4 x 1"), ("nccl", nccl)):
+        ranks = [r["45 icr"] for r in worlds[w]]
+        r = ranks[0]
+        print(f"45 {label}: field built in {[round(x['build_s'], 3) for x in ranks]} s | s/update "
+              f"{r['seconds_update']:.3f} | KL energy {r['energy']!r} | peak GiB per rank "
+              f"{[round(x['peak_gib'], 3) for x in ranks]} | 'auto' lockstep, kl_map "
+              f"{r['auto_maps']} | collectives a rank {r['collectives']} | sample reductions "
+              f"{r['stats']} | {smi_line}", flush=True)
+        for i, x in enumerate(ranks):
+            print(f"45 {label} rank {i}: K9 launches by (level, rows): "
+                  + "; ".join(f"{kind} " + ", ".join(f"{key[0]} B={b}: {n}"
+                                                     for (key, b), n in sorted(c.items()))
+                              for kind, c in x["counts"].items()), flush=True)
+            if x["auto_maps"] != (False, "smap"):
+                raise AssertionError(f"45 {label}: 'auto' must loop over samples on the card "
+                                     "under deterministic_reductions with a mesh")
+    g, nc = worlds["gloo"][0]["45 icr"], worlds["nccl"][0]["45 icr"]
+    bitwise = g["digest"] == nc["digest"] and g["energy"] == nc["energy"]
+    print(f"45 gloo 4 x 1 against {nccl}: samples' digest {g['digest']} / {nc['digest']}, KL "
+          f"energy {g['energy']!r} / {nc['energy']!r}: bitwise {bitwise}", flush=True)
+    if not bitwise:
+        raise AssertionError(f"45: the gloo 4 x 1 world and the {nccl} world differ")
+    print(f"[phase] 45 4100^2 ICR geoVI update, sample-sharded: {seconds['gloo']['45 icr']} s "
+          f"(gloo 4 x 1), {seconds['nccl']['45 icr']} s ({nccl})", flush=True)
 
 
 def profile_update(jt, label, lh, top=12, **maps):
@@ -4669,10 +5156,11 @@ def main(argv):
     # phases 26-28's tomography models (their ray tables and data): demo 1's
     # 64^3 (unbinned full-grid map), its 256^3 at scale (n_bins=128: the
     # 129^3 quarter map) and the NUTS cross-check's 16^3
-    lh64, cf64, los64 = build_tomography(jt, (64,) * 3, 128, 128, 5, DEMO1_SEED, flexible=False)
-    lh256, cf256, los256 = build_tomography(jt, (256,) * 3, 1024, 256, 5, DEMO1_SEED,
-                                            n_bins=128)
-    lh16, cf16, los16 = build_tomography(jt, (16,) * 3, 48, 64, NUTS_SEED, NUTS_SEED + 1)
+    lh64, cf64, los64, _ = build_tomography(jt, (64,) * 3, 128, 128, 5, DEMO1_SEED,
+                                            flexible=False)
+    lh256, cf256, los256, noise256 = build_tomography(jt, key=DEMO1_SEED, n_bins=128,
+                                                      **TOMO256_RAYS)
+    lh16, cf16, los16, _ = build_tomography(jt, (16,) * 3, 48, 64, NUTS_SEED, NUTS_SEED + 1)
     # phase 32's map: demo 11's 64^2 fields (both models share it)
     map64sq = demo11_field(jt, True, "true").dist
     # phase 41's map: demo 7's 64^2 field, checked in phase 3 on its own
@@ -4681,7 +5169,7 @@ def main(argv):
     same7 = (map7.shape, map7.nb) == (map64sq.shape, map64sq.nb)
     # phases 37-40's maps: a field rank's rows of phase 6's full-grid map and
     # of demo 4's, the whole maps, and their (row, bin) maps
-    mmaps = mesh_maps(jt, cf4096)
+    mmaps = mesh_maps(jt, cf4096, cf256)
     print(f"field set-up (host mode maps, CSR) {time.perf_counter() - t0:.3f} s, of which 4096^2 "
           f"unbinned {t2 - t1:.3f} s, 512^2 x 64 {t3 - t2:.3f} s, the HEALPix sky (nside "
           f"{sky_sht.nside}, {sky_sht.nrings} rings, Legendre table "
@@ -4740,8 +5228,8 @@ def main(argv):
         # lockstep draw of 1 and 2 keys and the KL stage of 2 and 4 samples
         **({} if same7 else {f"64^2 demo 7 B={rows}": (map7, rows) for rows in (1, 2, 4)}),
         # the mesh phases' maps at the rows they give them (MESH_MAP_ROWS),
-        # float64, 10 calls a timing
-        **{f"{label} B={rows}": (mmaps[label], rows, 10)
+        # float64, 10 calls a timing (256^3's 3)
+        **{f"{label} B={rows}": (mmaps[label], rows, 3 if label.startswith("256^3") else 10)
            for label, all_rows in MESH_MAP_ROWS.items() for rows in all_rows},
     })
 
@@ -4868,13 +5356,22 @@ def main(argv):
     # line-of-sight tomography: K11 at every (table, rows) shape phases 26-28
     # launch (the lockstep stages give 1, 4 and 8 rows; the sample loop and
     # the chain one), then the three cells
+    # and the slab tables of phase 44's worlds (rows 0-127 and 128-255 of
+    # a field rank of 2 x 2, the whole grid of 1 x 1) and of a 16^3 slab
+    slabs = los_slabs({"256^3": los256, "16^3": los16})
     kres_los = phase_los_kernels({
         **{f"{n}^3 x {los.target.shape[0]} rays B={rows}": (los, rows)
            for n, los in ((16, los16), (64, los64)) for rows in (1, 4, 8)},
-        "256^3 x 1024 rays B=1": (los256, 1)})
+        "256^3 x 1024 rays B=1": (los256, 1), **slab_cases(slabs)})
+    phase_los_slabs(slabs)
+    del slabs
+    torch.cuda.empty_cache()
     c_demo1, k11_demo1 = phase_demo1(jt, lh64, cf64)
     del lh64, los64
-    c_256, k11_256 = phase_tomography_256(jt, lh256, cf256, with_profile)
+    c_256, k11_256, e256 = phase_tomography_256(jt, lh256, cf256, with_profile)
+    # phase 44's data: phase 27's, read by the ranks of its worlds
+    data_256 = os.path.join(mesh_tmp, "data_256.npy")
+    np.save(data_256, lh256.likelihood.data.cpu().numpy())
     del lh256, los256
     torch.cuda.empty_cache()
     (c_geo16, k11_geo16), (c_nuts, k11_nuts) = phase_nuts(jt, lh16, cf16)
@@ -4916,7 +5413,7 @@ def main(argv):
     # mesh parallelism: a 4-rank gloo world on card 0, then an NCCL world
     # over every card
     try:
-        c_mesh = phase_mesh(jt, mesh_tmp, data_4096, e4096, smi_line)
+        c_mesh = phase_mesh(jt, mesh_tmp, data_4096, e4096, smi_line, (data_256, noise256, e256))
     finally:
         shutil.rmtree(mesh_tmp, ignore_errors=True)
 
@@ -4972,9 +5469,19 @@ def main(argv):
          {"checkpoint_4x1": c_mesh["checkpoint_4x1"], "checkpoint_nccl": c_mesh["checkpoint_nccl"]}),
         ("64 x 32 full rows x bins", mmaps["64 x 32 full rows x bins"], *k3k4,
          {"checkpoint_4x1": c_mesh["checkpoint_4x1"], "checkpoint_nccl": c_mesh["checkpoint_nccl"]}),
+        # phase 44's: the first field rank's slab of 256^3's full-grid map
+        # (a field rank of 2 x 2) and the whole map (1 x 1), and their (row,
+        # bin) maps; launches a rank
+        *[(f"256^3 nb128 {name}", mmaps[f"256^3 nb128 {name}"], *k1k2, runs)
+          for name, runs in (
+              ("slab", {"tomography_2x2": c_mesh["tomography_2x2_rank0"]}),
+              ("slab rows x bins", {"tomography_2x2": c_mesh["tomography_2x2_rank0"]}),
+              ("full", {"tomography_nccl": c_mesh["tomography_nccl"]}),
+              ("full rows x bins", {"tomography_nccl": c_mesh["tomography_nccl"]}))],
     ]
     icr_paths = {"demo9": (icr["demo9"], {"demo9": c_demo9}),
-                 "4100^2": (icr["4100^2"], {"4100^2": c_4100}),
+                 "4100^2": (icr["4100^2"], {"4100^2": c_4100, "icr_4x1": c_mesh["icr_4x1"],
+                                            "icr_nccl": c_mesh["icr_nccl"]}),
                  "sphere nside 256": (sphere, {"sphere": c_sphere}),
                  "sphere x radius": (radial, {"sphere_x_radius": c_radial})}
     # phase 43's float32 runs, on maps of phases 5, 6 and 32
@@ -4988,8 +5495,13 @@ def main(argv):
                       + kernel_entries(kres, paths32, src, "float32")
                       + icr_kernel_entries(kres_icr, icr_paths)
                       + hp_kernel_entries(kres_hp, {"demo16": k10_demo16}, hp_rings, 512, 256)
-                      + los_kernel_entries(kres_los, {"demo1": k11_demo1, "tomography_256": k11_256,
-                                                      "nuts_geovi": k11_geo16, "nuts": k11_nuts})
+                      + los_kernel_entries(kres_los, {
+                          "demo1": k11_demo1, "tomography_256": k11_256, "nuts_geovi": k11_geo16,
+                          "nuts": k11_nuts,
+                          # phase 44: the slabs of the field ranks of 2 x 2 and of 1 x 1
+                          **{f"tomography_2x2_rank{r}": c_mesh[f"k11_tomography_2x2_rank{r}"]
+                             for r in (0, 1)},
+                          "tomography_nccl": c_mesh["k11_tomography_nccl"]})
                       + k7_kernel_entries(kres_k7, fres_k7, {"radio_1024": k7_radio},
                                           {"cpu_vs_card_32": k7_cpu_vs_card})}))
     print(json.dumps({"ok": True, "device": {

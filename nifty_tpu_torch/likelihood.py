@@ -273,17 +273,21 @@ class Likelihood(LazyModel):
     def left_sqrt_metric_tangents_shape(self):
         return self._lsm_tan_shp
 
+    #: :func:`~nifty_tpu_torch.parallel.shard_position` runs this hook
+    #: after the models' (it reads the grids they record)
+    _shard_data_ = True
+
     def _shard_(self, mesh, min_ndim=2):
         """On a field-sharded mesh the data-space white noise is the rank's
-        slab: each leaf of at least ``min_ndim`` dimensions whose first
-        axis divides by the field extent (the rule the data follows) takes
-        the rank's rows."""
+        slab where the data is a field (:meth:`~nifty_tpu_torch.parallel.
+        Mesh.cuts`, the rule the data follows): such a leaf takes the
+        rank's rows."""
         if getattr(self, "_lsm_sharded", False):
             return
         p = mesh.size(mesh.field_axis)
 
         def local(s):
-            if len(s.shape) >= min_ndim and s.shape[0] % p == 0:
+            if mesh.cuts(s.shape, min_ndim):
                 return ShapeWithDtype((s.shape[0] // p,) + tuple(s.shape[1:]), s.dtype)
             return s
 

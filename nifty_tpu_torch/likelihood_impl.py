@@ -45,6 +45,10 @@ class _TreeBuffers(nn.Module):
     def tree(self):
         return tree_unflatten(self._like, list(self.buffers()))
 
+    #: placed after the models (:func:`~nifty_tpu_torch.parallel.
+    #: shard_position`)
+    _shard_data_ = True
+
     def _shard_(self, mesh, min_ndim=2):
         """Keep this rank's slab of each field-sharded leaf on ``mesh``
         (:func:`~nifty_tpu_torch.parallel.mesh.shard_position`)."""

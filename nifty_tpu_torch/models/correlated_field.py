@@ -450,6 +450,7 @@ class CorrelatedField(Model):
         self.use_quarters = (False,)
         self.field_mesh = mesh
         mesh.sharded_latents.add(self.xi_key)
+        mesh.field_grids.add(tuple(full.shape))
 
     def _one(self, what):
         if len(self.dists) != 1:

@@ -124,13 +124,23 @@ def _fft_along(v, axis: int):
     return torch.fft.fft(v.movedim(axis, -1).contiguous(), dim=-1).movedim(-1, axis)
 
 
+def _middle_axes(f, lead: int):
+    """The 1-D FFTs along the axes between the sharded one and the last,
+    each on contiguous rows (:func:`_fft_along`), as the sharded axis's:
+    a 2-D transform of a slab's planes may pick its plan by the number of
+    planes a rank holds."""
+    for ax in range(lead + 1, f.ndim - 1):
+        f = _fft_along(f, ax)
+    return f
+
+
 def _fftn_sharded(x, group, lead: int):
     """Complex n-D FFT of a field sharded along axis ``lead``."""
     x = _complex(x)
     if x.ndim - lead == 1:
         shape = x.shape
         return _four_step_fft1d(x.reshape(-1, shape[-1]), group).reshape(shape)
-    f = torch.fft.fftn(x, dim=tuple(range(lead + 1, x.ndim)))
+    f = _middle_axes(torch.fft.fftn(x, dim=(x.ndim - 1,)), lead)
     return _transpose_fft_axis0(f, group, lead, lambda v: _fft_along(v, lead))
 
 
@@ -143,7 +153,7 @@ def _hartley_sharded(x, group, lead: int):
         f = _four_step_fft1d(x.reshape(-1, shape[-1]), group).reshape(shape)
         return _combine(f.real, f.imag)
     n_last = x.shape[-1]
-    f = torch.fft.rfftn(x, dim=tuple(range(lead + 1, x.ndim)))
+    f = _middle_axes(torch.fft.rfftn(x, dim=(x.ndim - 1,)), lead)
     f = _transpose_fft_axis0(f, group, lead, lambda v: _fft_along(v, lead))
     h_low = _combine(f.real, f.imag)
     # the redundant half, F[k] = conj(F[-k]): the mirrored columns 1 ..

@@ -35,6 +35,20 @@ the kernel route, in total, by rows (``launches_by_rows``) and by (table
 key, rows) (``launches_by_shape``).  :class:`LosIntegrate` and
 :class:`LosIntegrateAdjoint` are the ``torch.autograd.Function`` pair, each
 the other's derivative, with ``setup_context``, ``jvp`` and ``vmap``.
+
+On a mesh whose field axis shards the grid along its first axis, a rank
+holds rows ``[r0, r1)``: :class:`LosSlab` keeps the entries in them
+(:func:`integrate_slab`, with :class:`LosSlabIntegrate` and
+:class:`LosSlabAdjoint`).  The adjoint runs the slab's CSR by cell and needs
+no collective.  The forward's partials cross the field group: under
+``deterministic_reductions`` one for each (ray, row), the *virtual rays*
+of the same kernels, folded over the global rows in halves (so a world
+of p ranks gives the bits of one, the order of ``bin_gather``'s
+``SlabSegmentSum``); otherwise one a ray, all-reduced.  A virtual ray
+holds its entries padded to a power of two rather than to the longest,
+so the tables stay within 1.4 times the valid entries (the 256^3
+tomography's rays cross up to 1024 entries of one row, most far fewer),
+and no new kernel entry is needed: one launch a width.
 """
 
 from __future__ import annotations
@@ -452,9 +466,20 @@ class LosIntegrateAdjoint(torch.autograd.Function):
         return out.reshape(n, nrows, -1), 0
 
 
+def _check_trailing(got, want, what: str, of: str):
+    """Raise unless ``got`` ends in ``want``: a field-sharded field (a rank's
+    slab, or two samples' half slabs) has as many entries as a whole one of
+    other rows, and a reshape would take it for one."""
+    if len(got) < len(want) or tuple(got[len(got) - len(want):]) != tuple(want):
+        raise ValueError(
+            f"{what} of shape {tuple(got)} does not end in the {of} {tuple(want)}; a "
+            "field-sharded field takes a model placed on the mesh (`shard_position`)")
+
+
 def integrate(x, table: LosTable):
     """The ray values of fields ``(..., *table.shape)`` -> ``(..., R)``, NaN
     on the rays with a corner outside the grid."""
+    _check_trailing(x.shape, table.shape, "a field", "table's grid")
     lead = tuple(x.shape[: x.ndim - len(table.shape)])
     y = LosIntegrate.apply(x.reshape(-1, table.ncells).contiguous(), table)
     if table.has_nan:
@@ -465,6 +490,209 @@ def integrate(x, table: LosTable):
 def integrate_adjoint(ybar, table: LosTable):
     """The adjoint of :func:`integrate`'s linear map: ``(..., R)`` ->
     ``(..., *table.shape)``."""
+    _check_trailing(ybar.shape, (table.nrays,), "a cotangent", "table's rays")
     lead = tuple(ybar.shape[:-1])
     g = LosIntegrateAdjoint.apply(ybar.reshape(-1, table.nrays).contiguous(), table)
     return g.reshape(*lead, *table.shape)
+
+
+# -- a rank's slab of a field-sharded grid ----------------------------------
+
+
+class LosSlab(nn.Module):
+    """The ray integral over rows ``[r0, r1)`` of the first axis of a grid
+    (a rank's slab of a field sharded over a mesh's field axis), from the
+    global tables of :func:`los_tables`.
+
+    - ``table``: the rays' entries whose cell lies in the slab, rebased to
+      it, every other entry -1 (a :class:`LosTable` over the slab's shape).
+      Its forward is a ray's partial over the slab; its adjoint's CSR keeps
+      the global (ray, entry) order inside each cell, so a cell's sum has
+      the same bits whatever the slab.
+    - ``buckets``: the slab's *virtual rays*, one for each (ray, row) pair
+      that holds an entry, numbered ``ray · n0 + row`` over the global grid:
+      a virtual ray holds its ray's entries in that row, in entry order,
+      padded with -1 to a power of two ``W``, and the virtual rays of one
+      ``W`` form one table (their ``s_r`` the ray's).  The forward of a
+      virtual ray depends on its entries and ``W`` alone, so each (ray,
+      row) partial has the same bits in every slab that holds the row;
+      ``dests`` place each table's values in the ``(rows, R)`` partials.
+
+    ``nan_offset`` / ``has_nan`` are the global rays' (added once, after
+    the reduction over the slabs)."""
+
+    def __init__(self, idx, w, scale, shape, rows, nan_rays=None):
+        super().__init__()
+        idx = np.asarray(idx)
+        w = np.asarray(w)
+        shape = tuple(int(n) for n in shape)
+        r0, r1 = (int(r) for r in rows)
+        if not 0 <= r0 < r1 <= shape[0]:
+            raise ValueError(f"rows [{r0}, {r1}) are not a slab of the first axis of {shape}")
+        row_cells = int(np.prod(shape[1:], dtype=np.int64))
+        n0 = shape[0]
+        self.rows, self.shape = (r0, r1), (r1 - r0,) + shape[1:]
+        self.nrays = idx.shape[0]
+        lo, hi = r0 * row_cells, r1 * row_cells
+        inside = (idx >= lo) & (idx < hi)
+        self.table = LosTable(np.where(inside, idx - lo, -1), w, scale, self.shape)
+        self.ncells = self.table.ncells
+        nan_rays = np.zeros(self.nrays, bool) if nan_rays is None else np.asarray(nan_rays)
+        self.has_nan = bool(nan_rays.any())
+        self.register_buffer("nan_offset", torch.from_numpy(
+            np.where(nan_rays, np.nan, 0).astype(w.dtype)), persistent=False)
+        # virtual rays: the slab's valid entries by (ray, row), in entry order
+        ray, ent = np.nonzero(inside)
+        cell = idx[ray, ent].astype(np.int64)
+        order = np.argsort(ray.astype(np.int64) * n0 + cell // row_cells, kind="stable")
+        ray, ent, cell = ray[order], ent[order], cell[order]
+        vray, first, count = np.unique(ray.astype(np.int64) * n0 + cell // row_cells,
+                                       return_index=True, return_counts=True)
+        vid = np.repeat(np.arange(vray.size), count)
+        slot = np.arange(ray.size) - first[vid]
+        width = np.left_shift(1, np.ceil(np.log2(count)).astype(np.int64))
+        self.buckets = nn.ModuleList()
+        self.widths = []
+        at = np.empty(vray.size, dtype=np.int64)
+        for k, wdt in enumerate(np.unique(width)):
+            sel = np.flatnonzero(width == wdt)
+            at[sel] = np.arange(sel.size)
+            ents = np.flatnonzero(width[vid] == wdt)
+            b_idx = np.full((sel.size, wdt), -1, dtype=np.int32)
+            b_w = np.zeros((sel.size, wdt), dtype=w.dtype)
+            b_idx[at[vid[ents]], slot[ents]] = (cell[ents] - lo).astype(np.int32)
+            b_w[at[vid[ents]], slot[ents]] = w[ray[ents], ent[ents]]
+            b_ray = vray[sel] // n0
+            self.buckets.append(LosTable(b_idx, b_w, np.asarray(scale)[b_ray], self.shape))
+            self.widths.append(int(wdt))
+            dest = (vray[sel] % n0 - r0) * self.nrays + b_ray
+            self.register_buffer(f"dest{k}", torch.from_numpy(dest), persistent=False)
+        self.n_virtual = int(vray.size)
+
+    @property
+    def dests(self):
+        return [getattr(self, f"dest{k}") for k in range(len(self.buckets))]
+
+    def extra_repr(self):
+        return (f"rows={self.rows}, rays={self.nrays}, virtual rays={self.n_virtual} in widths "
+                f"{self.widths}")
+
+
+def slab_row_partials(f, slab: LosSlab, forward=None):
+    """The (ray, row) partials of fields ``(B, slab cells)``: ``(B, rows,
+    R)``, ``s_r`` times the sum of ray ``r``'s entries in each row of the
+    slab (0 where it has none).  ``forward`` runs each virtual-ray table:
+    :func:`los_integrate` by default (the kernel for a CUDA tensor),
+    :func:`los_integrate_plain` for the plain version."""
+    forward = los_integrate if forward is None else forward
+    out = f.new_zeros((f.shape[0], (slab.rows[1] - slab.rows[0]) * slab.nrays))
+    for tab, dest in zip(slab.buckets, slab.dests):
+        out.index_copy_(1, dest, forward(f, tab))
+    return out.reshape(f.shape[0], -1, slab.nrays)
+
+
+def slab_forward_plain(f, slab: LosSlab, det: bool):
+    """The plain version of a slab's share of the forward, before the
+    reduction over the field group: the (ray, row) partials ``(B, rows,
+    R)`` under ``deterministic_reductions``, else the rays' partials over
+    the slab ``(B, R)``."""
+    if det:
+        return slab_row_partials(f, slab, los_integrate_plain)
+    return los_integrate_plain(f, slab.table)
+
+
+def slab_adjoint_plain(ybar, slab: LosSlab):
+    """The plain version of the slab adjoint: replicated cotangents ``(B,
+    R)`` -> the slab's ``(B, slab cells)``."""
+    return los_integrate_adjoint_plain(ybar, slab.table)
+
+
+def slab_integrate(f, slab: LosSlab, group, det: bool):
+    """The forward of the rank's slab ``(B, slab cells)`` -> the rays'
+    integrals over the whole grid ``(B, R)``, the same on every rank of the
+    field ``group`` (no NaN offset).  Under ``deterministic_reductions``
+    (``det``) the (ray, row) partials are gathered over the group and
+    folded over the global rows in halves, an order fixed by the grid, so
+    every world gives the bits of one rank; else the rays' partials over
+    the slab are all-reduced.  Only ``(B, rows, R)`` or ``(B, R)`` values
+    cross ranks."""
+    from ..parallel import collectives as coll
+    from ..tree import _fold_halving
+
+    if det:
+        return _fold_halving(coll.all_gather(slab_row_partials(f, slab), group, dim=1))
+    return coll.all_reduce(los_integrate(f, slab.table), group)
+
+
+class LosSlabIntegrate(torch.autograd.Function):
+    """A rank's slab (B, slab cells) -> the replicated ray values (B, R)
+    (:func:`slab_integrate`); derivative: :class:`LosSlabAdjoint`, which
+    needs no collective (the replicated cotangent is whole on every rank)."""
+
+    @staticmethod
+    def forward(f, slab, group, det):
+        return slab_integrate(f, slab, group, det)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.args = inputs[1:]
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return (LosSlabAdjoint.apply(grad_out.contiguous(), *ctx.args),) + (None,) * 3
+
+    @staticmethod
+    def jvp(ctx, f_dot, *_):
+        return LosSlabIntegrate.apply(f_dot.contiguous(), *ctx.args)
+
+    @staticmethod
+    def vmap(info, in_dims, f, slab, group, det):
+        if in_dims[0] is None:
+            return LosSlabIntegrate.apply(f, slab, group, det), None
+        x = f.movedim(in_dims[0], 0)
+        n, nrows = x.shape[0], x.shape[1]
+        out = LosSlabIntegrate.apply(x.reshape(n * nrows, -1).contiguous(), slab, group, det)
+        return out.reshape(n, nrows, -1), 0
+
+
+class LosSlabAdjoint(torch.autograd.Function):
+    """Replicated cotangents (B, R) -> the rank's slab (B, slab cells), the
+    adjoint over the slab's CSR by cell; derivative: :class:`LosSlabIntegrate`
+    (the ranks' partials summed)."""
+
+    @staticmethod
+    def forward(ybar, slab, group, det):
+        return los_integrate_adjoint(ybar, slab.table)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.args = inputs[1:]
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return (LosSlabIntegrate.apply(grad_out.contiguous(), *ctx.args),) + (None,) * 3
+
+    @staticmethod
+    def jvp(ctx, ybar_dot, *_):
+        return LosSlabAdjoint.apply(ybar_dot.contiguous(), *ctx.args)
+
+    @staticmethod
+    def vmap(info, in_dims, ybar, slab, group, det):
+        if in_dims[0] is None:
+            return LosSlabAdjoint.apply(ybar, slab, group, det), None
+        x = ybar.movedim(in_dims[0], 0)
+        n, nrows = x.shape[0], x.shape[1]
+        out = LosSlabAdjoint.apply(x.reshape(n * nrows, -1).contiguous(), slab, group, det)
+        return out.reshape(n, nrows, -1), 0
+
+
+def integrate_slab(x, slab: LosSlab, group, det: bool):
+    """:func:`integrate` of a field sharded over ``group``: this rank's
+    slabs ``(..., *slab.shape)`` -> the replicated ray values ``(..., R)``,
+    NaN on the rays with a corner outside the grid."""
+    _check_trailing(x.shape, slab.shape, "a field", "slab")
+    lead = tuple(x.shape[: x.ndim - len(slab.shape)])
+    y = LosSlabIntegrate.apply(x.reshape(-1, slab.ncells).contiguous(), slab, group, det)
+    if slab.has_nan:
+        y = y + slab.nan_offset
+    return y.reshape(*lead, slab.nrays)

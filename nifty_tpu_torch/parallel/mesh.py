@@ -139,6 +139,10 @@ class Mesh:
         #: ``_shard_`` names them); empty: the shape rule of
         #: :func:`shard_position` decides
         self.sharded_latents = set()
+        #: global shapes of the grids that models placed on the mesh hold
+        #: field-sharded (a correlated field's, a line-of-sight response's
+        #: input); empty: the shape rule of :meth:`cuts` alone decides
+        self.field_grids = set()
         self.stats = Counter()
 
     def size(self, axis: str) -> int:
@@ -216,6 +220,19 @@ class Mesh:
             return [False] * n_leaves
         return [s for s, _ in entry]
 
+    def cuts(self, shape, min_ndim: int = 2) -> bool:
+        """Whether a data-space leaf of global ``shape`` (data, noise, the
+        likelihood's white noise) is field-sharded: it has at least
+        ``min_ndim`` dimensions, its first axis divides by the field extent
+        and, where models placed on the mesh recorded their grids
+        (:attr:`field_grids`), it is one of those.  A response that
+        integrates the field (rays, visibilities) keeps its data whole
+        whatever its shape, a ``(R, E)`` or ``(R, 3)`` table too."""
+        shape = tuple(shape)
+        if not _shardable(shape, self.size(self.field_axis), min_ndim):
+            return False
+        return not self.field_grids or shape in self.field_grids
+
     def own_rows(self, x, axis: str = FIELD, dim: int = 0):
         """This rank's block of ``x`` along ``dim`` for the mesh axis
         ``axis`` (a copy)."""
@@ -251,15 +268,16 @@ def shard_position(pos, mesh: Mesh, *, field_axis: str = FIELD, min_ndim: int = 
     layout is recorded on the mesh and the mesh made active.
 
     Given a module (a likelihood, a model), every submodule that knows its
-    field layout takes its own: data and noise trees become their slabs,
-    a correlated field takes the rows of its full-grid index maps; the
-    module is changed in place and returned."""
+    field layout takes its own: a correlated field takes the rows of its
+    full-grid index maps, a line-of-sight response its slab of the grid,
+    then data and noise trees become their slabs where they are fields
+    (:meth:`Mesh.cuts`); the module is changed in place and returned."""
     fdim = mesh.size(field_axis)
     if isinstance(pos, torch.nn.Module):
-        for m in list(pos.modules()):
-            hook = getattr(m, "_shard_", None)
-            if hook is not None:
-                hook(mesh, min_ndim=min_ndim)
+        hooked = [m for m in pos.modules() if getattr(m, "_shard_", None) is not None]
+        # the models first, so that the data's hooks know the mesh's grids
+        for m in sorted(hooked, key=lambda m: bool(getattr(m, "_shard_data_", False))):
+            m._shard_(mesh, min_ndim=min_ndim)
         mesh.activate()
         return pos
     leaves = tree_leaves(pos)
@@ -287,10 +305,9 @@ def _top_keys(tree) -> list:
 def shard_tree_buffers(tb, mesh: Mesh, min_ndim: int = 2):
     """Field-shard the leaves of a tree held as buffers (data, noise
     diagonals) and record the tree's layout."""
-    fdim = mesh.size(mesh.field_axis)
     names = list(tb._buffers)
     leaves = [tb._buffers[k] for k in names]
-    sharded = [_shardable(tuple(x.shape), fdim, min_ndim) for x in leaves]
+    sharded = [mesh.cuts(x.shape, min_ndim) for x in leaves]
     mesh.register(tb._like, sharded, [tuple(x.shape) for x in leaves])
     for k, x, s in zip(names, leaves, sharded):
         if s:

@@ -345,6 +345,17 @@ def _fold_halving_sum_rows(z):
     return _fold_halving(z)
 
 
+def _row_partials(z):
+    """(B, rows, ...) -> (B, rows): each row's sum over its trailing axes,
+    taken one axis at a time from the last.  A long reduction on the card
+    may be split over blocks by the number of its outputs (here a rank's
+    share of the rows), so a 3-D slab's planes are not summed in one
+    step; a 2-D field's rows are summed in one step either way."""
+    while z.ndim > 2:
+        z = z.sum(dim=-1)
+    return z
+
+
 def _mesh_row_sums(leaves, flags, det, mesh):
     """The (B,) row sums of each batched leaf on an active mesh: a
     replicated leaf sums its rows alone; a field-sharded one (``flags``)
@@ -363,8 +374,7 @@ def _mesh_row_sums(leaves, flags, det, mesh):
         for i, z in enumerate(leaves):
             if not flags[i]:
                 out[i] = _fold_halving_sum_rows(z)
-        parts = {i: leaves[i] if leaves[i].ndim == 2
-                 else leaves[i].sum(dim=tuple(range(2, leaves[i].ndim))) for i in shard}
+        parts = {i: _row_partials(leaves[i]) for i in shard}
     else:
         for i, z in enumerate(leaves):
             out[i] = z.reshape(z.shape[0], -1).sum(dim=1)

@@ -839,6 +839,45 @@ def test_los_wrappers_raise_on_bad_inputs(cuda):
                                             device=cuda), tab)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_los_slab_route_on_the_card(cuda, dtype):
+    """K11 on the slabs of a 16^3 grid (rows 0-7, 8-15 and all 16): the
+    (ray, row) partials and the slab adjoint against their plain versions
+    within 1e-12 / 1e-5 of the per-output sum of |term|, each half slab's
+    partials and adjoint bitwise the whole grid's rows (what makes a world
+    of two field ranks give the bits of one), the ray values of the rows
+    folded equal to the route's own."""
+    from nifty_tpu_torch.ops import los_interp as li
+    from nifty_tpu_torch.tree import _fold_halving
+
+    npd = np.float64 if dtype == torch.float64 else np.float32
+    rng = np.random.default_rng(16)
+    start, end = rng.uniform(0.05, 0.95, size=(48, 3)), rng.uniform(0.05, 0.95, size=(48, 3))
+    tables = li.los_tables(start, end, (16,) * 3, (1 / 16,) * 3, 64, 1, npd)
+    slabs = {rows: li.LosSlab(*tables[:3], (16,) * 3, rows, tables[3]).to(cuda)
+             for rows in ((0, 8), (8, 16), (0, 16))}
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    f = torch.randn((2, 16 ** 3), dtype=dtype, device=cuda, generator=gen)
+    ybar = torch.randn((2, 48), dtype=dtype, device=cuda, generator=gen)
+    tiny = torch.finfo(dtype).tiny
+    got = {}
+    for (r0, r1), slab in slabs.items():
+        fs = f[:, r0 * 256:r1 * 256].contiguous()
+        part, adj = li.slab_row_partials(fs, slab), li.los_integrate_adjoint(ybar, slab.table)
+        torch.cuda.synchronize()
+        scale = li.slab_row_partials(fs.abs(), slab, lambda x, t: li.sum_abs_terms(t, f=x))
+        assert bool(torch.all((part - li.slab_forward_plain(fs, slab, True)).abs()
+                              <= RTOL[dtype] * scale.clamp_min(tiny)))
+        scale = li.sum_abs_terms(slab.table, ybar=ybar)
+        assert bool(torch.all((adj - li.slab_adjoint_plain(ybar, slab)).abs()
+                              <= RTOL[dtype] * scale.clamp_min(tiny)))
+        got[r0, r1] = part, adj
+    whole_part, whole_adj = got[0, 16]
+    assert torch.equal(torch.cat([got[0, 8][0], got[8, 16][0]], 1), whole_part)
+    assert torch.equal(torch.cat([got[0, 8][1], got[8, 16][1]], 1), whole_adj)
+    assert torch.equal(li.slab_integrate(f, slabs[0, 16], None, True), _fold_halving(whole_part))
+
+
 # -- K7: the NUFFT window pair (ops/nufft_window.py) ------------------------
 
 
@@ -1196,6 +1235,22 @@ def test_row_sums_on_the_card_depend_on_the_row_count(cuda):
     assert len(set(sums)) > 1, sums
     folds = [_fold_halving_sum_rows(x[:b])[0].item() for b in (1, 2, 4, 8)]
     assert len(set(folds)) == 1, folds
+
+
+def test_slab_reductions_on_the_card_follow_no_world(cuda):
+    """What a 3-D field's slab worlds rely on: each row of a half slab gets
+    the bits of the whole field's row from the row sums of the fixed-order
+    reductions (``tree._row_partials``, one axis at a time) and from the
+    pencil transform's middle-axis FFTs (``distributed_fft._middle_axes``,
+    on contiguous rows), at 256^3."""
+    from nifty_tpu_torch.ops.distributed_fft import _middle_axes
+    from nifty_tpu_torch.tree import _row_partials
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((1, 256, 256, 256), dtype=torch.float64, device=cuda, generator=gen)
+    assert torch.equal(_row_partials(x[:, :128].contiguous()), _row_partials(x)[:, :128])
+    f = torch.fft.rfftn(x[0], dim=(2,))
+    assert torch.equal(_middle_axes(f[128:].contiguous(), 0), _middle_axes(f, 0)[128:])
 
 
 def test_gloo_ranks_on_one_card_move_tensors_through_ipc(cuda):

@@ -420,3 +420,127 @@ def from_numpy_case(tree, samples, field):
     local = jt.from_numpy(tree, device="cpu", mesh=mesh)
     return dict(local=jt.to_numpy(local), index=mesh.index(mesh.field_axis),
                 sharded=mesh.field_flags(local, len(tree_leaves(local))))
+
+
+# -- 3-D tomography and ICR on a mesh ------------------------------------------------
+
+
+def tomography_problem(data, noise_std, pos, mesh, dims=(16, 16, 16), n_rays=48, n_points=64,
+                       ray_seed=7):
+    """``tests/test_tomography_3d.py``'s ``_tomography_setup``: a 3-D
+    correlated field with the pencil Hartley, ``exp``, then the line of
+    sight through ``n_rays`` rays between uniform points (numpy, from
+    ``ray_seed``); a Gaussian of ``noise_std`` on ``data``, placed on the
+    mesh (the forward model holds the field and the response as
+    submodules, so that both take their slabs)."""
+    cfm = jt.CorrelatedFieldMaker("cf")
+    cfm.set_amplitude_total_offset(offset_mean=0.0, offset_std=(1e-1, 3e-2))
+    cfm.add_fluctuations(
+        dims, distances=1.0 / dims[0], fluctuations=(1.0, 5e-1), loglogavgslope=(-4.0, 5e-1),
+        flexibility=(1e0, 5e-1), asperity=(5e-1, 5e-2))
+    cf = cfm.finalize(hartley_fn=lambda x, axes=None: distributed_hartley(x, mesh, axes=axes),
+                      device="cpu")
+    rng = np.random.default_rng(ray_seed)
+    start = rng.uniform(0.05, 0.95, size=(n_rays, len(dims)))
+    end = rng.uniform(0.05, 0.95, size=(n_rays, len(dims)))
+    los = jt.SamplingCartesianGridLOS(start, end, shape=dims,
+                                      distances=tuple(1.0 / d for d in dims),
+                                      n_sampling_points=n_points, device="cpu")
+    fwd = jt.Model(lambda x: los(torch.exp(cf(x))), domain=cf.domain, init=cf.init)
+    fwd.cf, fwd.los = cf, los
+    lh = jt.Gaussian(torch.from_numpy(data),
+                     noise_cov_inv=lambda x: x / noise_std ** 2).amend(fwd)
+    lh = shard_position(lh, mesh)
+    return lh, jt.from_numpy(pos, device="cpu", mesh=mesh)
+
+
+def tomography_update_case(data, noise_std, pos, key, samples, field, sample_mode,
+                           nl_maxiter, budgets, det=False, n_samples=2):
+    """One ``OptimizeVI.update`` of the 16^3 tomography on a samples x
+    field mesh, its noise replayed from a table of recorded draws or drawn
+    from an int seed (``key``); the global samples, the KL energy and the
+    collectives of the update by kind."""
+    from nifty_tpu_torch.parallel import collectives as coll
+
+    jt.config.update("deterministic_reductions", det)
+    mesh = make_mesh(samples, field)
+    lh, p = tomography_problem(data, noise_std, pos, mesh)
+    opt = jt.OptimizeVI(lh, n_total_iterations=1)
+    key = ReplayKey(key) if isinstance(key, dict) else jt.HostKey(key)
+    state = opt.init_state(key, **_vi_kwargs(budgets, nl_maxiter, n_samples, sample_mode))
+    coll.reset_counts()
+    smp, state = opt.update(jt.Samples(pos=p, samples=None, keys=None), state)
+    counts = dict(coll.COUNTS)
+    whole = gather_samples(smp, mesh)
+    return dict(samples=jt.to_numpy(whole._samples), pos=jt.to_numpy(whole.pos),
+                fun=float(state.minimization_state.fun), nit=int(state.minimization_state.nit),
+                collectives=counts, slab=tuple(p["cfxi"].shape))
+
+
+def tomography_stages_case(data, noise_std, pos, tan, samples, field):
+    """The 16^3 tomography's energy and a metric matvec (gathered) on a
+    samples x field mesh."""
+    mesh = make_mesh(samples, field)
+    lh, p = tomography_problem(data, noise_std, pos, mesh)
+    t = jt.from_numpy(tan, device="cpu", mesh=mesh)
+    return dict(energy=float(lh(p)),
+                metric=jt.to_numpy(pmesh.gather_position(lh.metric(p, t), mesh)))
+
+
+def los_slab_case(f, ybar, field, det, start, end, dims, n_points):
+    """The line of sight placed on a 1 x ``field`` mesh: its forward of the
+    rank's rows of fields ``f`` (B, *dims) and the gradient of ``<y,
+    ybar>`` (the slab adjoint, by autograd), gathered; the collectives of
+    each by kind and bytes, and the slab's virtual-ray widths."""
+    from nifty_tpu_torch.parallel import collectives as coll
+
+    jt.config.update("deterministic_reductions", det)
+    mesh = make_mesh(1, field)
+    los = jt.SamplingCartesianGridLOS(start, end, shape=dims,
+                                      distances=tuple(1.0 / d for d in dims),
+                                      n_sampling_points=n_points, device="cpu")
+    shard_position(los, mesh)
+    x = mesh.own_rows(torch.from_numpy(f), dim=1).requires_grad_(True)
+    coll.reset_counts()
+    y = los(x)
+    fwd = (dict(coll.COUNTS), dict(coll.BYTES))
+    coll.reset_counts()
+    (y * torch.from_numpy(ybar)).sum().backward()
+    adj = (dict(coll.COUNTS), dict(coll.BYTES))
+    slab = los.slab(torch.float64)
+    return dict(y=_np(y.detach()), grad=_gathered(x.grad, mesh, dim=1), forward=fwd, adjoint=adj,
+                rows=slab.rows, widths=slab.widths, n_virtual=slab.n_virtual)
+
+
+def icr_chart(chart_shape=(14,), depth=3):
+    """A 1-D chart refined ``depth`` times, demo 9's log deformation."""
+    return jt.CoordinateChart(shape0=chart_shape, depth=depth, distances0=(1.0,),
+                              nonlinear_map=lambda reg: np.expm1(0.35 * reg))
+
+
+def icr_problem(data, noise_std, chart_shape, depth):
+    """:func:`icr_chart`'s field with a Matern-3/2 kernel, ``exp(0.5
+    field)`` observed everywhere with ``noise_std`` on ``data``."""
+    field = jt.RefinementField(icr_chart(chart_shape, depth),
+                               lambda r: (1.0 + r) * torch.exp(-r), device="cpu")
+    signal = jt.Model(lambda x: torch.exp(0.5 * field(x)), domain=field.domain,
+                      init=field.init)
+    signal.field = field
+    return jt.Gaussian(torch.from_numpy(data),
+                       noise_cov_inv=lambda x: x / noise_std ** 2).amend(signal)
+
+
+def icr_update_case(data, noise_std, pos, seed, samples, chart_shape=(14,), depth=3,
+                    budgets=(20, 10, 3, 10), maps="smap"):
+    """One geoVI update of the 1-D ICR field with the samples over a
+    ``samples`` x 1 mesh, under ``deterministic_reductions``: its latents
+    stay whole on every rank.  ``maps``: the residual and KL maps (the
+    sample loop, which "auto" takes on a card mesh)."""
+    jt.config.update("deterministic_reductions", True)
+    mesh = make_mesh(samples, 1)
+    lh = shard_position(icr_problem(data, noise_std, chart_shape, depth), mesh)
+    p = shard_position(jt.from_numpy(pos, device="cpu"), mesh)
+    opt = jt.OptimizeVI(lh, n_total_iterations=1, residual_map=maps, kl_map=maps)
+    state = opt.init_state(jt.HostKey(seed), **_vi_kwargs(budgets, 2, 2, "nonlinear_resample"))
+    smp, state = opt.update(jt.Samples(pos=p), state)
+    return _whole(smp, state, mesh)
