@@ -300,7 +300,8 @@ Phases (one line each, with its seconds):
 37. the mesh on the card (``nifty_tpu_torch.parallel``), in a 4-rank gloo
     world on card 0 (samples 2 x field 2; the ranks' collectives through
     the card's memory mapped by CUDA IPC, gloo carrying their barriers)
-    and in an NCCL world over every card: ``distributed_hartley`` and
+    and in an NCCL world over every card, the two worlds at once (each
+    world's seconds share the card and the host with the other's): ``distributed_hartley`` and
     ``distributed_fftn``, forward and adjoint (autograd), against the
     whole field's transform on one rank (``ops.harmonic.hartley``,
     ``torch.fft``) at 4096^2, a 256^3 pencil, the 1-D four-step FFT at
@@ -718,11 +719,37 @@ def run_updates(jt, lh, n_updates, kwargs, key=7, pos_key=1, **maps):
     return samples, state, seconds
 
 
-def cuda_ms(fn, n=50):
-    """Mean milliseconds per call of `fn` over `n` back-to-back calls, CUDA
-    events: at small sizes this is how fast the host issues the calls."""
+#: the milliseconds a timing spends on one function's timed calls at most:
+#: a function slower than this over `n` calls (a plain version, some
+#: library calls) is timed over fewer, at least 2, which costs seconds
+#: instead of tens of them and moves no kernel's time
+TIMING_BUDGET_MS = 250.0
+
+
+def probe_ms(fn):
+    """Milliseconds of one call of `fn` after 3 warm-up calls (CUDA events)."""
     for _ in range(3):
         fn()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
+
+
+def within_budget(ms, n):
+    """`n`, or fewer calls (at least 2) where `n` calls of `ms` each would
+    take more than `TIMING_BUDGET_MS`."""
+    return n if ms * n <= TIMING_BUDGET_MS else max(2, int(TIMING_BUDGET_MS / ms))
+
+
+def cuda_ms(fn, n=50):
+    """Mean milliseconds per call of `fn` over `n` back-to-back calls (fewer
+    for a slow function: `within_budget`), CUDA events: at small sizes this
+    is how fast the host issues the calls."""
+    n = within_budget(probe_ms(fn), n)
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
@@ -771,8 +798,12 @@ def replayed(fn):
 
 def device_ms(fn, n=50, replays=3):
     """Mean device milliseconds per call of `fn`: its `n` calls captured in
-    one CUDA graph, replayed `replays` times between CUDA events.  The
-    device runs the calls back to back without waiting on the host."""
+    one CUDA graph, replayed `replays` times between CUDA events (for a
+    slow function fewer calls, `within_budget`, replayed once).  The device
+    runs the calls back to back without waiting on the host."""
+    ms = probe_ms(fn)
+    if ms * n * replays > TIMING_BUDGET_MS:
+        n, replays = within_budget(ms, n), 1
     graph, _ = captured(fn, n)
     graph.replay()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2593,6 +2624,18 @@ def los_counts():
             "adjoint": dict(li.los_integrate_adjoint.launches_by_shape)}
 
 
+def slab_counts():
+    """`los_slab_forward`'s calls, by (slab key, rows)."""
+    from nifty_tpu_torch.ops import los_interp as li
+
+    return dict(li.slab_row_partials.launches_by_shape)
+
+
+def slab_text(counts):
+    return ", ".join(f"{grid_text(grid)} rows {rows[0]}-{rows[1] - 1} x {nrays} rays B={b}: {n}"
+                     for ((grid, rows, nrays), b), n in sorted(counts.items()))
+
+
 def los_text(counts):
     return " ".join(f"{kind} " + ", ".join(
         f"{grid_text(shape[0])} x {shape[1]} rays x {shape[2]} entries B={b}: {n}"
@@ -2668,7 +2711,7 @@ def ptxas_lines(library, kernels):
 
 def los_ptxas_lines():
     """Each K11 kernel's registers and spills (:func:`ptxas_lines`)."""
-    return ptxas_lines("los_interp", "los_forward|los_adjoint")
+    return ptxas_lines("los_interp", "los_forward|los_adjoint|los_slab_forward")
 
 
 @phase("25 the ray integral kernels (K11) vs plain")
@@ -2760,16 +2803,14 @@ LOS_SLAB_ROWS = {"256^3": ((0, 128), (128, 256), (0, 256)), "16^3": ((0, 8),)}
 
 
 class LosPart:
-    """A table of a line-of-sight slab as phase 25 holds it: the slab's
-    own table (`width=None`) or its virtual-ray table of that width, by
-    float type (`slabs`: {dtype: LosSlab})."""
+    """A line-of-sight slab's own table as phase 25 holds it, by float
+    type (`slabs`: {dtype: LosSlab})."""
 
-    def __init__(self, slabs, width=None):
-        self.slabs, self.width = slabs, width
+    def __init__(self, slabs):
+        self.slabs = slabs
 
     def table(self, dtype):
-        slab = self.slabs[dtype]
-        return slab.table if self.width is None else slab.buckets[slab.widths.index(self.width)]
+        return self.slabs[dtype].table
 
 
 def los_slabs(responses):
@@ -2780,35 +2821,20 @@ def los_slabs(responses):
 
 
 def slab_cases(slabs):
-    """Phase 25's cases of the slabs' tables, one row each (the sample loop's):
-    the slab table (the adjoint, and the forward without
-    `deterministic_reductions`) and every virtual-ray table."""
-    cases = {}
-    for (grid, rows), by_dtype in slabs.items():
-        slab = by_dtype[torch.float64]
-        label = f"{grid} rows {rows[0]}-{rows[1] - 1}"
-        cases[f"{label} slab table B=1"] = (LosPart(by_dtype), 1)
-        for wdt in slab.widths:
-            cases[f"{label} virtual rays of {wdt} B=1"] = (LosPart(by_dtype, wdt), 1)
-    return cases
+    """Phase 25's cases of the slabs' own tables, one row each (the sample
+    loop's): the adjoint, and the forward without
+    `deterministic_reductions`."""
+    return {f"{grid} rows {rows[0]}-{rows[1] - 1} slab table B=1": (LosPart(by_dtype), 1)
+            for (grid, rows), by_dtype in slabs.items()}
 
 
 def slab_library_routes(slab, f, ybar):
     """The slab's forward and adjoint as one PyTorch call each, which the
     port never calls: ``torch.sparse.mm`` of the virtual rays' CSR matrix
-    (their valid entries, in place of the (ray, row) partials) and of the
-    slab table's transpose (its CSR by cell), times the rays' scales."""
+    (``LosSlab.partials_csr``) and of the slab table's transpose (its CSR
+    by cell), times the rays' scales."""
     dev = f.device
-    rows, cols, vals, dest = [], [], [], []
-    for tab, d in zip(slab.buckets, slab.dests):
-        valid = tab.idx >= 0
-        rows.append(d[:, None].expand(-1, tab.nent)[valid])
-        cols.append(tab.idx[valid].long())
-        vals.append((tab.w * tab.scale[:, None])[valid])
-    order = torch.argsort(torch.cat(rows), stable=True)
-    nout = (slab.rows[1] - slab.rows[0]) * slab.nrays
-    fwd = torch.sparse_coo_tensor(torch.stack([torch.cat(rows)[order], torch.cat(cols)[order]]),
-                                  torch.cat(vals)[order], (nout, slab.ncells)).to_sparse_csr()
+    fwd = slab.partials_csr()
     t = slab.table
     crow = torch.zeros(slab.ncells + 1, dtype=torch.int64, device=dev)
     crow[t.cells + 1] = (t.seg_off[1:] - t.seg_off[:-1]).long()
@@ -2824,77 +2850,163 @@ def slab_library_routes(slab, f, ybar):
     return forward, adjoint
 
 
-@phase("25 the slabs of K11 (phase 44's worlds): the (ray, row) partials and the adjoint vs "
-       "plain")
+#: the digests of the (ray, row) partials from the nine-launch route that
+#: the slab forward replaced (one `los_forward` launch a power-of-two width
+#: of virtual rays padded with -1, placed in zeros), at each slab of
+#: `LOS_SLAB_ROWS` and 1 and 3 rows in phase 25's order, on
+#: `slab_bit_inputs`: the first 8 hex digits of the SHA-256 of the output's
+#: bytes.  They were taken on an NVIDIA H100 80GB HBM3 at 700 W by calling
+#: `slab_row_partials` of commit 2e49991 (a `git archive` of it) on these
+#: inputs, in the same run on the card that first built `los_slab_forward` and
+#: gave the same 16 digests.  Phase 25 holds `los_slab_forward` to them.
+LOS_SLAB_PINNED = {
+    "f64": "62216de2 5e763895 dc09ca13 85a2b330 bb2a6597 9efbc4a4 a6f2bb05 7078f644",
+    "f32": "fe4f452d 3d5c2ff7 05af994d 86d003df 8c974666 ade3f21c 1d14c498 1a799944",
+}
+
+
+def slab_bit_inputs(label, slab, nrows, dtype, draws):
+    """The slab forward's bit check fields ``(nrows, slab cells)``: standard
+    normal draws that numpy makes in float64 from a seed of the label
+    (kept on the card in `draws`, by label, for the other float type),
+    rounded to `dtype`."""
+    if label not in draws:
+        rng = np.random.default_rng(zlib.crc32(label.encode()))
+        draws[label] = torch.from_numpy(rng.standard_normal((nrows, slab.ncells))).cuda()
+    return draws[label].to(dtype)
+
+
+def slab_function_bytes(slab, size):
+    """The bytes of the slab forward's tables that the function itself
+    needs: each valid entry's cell (int32) and weight once, and each ray's
+    scale."""
+    return slab.table.n_valid * (4 + size) + slab.nrays * size
+
+
+def slab_bound_ms(slab, nrows, size):
+    """The least time of one slab forward: each valid entry's cell and
+    weight, each ray's scale, the touched cells' values and the partials
+    once each, over the memory rate, or its multiply-adds over the
+    arithmetic rate, whichever is larger; and which of the two that is.
+    The compact layout's offsets, places, descriptors, mask and a scale a
+    virtual ray rather than a ray are the design's means, not the
+    function's inputs: phase 25 prints their bytes beside it."""
+    values = nrows * (slab.table.n_touched + slab.nout) * size
+    by_bytes = 1e3 * (slab_function_bytes(slab, size) + values) / PEAK_BYTES_PER_S
+    by_ops = 1e3 * 2 * nrows * slab.table.n_valid / PEAK_OPS_PER_S[torch.float64]
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+@phase("25 the slabs of K11 (phase 44's worlds): los_slab_forward and the adjoint vs plain")
 def phase_los_slabs(slabs):
-    """Each slab's forward under `deterministic_reductions` (its virtual-ray
-    tables, the (ray, row) partials) and its adjoint (the slab table's CSR
-    by cell) on the card against their plain versions (within 1e-12 / 1e-5
-    of the per-output sum of |term|), float64 and float32; float64 device
-    ms of the whole forward (every virtual-ray table, 50 calls in a
-    replayed CUDA graph) and of the adjoint beside the bound (the valid
-    entries' indices and weights, the rays' scales, the touched cells'
-    values or the cotangents, and the output, once each), the plain
-    versions and ``torch.sparse.mm`` of the CSR and its transpose (CUDA
-    events around 5 calls).  Returns the numbers by (grid, rows)."""
+    """Each slab's forward under `deterministic_reductions` (the (ray, row)
+    partials, `los_slab_forward`) at 1 and 3 rows and its adjoint (the slab
+    table's CSR by cell) on the card against their plain versions (within
+    1e-12 / 1e-5 of the per-output sum of |term|), float64 and float32; the
+    forward one launch a call, bitwise repeated, +0 (never -0) where a pair
+    holds no virtual ray, and bitwise the nine-launch route's partials
+    (`LOS_SLAB_PINNED`); at 3 rows also bitwise when replayed from a CUDA
+    graph and row by row; each
+    kernel's registers and spills; float64 device ms (50 calls in a
+    replayed CUDA graph) beside the bound, the plain versions (CUDA events
+    around 5 calls), ``torch.sparse.mm`` of the CSR (10 calls in a
+    replayed graph, and events around 5) and of its transpose (events).
+    Returns the forward's numbers by (slab key, rows)."""
     from nifty_tpu_torch.ops import los_interp as li
 
+    for line in los_ptxas_lines():
+        if "los_slab_forward" in line:
+            print(f"K11 slab build: {line}", flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(25)
-    out = {}
+    out, digests = {}, {"f64": [], "f32": []}
     for (grid, rows), by_dtype in slabs.items():
+        draws = {}
         for dtype, slab in by_dtype.items():
-            f = torch.randn((1, slab.ncells), dtype=dtype, device=dev, generator=gen)
-            ybar = torch.randn((1, slab.nrays), dtype=dtype, device=dev, generator=gen)
-            got = li.slab_row_partials(f, slab), li.los_integrate_adjoint(ybar, slab.table)
-            want = li.slab_forward_plain(f, slab, True), li.slab_adjoint_plain(ybar, slab)
-            scales = (li.slab_row_partials(f.abs(), slab,
-                                           lambda x, t: li.sum_abs_terms(t, f=x)),
-                      li.sum_abs_terms(slab.table, ybar=ybar))
             tiny = torch.finfo(dtype).tiny
-            rels = [float(((g - w).abs() / sc.clamp_min(tiny)).max())
-                    for g, w, sc in zip(got, want, scales)]
-            again = li.slab_row_partials(f, slab)
-            if max(rels) > LOS_RTOL[dtype] or not torch.equal(got[0], again):
-                raise AssertionError(f"the slab route of K11 is off its plain versions by {rels} "
-                                     f"of the per-output sum of |term|, or does not repeat "
-                                     f"({grid}, rows {rows}, {dtype})")
+            where = f"{grid}, rows {rows}, {dtype}"
+            for nrows in (1, 3):
+                f = slab_bit_inputs(f"{grid} rows {rows[0]}-{rows[1] - 1} B={nrows}", slab, nrows,
+                                    dtype, draws)
+                before = li.slab_row_partials.launches
+                got = li.slab_row_partials(f, slab)
+                torch.cuda.synchronize()
+                if li.slab_row_partials.launches != before + 1:
+                    raise AssertionError(f"los_slab_forward: not one launch a call ({where})")
+                digests["f64" if dtype == torch.float64 else "f32"].append(digest(got))
+                rel = float(((got - li.slab_row_partials_plain(f, slab)).abs()
+                             / li.slab_sum_abs_terms(slab, f).clamp_min(tiny)).max())
+                if rel > LOS_RTOL[dtype]:
+                    raise AssertionError(f"los_slab_forward is off its plain version by {rel} of "
+                                         f"the per-output sum of |term| ({where}, B={nrows})")
+                if not torch.equal(got, li.slab_row_partials(f, slab)):
+                    raise AssertionError(f"los_slab_forward does not repeat ({where}, B={nrows})")
+                if nrows > 1 and not torch.equal(
+                        got, replayed(lambda: li.slab_row_partials(f, slab))):
+                    raise AssertionError(f"los_slab_forward differs when replayed from a CUDA "
+                                         f"graph ({where}, B={nrows})")
+                for b in range(nrows if nrows > 1 else 0):
+                    if not torch.equal(li.slab_row_partials(f[b:b + 1].contiguous(), slab),
+                                       got[b:b + 1]):
+                        raise AssertionError(f"row {b} of los_slab_forward's {nrows}-row call "
+                                             f"differs from its one-row call ({where})")
+                if bool(torch.signbit(got[got == 0]).any()):
+                    raise AssertionError(f"los_slab_forward wrote -0 ({where}, B={nrows})")
+            ybar = torch.randn((1, slab.nrays), dtype=dtype, device=dev, generator=gen)
+            adj = li.los_integrate_adjoint(ybar, slab.table)
+            adj_want = li.slab_adjoint_plain(ybar, slab)
+            adj_rel = float(((adj - adj_want).abs() / li.sum_abs_terms(
+                slab.table, ybar=ybar).clamp_min(tiny)).max())
+            if adj_rel > LOS_RTOL[dtype]:
+                raise AssertionError(f"the slab adjoint is off its plain version by {adj_rel} of "
+                                     f"the per-output sum of |term| ({where})")
             if dtype != torch.float64:
                 continue
+            f = slab_bit_inputs(f"{grid} rows {rows[0]}-{rows[1] - 1} B=1", slab, 1, dtype, draws)
+            want = li.slab_row_partials_plain(f, slab)
             lib_fwd, lib_adj = slab_library_routes(slab, f, ybar)
-            for g, w, sc in zip((lib_fwd(), lib_adj()), want, scales):
+            for g, w, sc in ((lib_fwd(), want, li.slab_sum_abs_terms(slab, f)),
+                             (lib_adj(), adj_want, li.sum_abs_terms(slab.table, ybar=ybar))):
                 if float(((g - w).abs() / sc.clamp_min(tiny)).max()) > 1e-10:
                     raise AssertionError(f"a library route disagrees with the plain version "
                                          f"({grid}, rows {rows})")
             t = slab.table
             size = f.element_size()
-            tables = t.n_valid * (4 + size) + t.nrays * size
-            r = dict(rel=rels, n_virtual=slab.n_virtual, widths=slab.widths,
-                     forward_err=float((got[0] - want[0]).abs().max()),
-                     adjoint_err=float((got[1] - want[1]).abs().max()),
-                     forward_ms=device_ms(lambda: li.slab_row_partials(f, slab)),
-                     adjoint_ms=device_ms(lambda: li.los_integrate_adjoint(ybar, slab.table)),
-                     forward_plain_ms=cuda_ms(lambda: li.slab_forward_plain(f, slab, True), n=5),
+            r = dict(rel=rel, adjoint_rel=adj_rel, n_virtual=slab.n_virtual, groups=slab.groups,
+                     err=float((li.slab_row_partials(f, slab) - want).abs().max()),
+                     ms=device_ms(lambda: li.slab_row_partials(f, slab)),
+                     adjoint_ms=device_ms(lambda: li.los_integrate_adjoint(ybar, t)),
+                     plain_ms=cuda_ms(lambda: li.slab_row_partials_plain(f, slab), n=5),
                      adjoint_plain_ms=cuda_ms(lambda: li.slab_adjoint_plain(ybar, slab), n=5),
-                     forward_library_ms=cuda_ms(lib_fwd, n=5),
+                     library_ms=device_ms(lib_fwd, n=10), library_events_ms=cuda_ms(lib_fwd, n=5),
                      adjoint_library_ms=cuda_ms(lib_adj, n=5),
-                     forward_bound_ms=1e3 * (tables + (t.n_touched + (rows[1] - rows[0])
-                                                       * t.nrays) * size) / PEAK_BYTES_PER_S,
-                     adjoint_bound_ms=1e3 * (tables + (t.nrays + t.ncells) * size)
-                     / PEAK_BYTES_PER_S)
-            out[grid, rows] = r
+                     adjoint_bound_ms=1e3 * (t.n_valid * (4 + size) + t.nrays * size
+                                             + (t.nrays + t.ncells) * size) / PEAK_BYTES_PER_S)
+            r["bound_ms"], r["bound_by"] = slab_bound_ms(slab, 1, size)
+            out[slab.key, 1] = r
             print(f"{grid} slab rows {rows[0]}-{rows[1] - 1}: {t.nrays} rays ({t.n_valid} entries "
                   f"in the slab, {t.n_touched} cells touched), {slab.n_virtual} virtual rays "
-                  f"(ray, row) in tables of widths {slab.widths} "
-                  f"({[b.nrays for b in slab.buckets]} rays) | float64 ms: forward (every "
-                  f"virtual-ray table, the partials placed) {r['forward_ms']:.5f} (bound "
-                  f"{r['forward_bound_ms']:.5f}; plain {r['forward_plain_ms']:.4f}, "
-                  f"torch.sparse.mm {r['forward_library_ms']:.4f}) | adjoint "
-                  f"{r['adjoint_ms']:.5f} (bound {r['adjoint_bound_ms']:.5f}; plain "
-                  f"{r['adjoint_plain_ms']:.4f}, torch.sparse.mm of the transpose "
-                  f"{r['adjoint_library_ms']:.4f}) | rel err of sum|term| f64 {rels[0]:.2e} / "
-                  f"{rels[1]:.2e}", flush=True)
+                  f"(ray, row) by lanes {slab.groups} in {slab.n_blocks} blocks, compact tables "
+                  f"{slab.table_bytes} B ({slab_function_bytes(slab, size)} B of the entries' cells "
+                  f"and weights and the rays' scales, which the bound counts; "
+                  f"{slab.table_bytes - slab_function_bytes(slab, size)} B of the layout's "
+                  f"offsets, places, descriptors, mask and scales a virtual ray, which it does "
+                  f"not) | float64 ms: "
+                  f"los_slab_forward {r['ms']:.5f} ({100 * r['bound_ms'] / r['ms']:.1f} % of its "
+                  f"bound {r['bound_ms']:.5f}, {r['bound_by']}; plain {r['plain_ms']:.4f}, "
+                  f"torch.sparse.mm {r['library_ms']:.5f}, events around 5 calls "
+                  f"{r['library_events_ms']:.4f}) | adjoint {r['adjoint_ms']:.5f} (bound "
+                  f"{r['adjoint_bound_ms']:.5f}; plain {r['adjoint_plain_ms']:.4f}, "
+                  f"torch.sparse.mm of the transpose {r['adjoint_library_ms']:.4f}) | rel err of "
+                  f"sum|term| f64 {rel:.2e} / {adj_rel:.2e}", flush=True)
+    for sname, got in digests.items():
+        want = LOS_SLAB_PINNED[sname].split()
+        if got != want:
+            raise AssertionError(f"los_slab_forward {sname} bits moved from the nine-launch "
+                                 f"route's pinned digests: {got} (pinned {want})")
+        print(f"los_slab_forward {sname}: the nine-launch route's bits at all {len(got)} slabs "
+              f"and row counts", flush=True)
     return out
 
 
@@ -2929,6 +3041,30 @@ def los_kernel_entries(kres, runs):
                 plain_ms=r[f"{kind}_plain_ms"], bound_ms=r[f"{kind}_bound_ms"],
                 bound_by=r[f"{kind}_bound_by"], library_ms=r[f"{kind}_library_ms"],
             ))
+    return entries
+
+
+def los_slab_entries(sres, runs):
+    """The `kernels` line's entries of `los_slab_forward`: one for each slab
+    and number of rows that the runs ({run: slab counts}) launched, with
+    phase 25's numbers; fails on a slab that phase 25 did not check."""
+    entries = []
+    for shape in sorted(set().union(*runs.values())):
+        if shape not in sres:
+            raise AssertionError(f"the main path launched los_slab_forward at {shape}, a slab "
+                                 f"that phase 25 did not hold against the plain version")
+        r = sres[shape]
+        (grid, rows, nrays), nrows = shape
+        entries.append(dict(
+            name=f"los_slab_forward (K11 on a slab, {grid_text(grid)} rows {rows[0]}-{rows[1] - 1}"
+                 f" x {nrays} rays, the (ray, row) partials B={nrows}, float64)",
+            route="cuda", source="nifty_tpu_torch/csrc/los_interp.cu",
+            replaces="nifty_tpu/responses/los.py:39 (XLA in the JAX package, not Pallas)",
+            launches=next(c[shape] for c in runs.values() if c.get(shape)),
+            launches_by_run={run: c.get(shape, 0) for run, c in runs.items()},
+            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+        ))
     return entries
 
 
@@ -4507,6 +4643,8 @@ def mesh_checkpoint_write(jt, samples, field, odir):
     """Phase 40: ``optimize_kl(checkpoint_format="orbax")`` for 2
     iterations (`deterministic_reductions`), then a third continued in
     memory; digests of the whole samples after each."""
+    import torch.distributed as dist
+
     from nifty_tpu_torch.ops import bin_gather as bg
     from nifty_tpu_torch.parallel import gather_samples, make_mesh, shard_position
 
@@ -4525,6 +4663,10 @@ def mesh_checkpoint_write(jt, samples, field, odir):
     bg.reset_launch_counts()
     kw = dict(key=jt.HostKey(40), checkpoint_format="orbax", **CKPT_KWARGS)
     s2, st2 = jt.optimize_kl(lh, pos, n_total_iterations=2, odir=odir, **kw)
+    # this rank's share of the checkpoint is on disk: the NCCL world, which
+    # runs beside this one, resumes from it once every rank has said so
+    with open(os.path.join(odir, f"written_{dist.get_rank()}"), "w"):
+        pass
     s3, st3 = jt.optimize_kl(lh, s2, n_total_iterations=3, odir=os.path.join(odir, "in_memory"),
                              _optimize_vi_state=st2, **kw)
     whole = gather_samples(s3, mesh)
@@ -4534,12 +4676,27 @@ def mesh_checkpoint_write(jt, samples, field, odir):
                 auto_maps=(opt.lockstep, opt.kl_map), vmap_refused=refused)
 
 
-def mesh_checkpoint_resume(jt, samples, field, src, odir):
+def wait_for_checkpoint(src, nranks, timeout=600.0):
+    """Seconds spent waiting until each of the `nranks` ranks of the world
+    that writes phase 40's checkpoint ``src`` has marked its share written
+    (`mesh_checkpoint_write`)."""
+    t0 = time.monotonic()
+    marks = [os.path.join(os.path.dirname(src), f"written_{r}") for r in range(nranks)]
+    while not all(os.path.exists(m) for m in marks):
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(f"phase 40's checkpoint {src} was not written in {timeout:.0f} s")
+        time.sleep(0.5)
+    return time.monotonic() - t0
+
+
+def mesh_checkpoint_resume(jt, samples, field, src, odir, writers=0):
     """Phase 40: the third iteration resumed from ``src`` (the checkpoint
-    phase 40 wrote on 2 x 2) on this world."""
+    phase 40 wrote on 2 x 2) on this world, once its `writers` ranks have
+    marked it written (0: it is, this world wrote it)."""
     from nifty_tpu_torch.ops import bin_gather as bg
     from nifty_tpu_torch.parallel import gather_samples, make_mesh
 
+    waited = wait_for_checkpoint(src, writers) if writers else 0.0
     jt.config.update("deterministic_reductions", True)
     mesh = make_mesh(samples, field)
     lh, _, _ = demo4_likelihood(jt, mesh)
@@ -4548,7 +4705,8 @@ def mesh_checkpoint_resume(jt, samples, field, src, odir):
                              key=jt.HostKey(40), checkpoint_format="orbax", **CKPT_KWARGS)
     whole = gather_samples(s3, mesh)
     return dict(energy=float(st3.minimization_state.fun), nit=int(st3.nit),
-                digest=digest_tree((whole.pos, whole._samples)), counts=launch_counts(bg))
+                digest=digest_tree((whole.pos, whole._samples)), counts=launch_counts(bg),
+                waited=waited)
 
 
 def mesh_update_4096(jt, samples, field, data_file, out_dir, tag):
@@ -4663,7 +4821,7 @@ def mesh_tomography_256(jt, samples, field, data_file, noise_std, out_dir, tag):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    counts, k11 = launch_counts(bg), los_counts()
+    counts, k11, slab_k11 = launch_counts(bg), los_counts(), slab_counts()
     colls, nbytes, stats = dict(coll.COUNTS), dict(coll.BYTES), dict(mesh.stats)
     finite = all(bool(torch.isfinite(x).all())
                  for x in tree_leaves(smp.pos) + tree_leaves(smp._samples))
@@ -4675,9 +4833,9 @@ def mesh_tomography_256(jt, samples, field, data_file, noise_std, out_dir, tag):
     slab = los.slab(torch.float64)
     return dict(seconds_update=secs, energy=float(state.minimization_state.fun),
                 newton=int(state.minimization_state.nit), peak_gib=peak, counts=counts,
-                k11=k11, collectives=colls, collective_bytes=nbytes, stats=stats, finite=finite,
-                digest=digest_tree((whole.pos, whole._samples)), slab_maps=slab_maps,
-                rows=slab.rows, widths=slab.widths, n_virtual=slab.n_virtual)
+                k11=k11, slab_k11=slab_k11, collectives=colls, collective_bytes=nbytes,
+                stats=stats, finite=finite, digest=digest_tree((whole.pos, whole._samples)),
+                slab_maps=slab_maps, rows=slab.rows, groups=slab.groups, n_virtual=slab.n_virtual)
 
 
 def mesh_icr_4100(jt, samples, tag):
@@ -4754,19 +4912,22 @@ def mesh_world_cases(ckpt_dir, data_file, out_dir, world, tomo):
                   tag="tomo_2x2")),
             ("45 icr", "mesh_icr_4100", dict(samples=4, tag="4x1")),
         ]
+    # (beside the gloo world: phase 40's resume last, after the gloo world
+    # wrote its checkpoint; phase 45 while that world runs phase 39, which
+    # holds the least memory of its full-width updates)
     samples, field = nccl_mesh_shape()
     return [
         ("37 transforms", "mesh_transforms", dict(samples=samples, field=field)),
         ("37 pairwise 1", "mesh_pairwise", dict(samples=samples)),
-        ("40 resume", "mesh_checkpoint_resume",
-         dict(samples=samples, field=field, src=os.path.join(ckpt_dir, "last_ckpt"),
-              odir=os.path.join(ckpt_dir, "resume_nccl"))),
         ("39 update", "mesh_update_4096", dict(samples=samples, field=field, data_file=data_file,
                                                out_dir=out_dir, tag="nccl")),
+        ("45 icr", "mesh_icr_4100", dict(samples=samples * field, tag="nccl")),
         ("44 tomography", "mesh_tomography_256",
          dict(samples=samples, field=field, data_file=data_256, noise_std=noise_256,
               out_dir=out_dir, tag="tomo_nccl")),
-        ("45 icr", "mesh_icr_4100", dict(samples=samples * field, tag="nccl")),
+        ("40 resume", "mesh_checkpoint_resume",
+         dict(samples=samples, field=field, src=os.path.join(ckpt_dir, "last_ckpt"),
+              odir=os.path.join(ckpt_dir, "resume_nccl"), writers=4)),
     ]
 
 
@@ -4816,9 +4977,11 @@ def _same_samples(out_dir, a, b):
 
 def phase_mesh(jt, tmp, data_file, phase6_energy, smi_line, tomo):
     """Phases 37-40, 44 and 45 (see the module docstring): the 4-rank gloo
-    world on card 0, then the NCCL world over every card; returns the
-    kernels' counts of each run.  `tomo`: phase 44's data file and noise,
-    and phase 27's first KL energy."""
+    world on card 0 and the NCCL world over every card, at once; returns
+    the kernels' counts of each run.  `tomo`: phase 44's data file and
+    noise, and phase 27's first KL energy."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from nifty_tpu_torch.parallel import run_world
 
     ckpt, out = os.path.join(tmp, "ckpt"), os.path.join(tmp, "out")
@@ -4826,17 +4989,27 @@ def phase_mesh(jt, tmp, data_file, phase6_energy, smi_line, tomo):
     os.makedirs(out)
     torch.cuda.empty_cache()
     n_cards = torch.cuda.device_count()
-    worlds = {}
-    for world, n, backend in (("gloo", 4, "gloo"), ("nccl", n_cards, "nccl")):
+
+    def world_run(world, n):
         t0 = time.perf_counter()
         ranks = run_world(mesh_rank, n, args=(mesh_world_cases(ckpt, data_file, out, world,
                                                                 tomo[:2]),),
-                          backend=backend, device="cuda", timeout=420, collective_timeout=300)
-        worlds[world] = ranks
-        print(f"mesh world {world}: {n} ranks ({'sharing card 0, collectives through its memory '
-              '(CUDA IPC) and gloo barriers' if world == 'gloo' else 'one a card'}) "
-              f"{time.perf_counter() - t0:.3f} s with the start of its processes | {smi_line}",
-              flush=True)
+                          backend=world, device="cuda", timeout=600, collective_timeout=300)
+        return ranks, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        jobs = {world: pool.submit(world_run, world, n)
+                for world, n in (("gloo", 4), ("nccl", n_cards))}
+        done = {world: job.result() for world, job in jobs.items()}
+    for world, (ranks, secs) in done.items():
+        how = ("one a card" if world == "nccl" else
+               "sharing card 0, collectives through its memory (CUDA IPC) and gloo barriers")
+        print(f"mesh world {world}: {len(ranks)} ranks ({how}) {secs:.3f} s with the start of "
+              f"its processes | {smi_line}", flush=True)
+    print(f"mesh worlds together (the NCCL world beside the gloo world on the card): "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    worlds = {world: ranks for world, (ranks, _) in done.items()}
     g, nc = worlds["gloo"][0], worlds["nccl"][0]
     nccl = "nccl {} x {}".format(*nccl_mesh_shape())
     seconds = {w: {name: round(v["seconds"], 3) for name, v in ranks[0].items()}
@@ -4920,8 +5093,8 @@ def phase_mesh(jt, tmp, data_file, phase6_energy, smi_line, tomo):
     w40, r4, rn = g["40 write"], g["40 resume 4x1"], nc["40 resume"]
     print(f"40 optimize_kl(checkpoint_format='orbax') on 2 x 2, files {w40['files']} | third "
           f"iteration in memory {w40['energy']!r} {w40['digest']}, resumed on 4 x 1 "
-          f"{r4['energy']!r} {r4['digest']}, on {nccl} {rn['energy']!r} {rn['digest']}",
-          flush=True)
+          f"{r4['energy']!r} {r4['digest']}, on {nccl} {rn['energy']!r} {rn['digest']} (after "
+          f"waiting {rn['waited']:.3f} s for the checkpoint)", flush=True)
     print(f"40 the maps on 2 x 2: 'auto' lockstep, kl_map {w40['auto_maps']}; 'vmap' refused "
           f"{w40['vmap_refused']}", flush=True)
     if w40["auto_maps"] != (False, "smap") or not w40["vmap_refused"]:
@@ -4947,6 +5120,9 @@ def phase_mesh(jt, tmp, data_file, phase6_energy, smi_line, tomo):
             **{f"k11_tomography_2x2_rank{r}": worlds["gloo"][r]["44 tomography"]["k11"]
                for r in range(4)},
             "k11_tomography_nccl": nc["44 tomography"]["k11"],
+            **{f"slab_tomography_2x2_rank{r}": worlds["gloo"][r]["44 tomography"]["slab_k11"]
+               for r in range(4)},
+            "slab_tomography_nccl": nc["44 tomography"]["slab_k11"],
             "icr_4x1": g["45 icr"]["counts"], "icr_nccl": nc["45 icr"]["counts"],
             "mesh_4096_nccl": nc["39 update"]["counts"], "checkpoint_2x2": w40["counts"],
             "checkpoint_4x1": r4["counts"], "checkpoint_nccl": rn["counts"]}
@@ -4968,9 +5144,10 @@ def mesh_tomography_report(worlds, nccl, e27, seconds, smi_line):
               f"{[round(x['peak_gib'], 3) for x in ranks]} | collectives a rank: "
               f"{r['collectives']} bytes of their inputs {r['collective_bytes']} | sample "
               f"reductions {r['stats']} | slab rows per rank {[x['rows'] for x in ranks]}, "
-              f"{r['n_virtual']} virtual rays in widths {r['widths']} | {smi_line}", flush=True)
+              f"{r['n_virtual']} virtual rays by lanes {r['groups']} | {smi_line}", flush=True)
         for i, x in enumerate(ranks):
-            print(f"44 {label} rank {i}: K11 launches by (table, rows): {los_text(x['k11'])} | "
+            print(f"44 {label} rank {i}: K11 launches by (table, rows): {los_text(x['k11'])}; "
+                  f"los_slab_forward {slab_text(x['slab_k11'])} | "
                   f"distributor launches by map (slab {x['slab_maps']}): "
                   f"{maps_text(x['counts'])}", flush=True)
             if not x["finite"]:
@@ -4984,10 +5161,13 @@ def mesh_tomography_report(worlds, nccl, e27, seconds, smi_line):
                        if (shape_, nb_) == (shape, bins)) <= 0:
                     raise AssertionError(f"44 {label} rank {i}: {kind} never launched on the "
                                          f"slab's map {shape}, {bins} bins: {x['counts']}")
-            for kind, c in x["k11"].items():
-                if sum(n for ((shape_, _, _), _), n in c.items() if shape_ == shape) <= 0:
-                    raise AssertionError(f"44 {label} rank {i}: K11 {kind} never launched on the "
-                                         f"slab's tables {shape}: {x['k11']}")
+            if sum(n for ((shape_, _, _), _), n in x["k11"]["adjoint"].items()
+                   if shape_ == shape) <= 0:
+                raise AssertionError(f"44 {label} rank {i}: the K11 adjoint never launched on "
+                                     f"the slab's table {shape}: {x['k11']}")
+            if sum(n for ((_, rows, _), _), n in x["slab_k11"].items() if rows == x["rows"]) <= 0:
+                raise AssertionError(f"44 {label} rank {i}: los_slab_forward never launched on "
+                                     f"the slab's rows {x['rows']}: {x['slab_k11']}")
     g, nc = worlds["gloo"][0]["44 tomography"], worlds["nccl"][0]["44 tomography"]
     bitwise = g["digest"] == nc["digest"] and g["energy"] == nc["energy"]
     print(f"44 gloo 2 x 2 against {nccl}: samples' digest {g['digest']} / {nc['digest']}, KL "
@@ -5363,7 +5543,7 @@ def main(argv):
         **{f"{n}^3 x {los.target.shape[0]} rays B={rows}": (los, rows)
            for n, los in ((16, los16), (64, los64)) for rows in (1, 4, 8)},
         "256^3 x 1024 rays B=1": (los256, 1), **slab_cases(slabs)})
-    phase_los_slabs(slabs)
+    sres_los = phase_los_slabs(slabs)
     del slabs
     torch.cuda.empty_cache()
     c_demo1, k11_demo1 = phase_demo1(jt, lh64, cf64)
@@ -5502,6 +5682,10 @@ def main(argv):
                           **{f"tomography_2x2_rank{r}": c_mesh[f"k11_tomography_2x2_rank{r}"]
                              for r in (0, 1)},
                           "tomography_nccl": c_mesh["k11_tomography_nccl"]})
+                      + los_slab_entries(sres_los, {
+                          **{f"tomography_2x2_rank{r}": c_mesh[f"slab_tomography_2x2_rank{r}"]
+                             for r in (0, 1)},
+                          "tomography_nccl": c_mesh["slab_tomography_nccl"]})
                       + k7_kernel_entries(kres_k7, fres_k7, {"radio_1024": k7_radio},
                                           {"cpu_vs_card_32": k7_cpu_vs_card})}))
     print(json.dumps({"ok": True, "device": {

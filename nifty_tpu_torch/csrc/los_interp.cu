@@ -41,6 +41,30 @@
 // skipping index -1.  A butterfly in each warp (offsets below G) and, for
 // W > 1, the warps' sums in warp order finish the ray.
 //
+// los_slab_forward: the (ray, row) partials of a rank's slab of the grid
+// (ops/los_interp.py: LosSlab), y[b, (row - r0) * R + ray], in one launch.
+// A *virtual ray* is a ray's valid entries in one row, in entry order, and
+// its partial is the sum los_forward gives a ray of its entry count c: the
+// lanes a group depend on c only through the power of two above it, so the
+// partials have the bits of los_forward on tables padded to that power
+// with index -1, and of every slab that holds the row.  The host keeps the
+// virtual rays compact: a CSR of int32 cells and weights, each one's s_r
+// and destination, sorted by group width, and a descriptor (first, end,
+// group) for each block.  Fill blocks spread among those write +0 to the
+// pairs a bit mask marks as holding no virtual ray, so every output is
+// written once and nothing else is launched.  What bounds it: the valid
+// entries (1.07 M at a 256^3 half slab, 12.8 MB in float64) and the
+// partials written; but a virtual ray is short (27
+// entries on average there), so a lane a thread would leave each thread
+// one chain of dependent loads (descriptor, offsets, index, field value)
+// with one entry at its end, and the grid several waves of such latency.
+// So a thread plays several lanes of a group of a warp or less, as many
+// (up to kBatch) as leave it at most kBatch entries: it walks the lanes'
+// entries with their stride and loads them all before it adds any, each
+// into its lane's sum, and adds its lanes with the butterfly's larger
+// offsets itself.  Every thread then loads one batch.  Lanes, and so the
+// bits, stay those of los_forward; the host picks the lanes a thread.
+//
 // los_adjoint: no atomics, and each output element is written once.  The
 // host sorts the valid entries by cell (stable, so in (ray, entry) order
 // within a cell): a CSR over the touched cells (cells, seg_off, seg_ray,
@@ -78,9 +102,10 @@
 // kernels give the bits of a whole warp a ray and one thread a grid cell,
 // at every shape and number of rows.
 //
-// The C entry points return the number of kernels launched (1; 0 for an
-// empty call), or the cudaError_t that stopped them (cudaGetLastError()
-// after the launch) negated.  Nothing here allocates or synchronises.
+// The C entry points launch on the caller's stream and return the number
+// of kernels launched (1; 0 for an empty call), or the cudaError_t that
+// stopped them (cudaGetLastError() after the launch) negated.  Nothing here
+// allocates or synchronises.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -121,71 +146,182 @@ __device__ __forceinline__ T group_sum(T v, int width) {
   return v;
 }
 
-template <typename T, int TILE>
-__global__ void __launch_bounds__(kThreads)
-    los_forward(const T* __restrict__ f, const int* __restrict__ idx, const T* __restrict__ w,
-                const T* __restrict__ s, T* __restrict__ y, int nrays, int nent,
-                long long ncells, int nrows, int group) {
-  __shared__ T partial[kWarps][TILE];
+// One ray's sums over a tile's nb rows, by a group of `group` lanes (a
+// power of two) played K lanes a thread: the group's span = group / K
+// threads are consecutive, t the thread's place among them, and it plays
+// lanes t, t + span, ..., t + (K - 1) span.  Lane l takes entries l,
+// l + group, ... of the ray's `nent` at ir / wr, so the thread walks
+// entries t, t + span, ... kBatch at a time (their indices and weights
+// first, with streaming loads, then their field values, then the adds in
+// order, skipping index -1), its n-th entry into lane n % K's sum.  The
+// butterfly then adds lanes l and l + o for offsets o from group / 2 down:
+// within the thread while o >= span, by shuffles below; for a group wider
+// than a warp (K = 1), the warps' sums follow in warp order through
+// `partial`.  The group's first thread writes row k's sum times *sp to
+// out[k * stride] where `live`.  Every thread of the block calls it with
+// the block's `group` and K.
+template <typename T, int TILE, int K>
+__device__ __forceinline__ void ray_forward(const T* __restrict__ fb, const int* __restrict__ ir,
+                                            const T* __restrict__ wr, int nent, int t, int group,
+                                            int nb, long long ncells, bool live,
+                                            const T* __restrict__ sp, T* __restrict__ out,
+                                            long long stride, T (*partial)[TILE]) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int ray = blockIdx.x * (kThreads / group) + threadIdx.x / group;
-  const int t = threadIdx.x % group;
-  const int b0 = blockIdx.y * TILE;
-  const int nb = min(TILE, nrows - b0);
-  T acc[TILE];
+  const int span = group / K;
+  T acc[K][TILE];
 #pragma unroll
-  for (int k = 0; k < TILE; ++k) acc[k] = T(0);
-  if (ray < nrays) {
-    const int* ir = idx + static_cast<long long>(ray) * nent;
-    const T* wr = w + static_cast<long long>(ray) * nent;
-    const T* fb = f + static_cast<long long>(b0) * ncells;
-    for (int e0 = t; e0 < nent; e0 += kBatch * group) {
-      int i[kBatch];
-      T we[kBatch];
+  for (int j = 0; j < K; ++j)
 #pragma unroll
-      for (int m = 0; m < kBatch; ++m) {
-        const int e = e0 + m * group;
-        i[m] = e < nent ? __ldcs(ir + e) : -1;
-        we[m] = e < nent ? __ldcs(wr + e) : T(0);
-      }
-      T v[kBatch][TILE];
+    for (int k = 0; k < TILE; ++k) acc[j][k] = T(0);
+  for (int e0 = t; e0 < nent; e0 += kBatch * span) {
+    int i[kBatch];
+    T we[kBatch];
 #pragma unroll
-      for (int m = 0; m < kBatch; ++m)
+    for (int m = 0; m < kBatch; ++m) {
+      const int e = e0 + m * span;
+      i[m] = e < nent ? __ldcs(ir + e) : -1;
+      we[m] = e < nent ? __ldcs(wr + e) : T(0);
+    }
+    T v[kBatch][TILE];
 #pragma unroll
-        for (int k = 0; k < TILE; ++k)
-          v[m][k] = (i[m] >= 0 && k < nb) ? __ldg(fb + k * ncells + i[m]) : T(0);
+    for (int m = 0; m < kBatch; ++m)
 #pragma unroll
-      for (int m = 0; m < kBatch; ++m) {
-        if (i[m] < 0) continue;
+      for (int k = 0; k < TILE; ++k)
+        v[m][k] = (i[m] >= 0 && k < nb) ? __ldg(fb + k * ncells + i[m]) : T(0);
 #pragma unroll
-        for (int k = 0; k < TILE; ++k)
-          if (k < nb) acc[k] += we[m] * v[m][k];
-      }
+    for (int m = 0; m < kBatch; ++m) {
+      if (i[m] < 0) continue;
+#pragma unroll
+      for (int k = 0; k < TILE; ++k)
+        if (k < nb) acc[m % K][k] += we[m] * v[m][k];
     }
   }
 #pragma unroll
-  for (int k = 0; k < TILE; ++k) acc[k] = group_sum(acc[k], group);
+  for (int h = K / 2; h > 0; h >>= 1)
+#pragma unroll
+    for (int j = 0; j < h; ++j)
+#pragma unroll
+      for (int k = 0; k < TILE; ++k) acc[j][k] += acc[j + h][k];
+#pragma unroll
+  for (int k = 0; k < TILE; ++k) acc[0][k] = group_sum(acc[0][k], span);
   if (group <= 32) {
-    if (ray < nrays && t == 0) {
-      const T sr = __ldg(s + ray);
-      for (int k = 0; k < nb; ++k) y[static_cast<long long>(b0 + k) * nrays + ray] = acc[k] * sr;
+    if (live && t == 0) {
+      const T sr = __ldg(sp);
+      for (int k = 0; k < nb; ++k) out[k * stride] = acc[0][k] * sr;
     }
     return;
   }
   const int wpr = group >> 5;
   if (lane == 0) {
 #pragma unroll
-    for (int k = 0; k < TILE; ++k) partial[warp][k] = acc[k];
+    for (int k = 0; k < TILE; ++k) partial[warp][k] = acc[0][k];
   }
   __syncthreads();
-  if (ray < nrays && lane == 0 && warp % wpr == 0) {
-    const T sr = __ldg(s + ray);
+  if (live && lane == 0 && warp % wpr == 0) {
+    const T sr = __ldg(sp);
     for (int k = 0; k < nb; ++k) {
       T v = partial[warp][k];
       for (int j = 1; j < wpr; ++j) v += partial[warp + j][k];
-      y[static_cast<long long>(b0 + k) * nrays + ray] = v * sr;
+      out[k * stride] = v * sr;
     }
+  }
+}
+
+template <typename T, int TILE>
+__global__ void __launch_bounds__(kThreads)
+    los_forward(const T* __restrict__ f, const int* __restrict__ idx, const T* __restrict__ w,
+                const T* __restrict__ s, T* __restrict__ y, int nrays, int nent,
+                long long ncells, int nrows, int group) {
+  __shared__ T partial[kWarps][TILE];
+  const int ray = blockIdx.x * (kThreads / group) + threadIdx.x / group;
+  const bool live = ray < nrays;
+  const int r = live ? ray : 0;
+  const int b0 = blockIdx.y * TILE;
+  ray_forward<T, TILE, 1>(f + static_cast<long long>(b0) * ncells,
+                          idx + static_cast<long long>(r) * nent,
+                          w + static_cast<long long>(r) * nent, live ? nent : 0,
+                          threadIdx.x % group, group, min(TILE, nrows - b0), ncells, live, s + r,
+                          y + static_cast<long long>(b0) * nrays + r, nrays, partial);
+}
+
+// Zeros to the (row, ray) pairs without a virtual ray among fill block
+// `blk`'s kFillStores * kThreads pairs, in each of the tile's nb rows:
+// the mask words first (a warp's 32 pairs share one), then the stores,
+// consecutive threads on consecutive pairs.
+template <typename T>
+__device__ __forceinline__ void fill_empty_pairs(const uint32_t* __restrict__ empty,
+                                                 T* __restrict__ y, long long nout, int b0,
+                                                 int nb, int blk) {
+  const long long first = static_cast<long long>(blk) * (kFillStores * kThreads) + threadIdx.x;
+  uint32_t bits[kFillStores];
+#pragma unroll
+  for (int c = 0; c < kFillStores; ++c) {
+    const long long p = first + c * kThreads;
+    bits[c] = p < nout ? (__ldg(empty + (p >> 5)) >> (p & 31)) & 1u : 0u;
+  }
+  for (int k = 0; k < nb; ++k) {
+    T* row = y + static_cast<long long>(b0 + k) * nout;
+#pragma unroll
+    for (int c = 0; c < kFillStores; ++c)
+      if (bits[c]) row[first + c * kThreads] = T(0);
+  }
+}
+
+// The (ray, row) partials of a slab, y[b, dest[v]] for every virtual ray v
+// and +0 at the pairs that hold none.  Block x is a virtual-ray block where
+// the count of them up to it steps (spread evenly among the fill blocks):
+// its descriptor (first, end, group, lanes) gives its virtual rays
+// [first, end), all of one group width, played `lanes` lanes a thread
+// (1, 2, 4 or 8, and 1 for a group wider than a warp): kThreads / span of
+// them, each summed by ray_forward on span = group / lanes threads as
+// los_forward sums a ray of its entry count on `group` lanes.
+template <typename T, int TILE>
+__global__ void __launch_bounds__(kThreads)
+    los_slab_forward(const T* __restrict__ f, const int* __restrict__ off,
+                     const int* __restrict__ idx, const T* __restrict__ w,
+                     const T* __restrict__ vscale, const int* __restrict__ dest,
+                     const int* __restrict__ blocks, const uint32_t* __restrict__ empty,
+                     T* __restrict__ y, long long ncells, long long nout, int nrows, int nvblk,
+                     int nfill) {
+  __shared__ T partial[kWarps][TILE];
+  const int b0 = blockIdx.y * TILE;
+  const int nb = min(TILE, nrows - b0);
+  const long long nblocks = static_cast<long long>(nvblk) + nfill;
+  const long long bx = blockIdx.x;
+  const long long before = bx * nvblk / nblocks;
+  if ((bx + 1) * nvblk / nblocks == before) {
+    fill_empty_pairs(empty, y, nout, b0, nb, static_cast<int>(bx - before));
+    return;
+  }
+  const int4 desc = __ldg(reinterpret_cast<const int4*>(blocks) + before);
+  const int group = desc.z, lanes = desc.w;
+  const int span = group / lanes;
+  const int v = desc.x + threadIdx.x / span;
+  const bool live = v < desc.y;
+  const int lo = live ? __ldg(off + v) : 0;
+  const int nent = live ? __ldg(off + v + 1) - lo : 0;
+  const long long d = live ? __ldg(dest + v) : 0;
+  const T* fb = f + static_cast<long long>(b0) * ncells;
+  const int t = threadIdx.x % span;
+  T* out = y + static_cast<long long>(b0) * nout + d;
+  const T* sp = vscale + (live ? v : 0);
+  switch (lanes) {
+    case 8:
+      ray_forward<T, TILE, 8>(fb, idx + lo, w + lo, nent, t, group, nb, ncells, live, sp, out,
+                              nout, partial);
+      break;
+    case 4:
+      ray_forward<T, TILE, 4>(fb, idx + lo, w + lo, nent, t, group, nb, ncells, live, sp, out,
+                              nout, partial);
+      break;
+    case 2:
+      ray_forward<T, TILE, 2>(fb, idx + lo, w + lo, nent, t, group, nb, ncells, live, sp, out,
+                              nout, partial);
+      break;
+    default:
+      ray_forward<T, TILE, 1>(fb, idx + lo, w + lo, nent, t, group, nb, ncells, live, sp, out,
+                              nout, partial);
   }
 }
 
@@ -348,6 +484,40 @@ int launch_forward(const void* f, const void* idx, const void* w, const void* s,
 }
 
 template <typename T>
+int launch_slab_forward(const void* f, const void* off, const void* idx, const void* w,
+                        const void* vscale, const void* dest, const void* blocks,
+                        const void* empty, void* y, long long ncells, long long nout, int nrows,
+                        int nvblk, int tile, int dev, void* stream) {
+  if (nout == 0 || nrows == 0) return 0;
+  const int tiles = (nrows + tile - 1) / tile;
+  if ((tile != 1 && tile != 2 && tile != kRowTile) || tiles > kMaxGridY || nvblk < 0)
+    return kInvalid;
+  const long long per_block = static_cast<long long>(kFillStores) * kThreads;
+  const long long nfill = (nout + per_block - 1) / per_block;
+  if (nvblk + nfill > 0x7fffffffLL) return kInvalid;
+  const dim3 grid(static_cast<unsigned>(nvblk + nfill), tiles);
+  const int err = on_device(dev, [&]() {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const auto run = [&](auto kernel) {
+      kernel<<<grid, kThreads, 0, st>>>(
+          static_cast<const T*>(f), static_cast<const int*>(off), static_cast<const int*>(idx),
+          static_cast<const T*>(w), static_cast<const T*>(vscale),
+          static_cast<const int*>(dest), static_cast<const int*>(blocks),
+          static_cast<const uint32_t*>(empty), static_cast<T*>(y), ncells, nout, nrows, nvblk,
+          static_cast<int>(nfill));
+    };
+    if (tile == 1)
+      run(los_slab_forward<T, 1>);
+    else if (tile == 2)
+      run(los_slab_forward<T, 2>);
+    else
+      run(los_slab_forward<T, kRowTile>);
+    return cudaGetLastError();
+  });
+  return err != 0 ? -err : 1;
+}
+
+template <typename T>
 int launch_adjoint(const void* ybar, const void* mask, const void* cells, const void* seg_off,
                    const void* seg_ray, const void* seg_w, const void* s, void* g,
                    long long ncells, int nrays, int ntouched, int nrows, int dev, void* stream) {
@@ -413,9 +583,23 @@ LOS_FORWARD_ENTRY(los_forward_f64, double)
 LOS_ADJOINT_ENTRY(los_adjoint_f32, float)
 LOS_ADJOINT_ENTRY(los_adjoint_f64, double)
 
-// The most rows a block serves, and the lanes a ray's group holds; the host
-// checks both against its own.
+#define LOS_SLAB_FORWARD_ENTRY(name, T)                                                     \
+  int name(const void* f, const void* off, const void* idx, const void* w,                \
+           const void* vscale, const void* dest, const void* blocks, const void* empty,   \
+           void* y, long long ncells, long long nout, int nrows, int nvblk, int row_tile, \
+           int dev, void* stream) {                                                       \
+    return launch_slab_forward<T>(f, off, idx, w, vscale, dest, blocks, empty, y, ncells, \
+                                  nout, nrows, nvblk, row_tile, dev, stream);             \
+  }
+
+LOS_SLAB_FORWARD_ENTRY(los_slab_forward_f32, float)
+LOS_SLAB_FORWARD_ENTRY(los_slab_forward_f64, double)
+
+// The most rows a block serves, the entries a thread loads before it adds
+// them (which bound the lanes a thread of the slab forward plays), and the
+// lanes a ray's group holds; the host checks each against its own.
 int los_interp_row_tile() { return kRowTile; }
+int los_interp_batch() { return kBatch; }
 int los_interp_lanes_per_ray(int nent) { return lanes_per_ray(nent); }
 
 }  // extern "C"

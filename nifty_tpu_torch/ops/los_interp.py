@@ -41,14 +41,15 @@ holds rows ``[r0, r1)``: :class:`LosSlab` keeps the entries in them
 (:func:`integrate_slab`, with :class:`LosSlabIntegrate` and
 :class:`LosSlabAdjoint`).  The adjoint runs the slab's CSR by cell and needs
 no collective.  The forward's partials cross the field group: under
-``deterministic_reductions`` one for each (ray, row), the *virtual rays*
-of the same kernels, folded over the global rows in halves (so a world
-of p ranks gives the bits of one, the order of ``bin_gather``'s
-``SlabSegmentSum``); otherwise one a ray, all-reduced.  A virtual ray
-holds its entries padded to a power of two rather than to the longest,
-so the tables stay within 1.4 times the valid entries (the 256^3
-tomography's rays cross up to 1024 entries of one row, most far fewer),
-and no new kernel entry is needed: one launch a width.
+``deterministic_reductions`` one for each (ray, row), the sum of a
+*virtual ray* (a ray's entries in one row), folded over the global rows in
+halves (so a world of p ranks gives the bits of one, the order of
+``bin_gather``'s ``SlabSegmentSum``); otherwise one a ray, all-reduced.
+The virtual rays are kept compact, sorted by the lanes their entry count
+gives them, and one launch of ``los_slab_forward``
+(:func:`slab_row_partials`, its own launch counts) sums them all and
+writes the partials, zeros included, each with the bits ``los_forward``
+gives its entries.
 """
 
 from __future__ import annotations
@@ -68,6 +69,11 @@ _FLOAT_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 ROW_TILE = 4
 #: threads a block (``kThreads``)
 THREADS = 256
+#: entries a thread of the forward loads before it adds them (``kBatch``)
+BATCH = 8
+#: the lanes a thread of the slab forward may play (its kernel's cases);
+#: each divides ``BATCH``, so a thread's n-th entry is always lane n % K's
+SLAB_LANES_PER_THREAD = (1, 2, 4, 8)
 #: the most rows a call takes: gridDim.y (65535) row tiles of ``ROW_TILE``.
 #: :func:`forward_row_tile` picks a narrower tile only while the grid is
 #: smaller than the card, so far below this.
@@ -283,11 +289,18 @@ def _kernels():
         adj = getattr(lib, f"los_adjoint_{sfx}")
         adj.argtypes = [vp] * 8 + [cll, ci, ci, ci, ci, vp]
         adj.restype = ci
+        slab = getattr(lib, f"los_slab_forward_{sfx}")
+        slab.argtypes = [vp] * 9 + [cll, cll, ci, ci, ci, ci, vp]
+        slab.restype = ci
         _KERNELS["forward", dtype], _KERNELS["adjoint", dtype] = fwd, adj
-    lib.los_interp_row_tile.restype = ci
+        _KERNELS["slab", dtype] = slab
+    lib.los_interp_row_tile.restype = lib.los_interp_batch.restype = ci
     if lib.los_interp_row_tile() != ROW_TILE:
         raise RuntimeError(f"kernels built for {lib.los_interp_row_tile()} rows a block; the "
                            f"host uses {ROW_TILE}")
+    if lib.los_interp_batch() != BATCH:
+        raise RuntimeError(f"kernels built for batches of {lib.los_interp_batch()} entries; the "
+                           f"host uses {BATCH}")
     lib.los_interp_lanes_per_ray.argtypes, lib.los_interp_lanes_per_ray.restype = [ci], ci
     for nent in (1, 3, 8, 16, 17, 256, 257, 2048, 4096):
         if lib.los_interp_lanes_per_ray(nent) != lanes_per_ray(nent):
@@ -308,17 +321,35 @@ def lanes_per_ray(nent: int) -> int:
     return 32 * warps
 
 
-def forward_row_tile(nrays: int, nent: int, nrows: int, n_sm: int) -> int:
-    """The rows a forward block serves (1, 2 or ``ROW_TILE``): one while
-    the grid of ray blocks times row tiles leaves SMs idle, else the widest
-    tile that still gives each of the ``n_sm`` SMs a block, and no wider
-    than the rows.  A row's order of additions depends on ``E`` alone, so
-    the tile moves no bits."""
-    ray_blocks = -(-nrays // (THREADS // lanes_per_ray(nent)))
+def slab_lanes_per_thread(group: int, nent: int) -> int:
+    """The lanes of a group of ``group`` that one thread of the slab kernel
+    plays for a virtual ray of ``nent`` entries: as many as leave the thread
+    at most ``BATCH`` entries (one batch of loads), up to ``BATCH`` for a
+    group of a warp or less, else one.  The bits follow the lanes, not the
+    threads that play them."""
+    if group > 32:
+        return 1
+    lanes = min(group, BATCH)
+    while lanes > 1 and -(-nent * lanes // group) > BATCH:
+        lanes //= 2
+    return lanes
+
+
+def row_tile(blocks: int, nrows: int, n_sm: int) -> int:
+    """The rows a forward block serves (1, 2 or ``ROW_TILE``) in a grid of
+    ``blocks`` blocks a row tile: one while the grid leaves SMs idle, else
+    the widest tile that still gives each of the ``n_sm`` SMs a block, and
+    no wider than the rows.  A row's order of additions does not depend on
+    the rows a block serves, so the tile moves no bits."""
     tile = ROW_TILE
-    while tile > 1 and (ray_blocks * -(-nrows // tile) < n_sm or tile // 2 >= nrows):
+    while tile > 1 and (blocks * -(-nrows // tile) < n_sm or tile // 2 >= nrows):
         tile //= 2
     return tile
+
+
+def forward_row_tile(nrays: int, nent: int, nrows: int, n_sm: int) -> int:
+    """:func:`row_tile` of the forward's grid of ray blocks."""
+    return row_tile(-(-nrays // (THREADS // lanes_per_ray(nent))), nrows, n_sm)
 
 
 _SM_COUNT: dict = {}
@@ -347,10 +378,10 @@ def _stream(dev):
     return torch._C._cuda_getCurrentRawStream(dev)
 
 
-def _count(wrapper, table: LosTable, nrows: int):
+def _count(wrapper, key, nrows: int):
     wrapper.launches += 1
     wrapper.launches_by_rows[nrows] += 1
-    wrapper.launches_by_shape[table.key, nrows] += 1
+    wrapper.launches_by_shape[key, nrows] += 1
 
 
 def los_integrate(f, table: LosTable):
@@ -371,7 +402,7 @@ def los_integrate(f, table: LosTable):
         _stream(dev))
     if rc < 0:
         raise RuntimeError(f"CUDA kernel launch failed with cudaError {-rc}")
-    _count(los_integrate, table, f.shape[0])
+    _count(los_integrate, table.key, f.shape[0])
     return out
 
 
@@ -392,17 +423,14 @@ def los_integrate_adjoint(ybar, table: LosTable):
         ybar.shape[0], dev, _stream(dev))
     if rc < 0:
         raise RuntimeError(f"CUDA kernel launch failed with cudaError {-rc}")
-    _count(los_integrate_adjoint, table, ybar.shape[0])
+    _count(los_integrate_adjoint, table.key, ybar.shape[0])
     return out
 
 
 def reset_launch_counts():
-    for fn in (los_integrate, los_integrate_adjoint):
+    for fn in (los_integrate, los_integrate_adjoint, slab_row_partials):
         fn.launches = 0
         fn.launches_by_rows, fn.launches_by_shape = Counter(), Counter()
-
-
-reset_launch_counts()
 
 
 # -- autograd pair --------------------------------------------------------
@@ -499,6 +527,15 @@ def integrate_adjoint(ybar, table: LosTable):
 # -- a rank's slab of a field-sharded grid ----------------------------------
 
 
+def _lanes_of_counts(counts):
+    """:func:`lanes_per_ray` and :func:`slab_lanes_per_thread` of each entry
+    count in ``counts``."""
+    uniq, inv = np.unique(counts, return_inverse=True)
+    groups = [lanes_per_ray(int(c)) for c in uniq]
+    per_thread = [slab_lanes_per_thread(g, int(c)) for g, c in zip(groups, uniq)]
+    return np.array(groups, dtype=np.int64)[inv], np.array(per_thread, dtype=np.int64)[inv]
+
+
 class LosSlab(nn.Module):
     """The ray integral over rows ``[r0, r1)`` of the first axis of a grid
     (a rank's slab of a field sharded over a mesh's field axis), from the
@@ -509,17 +546,25 @@ class LosSlab(nn.Module):
       Its forward is a ray's partial over the slab; its adjoint's CSR keeps
       the global (ray, entry) order inside each cell, so a cell's sum has
       the same bits whatever the slab.
-    - ``buckets``: the slab's *virtual rays*, one for each (ray, row) pair
-      that holds an entry, numbered ``ray · n0 + row`` over the global grid:
-      a virtual ray holds its ray's entries in that row, in entry order,
-      padded with -1 to a power of two ``W``, and the virtual rays of one
-      ``W`` form one table (their ``s_r`` the ray's).  The forward of a
-      virtual ray depends on its entries and ``W`` alone, so each (ray,
-      row) partial has the same bits in every slab that holds the row;
-      ``dests`` place each table's values in the ``(rows, R)`` partials.
+    - the slab's *virtual rays*, one for each (ray, row) pair that holds an
+      entry: the ray's valid entries in that row, in entry order, kept
+      compact (``v_off``, int32 CSR offsets, ``(V + 1,)``; ``v_idx``, int32
+      cells of the slab; ``v_w``), with the ray's ``s_r`` (``v_scale``) and
+      the pair's place ``(row - r0) · R + ray`` in the partials
+      (``v_dest``, int32).  They are sorted by the lanes
+      :func:`lanes_per_ray` gives their entry count, then by the lanes
+      :func:`slab_lanes_per_thread` gives a thread (the most first), then
+      by ``ray · n0 + row``; ``v_blocks`` (int32, ``(blocks, 4)``) holds
+      each kernel block's (first, end, lanes, lanes a thread), the virtual
+      rays of one such class that ``THREADS`` threads serve; ``empty`` is
+      the bit mask (a uint32 word for 32
+      pairs, as int32) of the pairs that hold no virtual ray.  A virtual
+      ray's sum depends on its entries alone, so each (ray, row) partial
+      has the same bits in every slab that holds the row.
 
     ``nan_offset`` / ``has_nan`` are the global rays' (added once, after
-    the reduction over the slabs)."""
+    the reduction over the slabs); ``key`` = ``(grid shape, rows, R)`` names
+    the slab in the launch counts."""
 
     def __init__(self, idx, w, scale, shape, rows, nan_rays=None):
         super().__init__()
@@ -533,62 +578,137 @@ class LosSlab(nn.Module):
         n0 = shape[0]
         self.rows, self.shape = (r0, r1), (r1 - r0,) + shape[1:]
         self.nrays = idx.shape[0]
+        self.key = (shape, self.rows, self.nrays)
+        self.nout = (r1 - r0) * self.nrays
         lo, hi = r0 * row_cells, r1 * row_cells
         inside = (idx >= lo) & (idx < hi)
         self.table = LosTable(np.where(inside, idx - lo, -1), w, scale, self.shape)
         self.ncells = self.table.ncells
         nan_rays = np.zeros(self.nrays, bool) if nan_rays is None else np.asarray(nan_rays)
         self.has_nan = bool(nan_rays.any())
-        self.register_buffer("nan_offset", torch.from_numpy(
-            np.where(nan_rays, np.nan, 0).astype(w.dtype)), persistent=False)
         # virtual rays: the slab's valid entries by (ray, row), in entry order
         ray, ent = np.nonzero(inside)
         cell = idx[ray, ent].astype(np.int64)
-        order = np.argsort(ray.astype(np.int64) * n0 + cell // row_cells, kind="stable")
+        vid = ray.astype(np.int64) * n0 + cell // row_cells
+        order = np.argsort(vid, kind="stable")
         ray, ent, cell = ray[order], ent[order], cell[order]
-        vray, first, count = np.unique(ray.astype(np.int64) * n0 + cell // row_cells,
-                                       return_index=True, return_counts=True)
-        vid = np.repeat(np.arange(vray.size), count)
-        slot = np.arange(ray.size) - first[vid]
-        width = np.left_shift(1, np.ceil(np.log2(count)).astype(np.int64))
-        self.buckets = nn.ModuleList()
-        self.widths = []
-        at = np.empty(vray.size, dtype=np.int64)
-        for k, wdt in enumerate(np.unique(width)):
-            sel = np.flatnonzero(width == wdt)
-            at[sel] = np.arange(sel.size)
-            ents = np.flatnonzero(width[vid] == wdt)
-            b_idx = np.full((sel.size, wdt), -1, dtype=np.int32)
-            b_w = np.zeros((sel.size, wdt), dtype=w.dtype)
-            b_idx[at[vid[ents]], slot[ents]] = (cell[ents] - lo).astype(np.int32)
-            b_w[at[vid[ents]], slot[ents]] = w[ray[ents], ent[ents]]
-            b_ray = vray[sel] // n0
-            self.buckets.append(LosTable(b_idx, b_w, np.asarray(scale)[b_ray], self.shape))
-            self.widths.append(int(wdt))
-            dest = (vray[sel] % n0 - r0) * self.nrays + b_ray
-            self.register_buffer(f"dest{k}", torch.from_numpy(dest), persistent=False)
+        vray, first, count = np.unique(vid[order], return_index=True, return_counts=True)
+        lanes, per_thread = _lanes_of_counts(count)
+        bad = [k for k in np.unique(per_thread).tolist()
+               if k not in SLAB_LANES_PER_THREAD or BATCH % k]
+        if bad:
+            raise ValueError(f"lanes a thread {bad}: the slab kernel plays "
+                             f"{SLAB_LANES_PER_THREAD}, each a divisor of BATCH = {BATCH}")
+        # classes of (lanes, lanes a thread), by lanes, the most a thread first
+        cls = lanes * (BATCH + 1) - per_thread
+        by_class = np.argsort(cls, kind="stable")
+        vray, first, count, cls = vray[by_class], first[by_class], count[by_class], cls[by_class]
+        lanes, per_thread = lanes[by_class], per_thread[by_class]
+        off = np.zeros(vray.size + 1, dtype=np.int64)
+        np.cumsum(count, out=off[1:])
+        at = np.repeat(first - off[:-1], count) + np.arange(int(off[-1]))
+        v_ray, v_row = vray // n0, vray % n0
+        blocks = []
+        for c in np.unique(cls):
+            sel = np.flatnonzero(cls == c)
+            g, k = int(lanes[sel[0]]), int(per_thread[sel[0]])
+            per = THREADS * k // g
+            starts = np.arange(sel[0], sel[-1] + 1, per)
+            blocks.append(np.stack([starts, np.minimum(starts + per, sel[-1] + 1),
+                                    np.full(starts.size, g), np.full(starts.size, k)], 1))
+        dest = (v_row - r0) * self.nrays + v_ray
+        held = np.zeros(-(-self.nout // 32) * 32, dtype=bool)
+        held[dest] = True
+        held[self.nout:] = True
+        empty = np.packbits(~held, bitorder="little").view(np.uint32)
         self.n_virtual = int(vray.size)
+        self.groups = {int(g): int(n) for g, n in zip(*np.unique(lanes, return_counts=True))}
+        for name, arr in (
+                ("v_off", off.astype(np.int32)), ("v_idx", (cell[at] - lo).astype(np.int32)),
+                ("v_w", w[ray[at], ent[at]]), ("v_scale", np.asarray(scale, w.dtype)[v_ray]),
+                ("v_dest", dest.astype(np.int32)),
+                ("v_blocks", np.concatenate(blocks or [np.zeros((0, 4), np.int64)])
+                 .astype(np.int32)),
+                ("empty", empty.view(np.int32)),
+                ("nan_offset", np.where(nan_rays, np.nan, 0).astype(w.dtype))):
+            self.register_buffer(name, torch.from_numpy(np.ascontiguousarray(arr)),
+                                 persistent=False)
 
     @property
-    def dests(self):
-        return [getattr(self, f"dest{k}") for k in range(len(self.buckets))]
+    def n_blocks(self) -> int:
+        """The kernel's virtual-ray blocks a row tile."""
+        return self.v_blocks.shape[0]
+
+    @property
+    def table_bytes(self) -> int:
+        """The bytes of the slab forward's tables: the virtual rays'
+        offsets, cells, weights, scales and places, the block descriptors
+        and the zero-fill mask."""
+        return sum(getattr(self, n).numel() * getattr(self, n).element_size()
+                   for n in ("v_off", "v_idx", "v_w", "v_scale", "v_dest", "v_blocks", "empty"))
+
+    def partials_csr(self):
+        """The linear map of :func:`slab_row_partials` as a sparse CSR
+        matrix ``(rows · R, slab cells)``: a row a (row, ray) pair in the
+        partials' order, holding its virtual ray's weights times ``s_r``."""
+        counts = (self.v_off[1:] - self.v_off[:-1]).long()
+        rows = torch.repeat_interleave(self.v_dest.long(), counts)
+        vals = self.v_w * torch.repeat_interleave(self.v_scale, counts)
+        return torch.sparse_coo_tensor(torch.stack([rows, self.v_idx.long()]), vals,
+                                       (self.nout, self.ncells)).coalesce().to_sparse_csr()
 
     def extra_repr(self):
-        return (f"rows={self.rows}, rays={self.nrays}, virtual rays={self.n_virtual} in widths "
-                f"{self.widths}")
+        return (f"rows={self.rows}, rays={self.nrays}, virtual rays={self.n_virtual} by lanes "
+                f"{self.groups}")
 
 
-def slab_row_partials(f, slab: LosSlab, forward=None):
+def _slab_plain(f, slab: LosSlab, w, scale):
+    nrows = f.shape[0]
+    out = f.new_zeros((nrows, slab.nout))
+    if slab.n_virtual:
+        terms = w * f.index_select(1, slab.v_idx)
+        offs = slab.v_off.long().expand(nrows, -1).contiguous()
+        sums = torch.segment_reduce(terms, "sum", offsets=offs, axis=1)
+        out[:, slab.v_dest.long()] = sums * scale
+    return out.reshape(nrows, -1, slab.nrays)
+
+
+def slab_row_partials_plain(f, slab: LosSlab):
+    """The plain version of :func:`slab_row_partials`: each virtual ray's
+    terms ``w · f[:, idx]``, a segment sum by virtual ray, times ``s_r``,
+    put at the pairs' places in zeros."""
+    return _slab_plain(f, slab, slab.v_w, slab.v_scale)
+
+
+def slab_sum_abs_terms(slab: LosSlab, f):
+    """The per-partial sum of |term| of :func:`slab_row_partials` of ``f``:
+    the scale the kernel's error is held to."""
+    return _slab_plain(f.abs(), slab, slab.v_w.abs(), slab.v_scale.abs())
+
+
+def slab_row_partials(f, slab: LosSlab):
     """The (ray, row) partials of fields ``(B, slab cells)``: ``(B, rows,
     R)``, ``s_r`` times the sum of ray ``r``'s entries in each row of the
-    slab (0 where it has none).  ``forward`` runs each virtual-ray table:
-    :func:`los_integrate` by default (the kernel for a CUDA tensor),
-    :func:`los_integrate_plain` for the plain version."""
-    forward = los_integrate if forward is None else forward
-    out = f.new_zeros((f.shape[0], (slab.rows[1] - slab.rows[0]) * slab.nrays))
-    for tab, dest in zip(slab.buckets, slab.dests):
-        out.index_copy_(1, dest, forward(f, tab))
-    return out.reshape(f.shape[0], -1, slab.nrays)
+    slab (+0 where it has none).  One launch of ``los_slab_forward`` for a
+    CUDA tensor, the plain version for a CPU tensor."""
+    _check(f, slab.table, slab.ncells, "field")
+    nrows = f.shape[0]
+    if not f.is_cuda:
+        if f.device.type == "cpu":
+            return slab_row_partials_plain(f, slab)
+        raise RuntimeError(f"no los_interp kernel for device {f.device}")
+    out = f.new_empty((nrows, slab.nout))
+    dev = f.get_device()
+    rc = _kernels()["slab", f.dtype](
+        f.data_ptr(), slab.v_off.data_ptr(), slab.v_idx.data_ptr(), slab.v_w.data_ptr(),
+        slab.v_scale.data_ptr(), slab.v_dest.data_ptr(), slab.v_blocks.data_ptr(),
+        slab.empty.data_ptr(), out.data_ptr(), slab.ncells, slab.nout, nrows, slab.n_blocks,
+        row_tile(slab.n_blocks, nrows, _sm_count(dev)), dev, _stream(dev))
+    if rc < 0:
+        raise RuntimeError(f"CUDA kernel launch failed with cudaError {-rc}")
+    if rc:
+        _count(slab_row_partials, slab.key, nrows)
+    return out.reshape(nrows, -1, slab.nrays)
 
 
 def slab_forward_plain(f, slab: LosSlab, det: bool):
@@ -597,7 +717,7 @@ def slab_forward_plain(f, slab: LosSlab, det: bool):
     R)`` under ``deterministic_reductions``, else the rays' partials over
     the slab ``(B, R)``."""
     if det:
-        return slab_row_partials(f, slab, los_integrate_plain)
+        return slab_row_partials_plain(f, slab)
     return los_integrate_plain(f, slab.table)
 
 
@@ -696,3 +816,6 @@ def integrate_slab(x, slab: LosSlab, group, det: bool):
     if slab.has_nan:
         y = y + slab.nan_offset
     return y.reshape(*lead, slab.nrays)
+
+
+reset_launch_counts()

@@ -842,11 +842,12 @@ def test_los_wrappers_raise_on_bad_inputs(cuda):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 def test_los_slab_route_on_the_card(cuda, dtype):
     """K11 on the slabs of a 16^3 grid (rows 0-7, 8-15 and all 16): the
-    (ray, row) partials and the slab adjoint against their plain versions
-    within 1e-12 / 1e-5 of the per-output sum of |term|, each half slab's
-    partials and adjoint bitwise the whole grid's rows (what makes a world
-    of two field ranks give the bits of one), the ray values of the rows
-    folded equal to the route's own."""
+    (ray, row) partials (``los_slab_forward``, exactly one launch a call)
+    and the slab adjoint against their plain versions within 1e-12 / 1e-5
+    of the per-output sum of |term|, +0 where a pair holds no virtual ray,
+    each half slab's partials and adjoint bitwise the whole grid's rows
+    (what makes a world of two field ranks give the bits of one), the ray
+    values of the rows folded equal to the route's own."""
     from nifty_tpu_torch.ops import los_interp as li
     from nifty_tpu_torch.tree import _fold_halving
 
@@ -863,11 +864,16 @@ def test_los_slab_route_on_the_card(cuda, dtype):
     got = {}
     for (r0, r1), slab in slabs.items():
         fs = f[:, r0 * 256:r1 * 256].contiguous()
+        li.reset_launch_counts()
         part, adj = li.slab_row_partials(fs, slab), li.los_integrate_adjoint(ybar, slab.table)
         torch.cuda.synchronize()
-        scale = li.slab_row_partials(fs.abs(), slab, lambda x, t: li.sum_abs_terms(t, f=x))
-        assert bool(torch.all((part - li.slab_forward_plain(fs, slab, True)).abs()
+        assert li.slab_row_partials.launches == 1
+        assert dict(li.slab_row_partials.launches_by_shape) == {(slab.key, 2): 1}
+        assert li.los_integrate.launches == 0
+        scale = li.slab_sum_abs_terms(slab, fs)
+        assert bool(torch.all((part - li.slab_row_partials_plain(fs, slab)).abs()
                               <= RTOL[dtype] * scale.clamp_min(tiny)))
+        assert not bool(torch.signbit(part[part == 0]).any())
         scale = li.sum_abs_terms(slab.table, ybar=ybar)
         assert bool(torch.all((adj - li.slab_adjoint_plain(ybar, slab)).abs()
                               <= RTOL[dtype] * scale.clamp_min(tiny)))

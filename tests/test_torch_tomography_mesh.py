@@ -327,17 +327,23 @@ def test_slab_pair_is_adjoint(p, det, rng):
 
 def test_slab_tables_hold_every_entry_once():
     """The virtual rays (ray, row) of the slabs of 2 ranks hold each valid
-    entry of the whole table once, padded to powers of two, numbered
-    ``ray * n0 + row``."""
+    entry of the whole table once, compact in entry order, each at its
+    pair's place ``(row - r0) * R + ray`` in the partials."""
     start, end = _rays()
     idx, w, scale, _ = li.los_tables(start, end, DIMS, tuple(1.0 / d for d in DIMS), N_POINTS)
     slabs = [li.LosSlab(idx, w, scale, DIMS, (8 * i, 8 * i + 8)) for i in range(2)]
-    held = sum(int((b.idx >= 0).sum()) for s in slabs for b in s.buckets)
-    assert held == int((idx >= 0).sum())
+    assert sum(s.v_idx.numel() for s in slabs) == int((idx >= 0).sum())
+    row_cells = DIMS[1] * DIMS[2]
     for s in slabs:
-        assert all(b.nent == wdt and wdt & (wdt - 1) == 0 for b, wdt in zip(s.buckets, s.widths))
-        assert sum(b.nrays for b in s.buckets) == s.n_virtual
-        assert s.table.n_valid == sum(int((b.idx >= 0).sum()) for b in s.buckets)
+        r0 = s.rows[0]
+        off, cells, wv = s.v_off.numpy(), s.v_idx.numpy(), s.v_w.numpy()
+        assert s.table.n_valid == off[-1] == cells.size and s.n_virtual == off.size - 1
+        for v, d in enumerate(s.v_dest.numpy()):
+            ray, row = d % N_RAYS, r0 + d // N_RAYS
+            ents = np.flatnonzero(idx[ray] // row_cells == row)
+            np.testing.assert_array_equal(cells[off[v]:off[v + 1]] + r0 * row_cells, idx[ray, ents])
+            np.testing.assert_array_equal(wv[off[v]:off[v + 1]], w[ray, ents])
+            assert s.v_scale[v] == scale[ray]
 
 
 # -- the whole-grid wrappers refuse a slab -----------------------------------------------

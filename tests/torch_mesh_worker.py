@@ -491,7 +491,7 @@ def los_slab_case(f, ybar, field, det, start, end, dims, n_points):
     """The line of sight placed on a 1 x ``field`` mesh: its forward of the
     rank's rows of fields ``f`` (B, *dims) and the gradient of ``<y,
     ybar>`` (the slab adjoint, by autograd), gathered; the collectives of
-    each by kind and bytes, and the slab's virtual-ray widths."""
+    each by kind and bytes, and the slab's virtual rays by lane count."""
     from nifty_tpu_torch.parallel import collectives as coll
 
     jt.config.update("deterministic_reductions", det)
@@ -509,7 +509,7 @@ def los_slab_case(f, ybar, field, det, start, end, dims, n_points):
     adj = (dict(coll.COUNTS), dict(coll.BYTES))
     slab = los.slab(torch.float64)
     return dict(y=_np(y.detach()), grad=_gathered(x.grad, mesh, dim=1), forward=fwd, adjoint=adj,
-                rows=slab.rows, widths=slab.widths, n_virtual=slab.n_virtual)
+                rows=slab.rows, groups=slab.groups, n_virtual=slab.n_virtual)
 
 
 def icr_chart(chart_shape=(14,), depth=3):
