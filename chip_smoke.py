@@ -461,9 +461,11 @@ the direct sum's (how far another rounding of the same ring FFTs moves the
 energy).
 """
 
+import copy
 import hashlib
 import json
 import logging
+import multiprocessing
 import os
 import re
 import shutil
@@ -834,22 +836,35 @@ def phase_device():
     return line
 
 
-@phase("2 build kernels")
-def phase_build():
+def start_builds():
+    """Start one compiler a source, all together: the five CUDA libraries
+    and the host's HEALPix core, each in a thread of its own.  Returns the
+    jobs and their start time; :func:`phase_build` waits for them.  Until
+    then nothing may call a kernel or the HEALPix core (each loads its
+    library at first use), so only host set-up that touches neither runs
+    meanwhile."""
     from concurrent.futures import ThreadPoolExecutor
 
     from nifty_tpu_torch.ops import bin_gather as bg
     from nifty_tpu_torch.ops import healpix, hp_longitude, icr_refine, los_interp, nufft_window
-    from nifty_tpu_torch.ops.cuda_build import BUILD_LOG
 
-    t0 = time.perf_counter()
-    # one compiler a source, all started together: the five CUDA libraries
-    # and the host's HEALPix core
     builds = (bg._kernels, icr_refine._kernels, hp_longitude._kernels, los_interp._kernels,
               nufft_window._kernels, healpix._lib)
-    with ThreadPoolExecutor(len(builds)) as pool:
-        for job in [pool.submit(fn) for fn in builds]:
-            job.result()
+    pool = ThreadPoolExecutor(len(builds))
+    jobs = [pool.submit(fn) for fn in builds]
+    pool.shutdown(wait=False)
+    return jobs, time.perf_counter()
+
+
+@phase("2 build kernels (the wait for them after the host set-up they overlap)")
+def phase_build(started):
+    """Wait for :func:`start_builds`' jobs; print each build's seconds and
+    its kernels' registers and spills."""
+    from nifty_tpu_torch.ops.cuda_build import BUILD_LOG
+
+    jobs, t0 = started
+    for job in jobs:
+        job.result()
     print(f"kernel build+load {time.perf_counter() - t0:.3f} s", flush=True)
     for name, (secs, log) in BUILD_LOG.items():
         print(f"build {name}: {secs:.3f} s", flush=True)
@@ -859,13 +874,15 @@ def phase_build():
 
 
 @phase("3 kernels vs plain")
-def phase_kernels(cases):
+def phase_kernels(cases, f32=()):
     """`cases`: {label: (BinIndex on the card, batch rows)}, or (BinIndex,
     rows, calls a timing): the mesh phases' maps, float64 alone (their
     type) with 10 calls a timing (3 for 256^3's, whose plain segment sum
     takes 68-117 ms a call).  A map of a million entries a call or
     more is timed over 10 calls (its plain segment sum takes up to 46 ms a
-    call), a smaller one over 50."""
+    call), a smaller one over 50.  Every case is held in both types; float32
+    is timed at the labels in `f32`, the shapes the float32 runs (phases 43
+    and 46) launch."""
     from nifty_tpu_torch.ops import bin_gather as bg
 
     dev = torch.device("cuda")
@@ -928,6 +945,8 @@ def phase_kernels(cases):
             lib_rel = float(((lib - plain).abs() / scale.clamp_min(torch.finfo(dtype).tiny)).max())
             if lib_rel > 10 * SEGSUM_RTOL[dtype]:
                 raise AssertionError(f"index_add_ disagrees with the plain version ({label})")
+            if dtype == torch.float32 and label not in f32:
+                continue
             times = {}
             times["gather_ms"], times["gather_plain_ms"] = host_paced_ms(gather, gather_plain, n)
             times["segsum_ms"], times["segsum_plain_ms"] = host_paced_ms(segsum, segsum_plain, n)
@@ -981,17 +1000,83 @@ def phase_kernels(cases):
        "32^2 KL by trust_ncg and lbfgs: updates, CPU vs card, sample loop and lockstep; the "
        "Wiener filter and the SLQ evidence on the 32^2 field")
 def phase_cpu_vs_card(jt):
-    """Returns K7's counts of the card's runs (its radio case)."""
+    """Each case of :func:`cpu_vs_card_cases`, one update in the sample loop
+    and in lockstep, on the CPU (in a process of its own, while this one
+    runs the card's updates) and on the card: KL energies within 1e-8
+    relative.  Then the Wiener filter and the SLQ evidence.  Returns K7's
+    counts of the card's runs (its radio case)."""
     from nifty_tpu_torch.ops import nufft_window as nw
+
+    counts = poisson_counts(jt)
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        cpu = pool.apply_async(cpu_side_energies, (counts,))
+        cases = cpu_vs_card_cases(jt, counts)
+        nw.reset_launch_counts()
+        card = {}
+        for name, (build, kwargs) in cases.items():
+            for rmap in ("smap", "vmap"):
+                _, state, secs = run_updates(jt, build(), 1, kwargs, key=jt.HostKey(7),
+                                             pos_key=jt.HostKey(1), residual_map=rmap)
+                card[name, rmap] = float(state.minimization_state.fun), secs[0]
+        cpu = cpu.get(timeout=1200)
+    for name, rmap in card:
+        energies = {"cpu": cpu[name, rmap][0], "cuda": card[name, rmap][0]}
+        for dev, (energy, sec) in (("cpu", cpu[name, rmap]), ("cuda", card[name, rmap])):
+            print(f"{name} {rmap} on {dev}: KL energy {energy!r} in {sec:.3f} s", flush=True)
+        rel = abs(energies["cuda"] - energies["cpu"]) / abs(energies["cpu"])
+        print(f"{name} {rmap} CPU vs card relative energy difference {rel:.3e}", flush=True)
+        if not rel <= 1e-8:
+            raise AssertionError(
+                f"CPU and card disagree ({name}, {rmap}): relative {rel:.3e} > 1e-8")
+    k7 = k7_counts()
+    print(f"phase 4 K7 calls on the card: {k7_text(k7)}", flush=True)
+    require_k7_launches("32^2 radio on the card", k7)
+    wiener_and_evidence_cpu_vs_card(jt)
+    return k7
+
+
+#: intra-op threads of phase 4's CPU process, which runs beside the card's
+#: updates (their host thread keeps a core)
+CPU_SIDE_THREADS = 6
+
+
+def poisson_counts(jt):
+    """Phase 4's Poisson fields' counts, drawn on the CPU's rates."""
+    jt.config.update("device", "cpu")  # the CPU only because it is asked for
+    try:
+        return {prefix: poisson_likelihood(jt, build_field(jt, (32, 32), prefix=prefix),
+                                           jt.HostKey(3))[2] for prefix in ("pois",)}
+    finally:
+        jt.config.update("device", "cuda")
+
+
+def cpu_side_energies(counts):
+    """Phase 4's CPU side, in a process of its own: each case's KL energy
+    and seconds after one update, by (case, map)."""
+    import nifty_tpu_torch as jt
+
+    jt.logger.setLevel(logging.WARNING)
+    jt.config.update("device", "cpu")  # the CPU only because it is asked for
+    torch.set_num_threads(CPU_SIDE_THREADS)
+    out = {}
+    for name, (build, kwargs) in cpu_vs_card_cases(jt, counts).items():
+        for rmap in ("smap", "vmap"):
+            _, state, secs = run_updates(jt, build(), 1, kwargs, key=jt.HostKey(7),
+                                         pos_key=jt.HostKey(1), residual_map=rmap)
+            out[name, rmap] = float(state.minimization_state.fun), secs[0]
+    return out
+
+
+def cpu_vs_card_cases(jt, counts):
+    """Phase 4's cases, {name: (likelihood builder, update budgets)}, on the
+    configured device; the Poisson fields' counts given (numpy, by
+    prefix)."""
     from nifty_tpu_torch.solvers.lbfgs import _lbfgs
     from nifty_tpu_torch.solvers.trust_ncg import _trust_ncg
 
-    counts = {}  # each Poisson field's counts, drawn once (on the CPU's rates)
-
     def poisson(prefix):
-        lh, _, counts[prefix] = poisson_likelihood(
-            jt, build_field(jt, (32, 32), prefix=prefix), jt.HostKey(3), counts=counts.get(prefix))
-        return lh
+        return poisson_likelihood(jt, build_field(jt, (32, 32), prefix=prefix), jt.HostKey(3),
+                                  counts=counts[prefix])[0]
 
     likelihoods = {
         "32^2": lambda: build_likelihood(jt, build_field(jt, (32, 32)), jt.HostKey(0)),
@@ -1036,34 +1121,8 @@ def phase_cpu_vs_card(jt):
             lambda: build_likelihood(jt, build_field(jt, (32, 32)), jt.HostKey(0)),
             dict(SHORT_KWARGS, kl_kwargs=dict(minimize=_lbfgs, minimize_kwargs=dict(maxiter=3)))),
     }
-    nw.reset_launch_counts()
-    for name, case in likelihoods.items():
-        build, kwargs = case if isinstance(case, tuple) else (case, SHORT_KWARGS)
-        for rmap in ("smap", "vmap"):
-            energies = {}
-            for dev in ("cpu", "cuda"):
-                jt.config.update("device", dev)  # the CPU only because it is asked for
-                try:
-                    lh = build()
-                    _, state, secs = run_updates(
-                        jt, lh, 1, kwargs, key=jt.HostKey(7), pos_key=jt.HostKey(1),
-                        residual_map=rmap,
-                    )
-                finally:
-                    jt.config.update("device", "cuda")
-                energies[dev] = float(state.minimization_state.fun)
-                print(f"{name} {rmap} on {dev}: KL energy {energies[dev]!r} in {secs[0]:.3f} s",
-                      flush=True)
-            rel = abs(energies["cuda"] - energies["cpu"]) / abs(energies["cpu"])
-            print(f"{name} {rmap} CPU vs card relative energy difference {rel:.3e}", flush=True)
-            if not rel <= 1e-8:
-                raise AssertionError(
-                    f"CPU and card disagree ({name}, {rmap}): relative {rel:.3e} > 1e-8")
-    k7 = k7_counts()
-    print(f"phase 4 K7 calls on the card: {k7_text(k7)}", flush=True)
-    require_k7_launches("32^2 radio on the card", k7)
-    wiener_and_evidence_cpu_vs_card(jt)
-    return k7
+    return {name: case if isinstance(case, tuple) else (case, SHORT_KWARGS)
+            for name, case in likelihoods.items()}
 
 
 def demo5_operators(dims, device):
@@ -1262,20 +1321,21 @@ ACCEPTANCE_KWARGS = dict(
     sample_mode="nonlinear_resample",
 )
 class WideKey:
-    """A noise provider for phase 43: the draws of the int key `seed` in
-    float64 (complex128 for a complex leaf), as phases 5 and 6 draw them,
-    rounded to each leaf's dtype.  A float32 run with these keys starts
-    from the float64 run's position and noise, rounded; a float64 run sees
-    the int key's own bits."""
+    """A noise provider for the float32 runs (phases 43 and 46): the draws
+    of `key` (an int seed, or a noise provider such as `HostKey`) in
+    float64 (complex128 for a complex leaf), as the float64 phases draw
+    them, rounded to each leaf's dtype.  A float32 run with these keys
+    starts from the float64 run's position and noise, rounded; a float64
+    run sees the key's own bits."""
 
-    def __init__(self, jt, seed):
-        self.jt, self.seed = jt, int(seed)
+    def __init__(self, jt, key):
+        self.jt, self.key = jt, key if not isinstance(key, (int, np.integer)) else int(key)
 
     def split(self, num=2):
-        return [WideKey(self.jt, s) for s in self.jt.tree.split(self.seed, num)]
+        return [WideKey(self.jt, k) for k in self.jt.tree.split(self.key, num)]
 
     def fold_in(self, data):
-        return WideKey(self.jt, self.jt.tree.fold_in(self.seed, data))
+        return WideKey(self.jt, self.jt.tree.fold_in(self.key, data))
 
     def normal(self, primals, device=None):
         return self.draw(primals, self.jt.tree.normal, device=device)
@@ -1286,7 +1346,7 @@ class WideKey:
             x.shape, torch.complex128 if x.dtype.is_complex else torch.float64), primals)
         device = device if device is not None else t.tree_device(primals)
         return t.tree_map(lambda d, x: d.to(x.dtype),
-                          t.random_like(self.seed, wide, rng, device=device), primals)
+                          t.random_like(self.key, wide, rng, device=device), primals)
 
 
 def require_dtype(label, counts, dtype):
@@ -1434,6 +1494,347 @@ def phase_float32(jt, cells, smi_line):
           f"{dtype_text(c64)}, float32 run {dtype_text(c32)} | {smi_line}", flush=True)
     out["acceptance float64"], out["acceptance float32"] = c64, c32
     return out
+
+
+# -- float32 for the remaining families (phase 46) --------------------------
+
+
+def reference(energy, base, seconds):
+    """What a float32 leg is held to: the float64 run's KL energy, its
+    working memory (the peak allocation above `base`, what was allocated
+    when the run started, in GiB) and its seconds."""
+    return dict(energy=energy, peak=(torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+                seconds=seconds)
+
+
+def kernel_wrappers():
+    """Every kernel wrapper of the port, by the name its launches print
+    under."""
+    from nifty_tpu_torch.ops import bin_gather as bg
+    from nifty_tpu_torch.ops import hp_longitude as hl
+    from nifty_tpu_torch.ops import icr_refine as ir
+    from nifty_tpu_torch.ops import los_interp as li
+    from nifty_tpu_torch.ops import nufft_window as nw
+
+    return {"bin_gather": bg.bin_gather, "bin_segment_sum": bg.bin_segment_sum,
+            "icr_refine": ir.icr_refine, "icr_refine_transpose": ir.icr_refine_transpose,
+            "hp_longitude": hl.hp_longitude, "hp_longitude_adjoint": hl.hp_longitude_adjoint,
+            "los_integrate": li.los_integrate, "los_integrate_adjoint": li.los_integrate_adjoint,
+            "los_slab_forward": li.slab_row_partials, "nufft_interp": nw.window_interp,
+            "nufft_spread": nw.window_spread, "nufft_factors": nw.build_factors}
+
+
+def reset_all_counts():
+    from nifty_tpu_torch.ops import bin_gather as bg
+    from nifty_tpu_torch.ops import hp_longitude as hl
+    from nifty_tpu_torch.ops import icr_refine as ir
+
+    reset_counts()
+    for mod in (bg, hl, ir):
+        mod.reset_launch_counts()
+
+
+def launches_by_dtype():
+    """Every wrapper's kernel-route calls by float type ("f32" / "f64")."""
+    return {name: dict(fn.launches_by_dtype) for name, fn in kernel_wrappers().items()}
+
+
+def shape_counts():
+    """Every wrapper's calls by shape, as the kernel phases' entries read
+    them."""
+    from nifty_tpu_torch.ops import bin_gather as bg
+
+    return dict(dist=launch_counts(bg), icr=icr_counts(), hp=hp_counts(), los=los_counts(),
+                k7=k7_counts())
+
+
+def by_dtype_text(counts):
+    return ", ".join(f"{name} {c}" for name, c in counts.items() if c)
+
+
+def require_float32_kernels(label, counts, family):
+    """Each wrapper of `family` launched its float32 entry, and no wrapper
+    its float64 entry."""
+    f64 = {name: c["f64"] for name, c in counts.items() if c.get("f64")}
+    if f64:
+        raise AssertionError(f"{label}: float64 kernel entries launched in a float32 run: {f64}")
+    idle = [name for name in family if counts[name].get("f32", 0) <= 0]
+    if idle:
+        raise AssertionError(f"{label}: the float32 entries of {idle} never launched: {counts}")
+
+
+#: phase 46's gate, phase 43's yardstick: a float32 update's KL energy within
+#: 2 % of float64's from the same start, rounded
+FLOAT32_ENERGY_RTOL = 0.02
+#: the legs whose energy is reported beside float64's and not gated, and
+#: why: on their metrics float32 CG departs from float64 in the JAX package
+#: as in the port (measured on a CPU, PERF.md, PR 22), so a float32 update's
+#: KL stage stops elsewhere; their sample stages agree
+FLOAT32_ENERGY_REPORTED = {
+    "HEALPix sky nside 256": (
+        "float32 CG departs from float64 on this metric in both packages (the JAX package's "
+        "HEALPix field, lmax 63: 39 % of the solution after 10 CG steps, 120 % after 40)"),
+    "radio 1024^2": (
+        "float32 CG departs from float64 on this metric in both packages (the JAX package's "
+        "radio model, 128^2: 8.6 % of the solution after 10 CG steps, 371 % after 30)"),
+}
+
+
+def float32_leg(jt, label, make, ref, family, smi_line):
+    """One float32 `OptimizeVI.update` of a family at its float64 phase's
+    full width.  `make()`, called with `enable_x64` off, returns the float32
+    likelihood, its optimizer, state and samples: the float64 phase's
+    start and noise, rounded (`WideKey`).  Prints s/update, the KL energy
+    beside `ref`'s (the float64 run's, :func:`reference`), the working
+    memory beside float64's and every wrapper's launches by dtype.  Fails
+    unless the energy is finite and within `FLOAT32_ENERGY_RTOL` of
+    float64's, each wrapper in `family` launched its float32 entry and no
+    wrapper a float64 entry.  Returns the launch counts (by wrapper, by
+    shape) and by dtype."""
+    jt.config.update("enable_x64", False)
+    try:
+        t0 = time.perf_counter()
+        lh, opt, state, samples = make()
+        synchronize(jt)
+        built = time.perf_counter() - t0
+        reset_all_counts()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        samples, state = opt.update(samples, state)
+        synchronize(jt)
+        seconds = time.perf_counter() - t0
+    finally:
+        jt.config.update("enable_x64", True)
+    got = reference(float(state.minimization_state.fun), base, seconds)
+    counts = launches_by_dtype()
+    shapes = shape_counts()
+    energy, e64 = got["energy"], ref["energy"]
+    rel = (energy - e64) / abs(e64)
+    leaves = {x.dtype for x in jt.tree.tree_leaves((samples.pos, samples._samples))}
+    reported = FLOAT32_ENERGY_REPORTED.get(label)
+    print(f"{label} float32, from float64's start and noise rounded: {seconds:.3f} s/update "
+          f"(float64 {ref['seconds']:.3f}; model built in {built:.3f} s) | KL energy {energy!r}, "
+          f"float64 {e64!r}: relative {rel:+.5f}"
+          + (f" (reported, not gated: {reported})" if reported else "")
+          + f" | last KL Newton steps {int(state.minimization_state.nit)} (status "
+          f"{int(state.minimization_state.status)}), geoVI steps per "
+          f"sample {state.sample_state.nit.tolist()} | working memory {got['peak']:.3f} GiB "
+          f"against "
+          f"float64's {ref['peak']:.3f} GiB ({got['peak'] / max(ref['peak'], 1e-9):.3f}) | kernel "
+          f"calls by "
+          f"dtype: {by_dtype_text(counts)} | {smi_line}", flush=True)
+    if leaves != {torch.float32}:
+        raise AssertionError(f"{label} float32: samples of {leaves}")
+    if not (np.isfinite(energy) and (reported or abs(rel) < FLOAT32_ENERGY_RTOL)):
+        raise AssertionError(f"{label} float32: KL energy {energy} not finite or not within "
+                             f"{FLOAT32_ENERGY_RTOL:.0%} of float64's {e64}")
+    require_float32_kernels(label, counts, family)
+    return dict(shapes=shapes, by_dtype=counts, **got, rel=rel)
+
+
+def icr_float32(jt, field):
+    """A float32 twin of an ICR field without a second host precompute: the
+    same chart and kernel, its matrices (built in float64 on the host, as
+    the JAX package builds them too) rounded once into float32 levels of the
+    same geometry (:func:`level_like`), and a float32 domain."""
+    from functools import partial
+
+    from nifty_tpu_torch.model import Initializer
+
+    twin = copy.copy(field)
+    twin._buffers = {k: v.to(torch.float32) if v is not None and v.is_floating_point() else v
+                     for k, v in field._buffers.items()}
+    twin._modules = dict(field._modules)
+    twin._modules["levels"] = torch.nn.ModuleList(
+        [level_like(lv, torch.float32) for lv in field.levels])
+    domain = {k: jt.ShapeWithDtype(v.shape, torch.float32) for k, v in field.domain.items()}
+    twin._domain = domain
+    twin._init = Initializer({k: partial(jt.random_like, primals=v) for k, v in domain.items()})
+    return twin
+
+
+def float32_start(jt, lh, kwargs, key=7, pos_key=1, scale=None, **maps):
+    """:func:`start` with the keys' float64 draws rounded (`WideKey`): an
+    int key as phases 5-21 give it, or a `HostKey` pair; `scale` times the
+    position where the float64 phase scales its start."""
+    opt, samples, state = start(jt, lh, kwargs, WideKey(jt, key), WideKey(jt, pos_key), **maps)
+    if scale is not None:
+        samples = jt.Samples(pos={k: scale * v for k, v in samples.pos.items()}, samples=None,
+                             keys=None)
+    return lh, opt, state, samples
+
+
+@phase("46 float32: phase 19's 4100^2 ICR update and phase 21's sphere x radius")
+def phase_icr_float32(jt, cells, smi_line):
+    """`cells`: {label: (ICR field, float64 likelihood, its noise std, the
+    float64 run's reference, response)}: each field's float32 twin
+    (:func:`icr_float32`) under the float64 run's data, rounded, observed
+    by `response(field)`; one update (`BENCH_KWARGS`, the sample loop) from
+    the float64 run's start and noise rounded."""
+    out = {}
+    for label, (field, lh64, noise_std, ref, response) in cells.items():
+        def make():
+            gp = icr_float32(jt, field)
+            lh = jt.Gaussian(lh64.likelihood.data,
+                             noise_cov_inv=lambda x: x / noise_std ** 2).amend(response(gp))
+            return float32_start(jt, lh, BENCH_KWARGS, residual_map="smap", kl_map="smap")
+
+        out[label] = float32_leg(jt, label, make, ref, ("icr_refine", "icr_refine_transpose"),
+                                 smi_line)
+        torch.cuda.empty_cache()
+    return out
+
+
+@phase("46 float32: phase 27's 256^3 tomography update")
+def phase_tomography_float32(jt, lh64, los, noise_std, ref, smi_line):
+    """Phase 27's model in float32: a float32 correlated field
+    (`tomography_model`'s priors, `n_bins=128`) through phase 27's response
+    itself (its float32 ray table built from the same rays, beside the
+    float64 one), phase 27's data rounded; one update at `TOMO256_KWARGS`
+    from phase 27's start and noise rounded."""
+    def make():
+        cf = tomography_field(jt, TOMO256_RAYS["dims"], n_bins=128)
+        lh = jt.Gaussian(lh64.likelihood.data,
+                         noise_cov_inv=lambda x: x / noise_std ** 2).amend(los_model(jt, cf, los))
+        opt = jt.OptimizeVI(lh, n_total_iterations=3, residual_map="smap", kl_map="smap")
+        state, pos = tomography_256_start(jt, opt, lh, wide=True)
+        return lh, opt, state, jt.Samples(pos=pos, samples=None, keys=None)
+
+    return float32_leg(jt, "256^3 tomography", make, ref,
+                       ("los_integrate", "los_integrate_adjoint", "bin_gather",
+                        "bin_segment_sum"), smi_line)
+
+
+@phase("46 float32: phase 35's radio 1024^2 update")
+def phase_radio_float32(jt, lh64, rr, std, ref, smi_line):
+    """Phase 35's model in float32: a float32 1024^2 correlated field
+    through phase 35's response itself (its float32 window tables built
+    from the same visibilities, its phase screens rounded once), phase
+    35's data rounded; one update (`BENCH_KWARGS`, the sample loop) from
+    phase 35's start and noise rounded."""
+    def make():
+        cf = build_field(jt, tuple(rr.domain.shape))
+        lh = jt.Gaussian(lh64.likelihood.data, noise_cov_inv=lambda x: x / std ** 2).amend(
+            pointwise(jt, cf, lambda s: rr(torch.exp(s))))
+        return float32_start(jt, lh, BENCH_KWARGS, *jt.HostKey(RADIO_SEED + 1).split(2),
+                             scale=0.1, residual_map="smap", kl_map="smap")
+
+    return float32_leg(jt, "radio 1024^2", make, ref,
+                       ("nufft_interp", "nufft_spread", "nufft_factors", "bin_gather",
+                        "bin_segment_sum"), smi_line)
+
+
+def sphere_float32(jt, sky):
+    """`build_sphere(jt, 511, "healpix")` in float32 without a second host
+    precompute of its Legendre table: the float64 sky's table, rounded on
+    the card (the JAX package also evaluates it in float64 on the host)."""
+    from nifty_tpu_torch.ops import healpix_sht as hs
+
+    evaluate = hs.normalized_legendre_table
+    hs.normalized_legendre_table = lambda lmax, theta, mmax: np.zeros((0, 0, 0))
+    try:
+        sky32 = build_sphere(jt, sky.spherical_transform.sht.lmax, "healpix")
+    finally:
+        hs.normalized_legendre_table = evaluate
+    sky32.spherical_transform.sht.lam = sky.spherical_transform.sht.lam.to(torch.float32)
+    return sky32
+
+
+@phase("46 float32: phase 23's HEALPix sky (nside 256, lmax 511), its first update")
+def phase_sphere_float32(jt, sky, lh64, k_init, k_opt, ref, smi_line):
+    """Phase 23's model in float32 (:func:`sphere_float32`), phase 23's data
+    rounded; the first update of its `optimize_kl` (4 pairs, the demo's
+    budgets, the sample loop) from phase 23's start and noise rounded."""
+    def make():
+        sky32 = sphere_float32(jt, sky)
+        noise_std_inv2 = lh64.likelihood.noise_cov_inv(torch.ones_like(lh64.likelihood.data))
+        lh = jt.Gaussian(lh64.likelihood.data,
+                         noise_cov_inv=lambda x: x * noise_std_inv2.to(x.dtype)).amend(sky32)
+        opt = jt.OptimizeVI(lh, n_total_iterations=4, residual_map="smap", kl_map="smap")
+        state = opt.init_state(WideKey(jt, k_opt), n_samples=4, **DEMO16_KWARGS)
+        pos = {k: 0.1 * v for k, v in lh.init(WideKey(jt, k_init)).items()}
+        return lh, opt, state, jt.Samples(pos=pos, samples=None, keys=None)
+
+    return float32_leg(jt, "HEALPix sky nside 256", make, ref,
+                       ("hp_longitude", "hp_longitude_adjoint", "bin_gather", "bin_segment_sum"),
+                       smi_line)
+
+
+def mean_potential(ham, chain):
+    """The potential averaged over the kept half of a chain's samples (the
+    cross-check's half), as a float."""
+    keep = range(NUTS_TRANSITIONS // 2, NUTS_TRANSITIONS)
+    with torch.no_grad():
+        return float(sum(float(ham({k: v[i] for k, v in chain.samples.items()}))
+                         for i in keep) / len(keep))
+
+
+@phase("46 float32: phase 28's 16^3 NUTS chain")
+def phase_nuts_float32(jt, lh64, los, noise_std, start, ref, smi_line):
+    """Phase 28's chain in float32: a float32 correlated field through phase
+    28's response (its float32 ray table), phase 28's data rounded; the
+    same `NUTS_TRANSITIONS` transitions (step 0.02, depth 8, seed 42) from
+    phase 28's geoVI position rounded.  Prints s/transition, the mean
+    potential of the kept half beside float64's, the working memory and the
+    launches by dtype; gates as :func:`float32_leg` (the potential for the
+    KL energy) and on phase 28's cross-check against phase 28's geoVI
+    posterior."""
+    pos64, geo_mean, geo_std = start
+    jt.config.update("enable_x64", False)
+    try:
+        t0 = time.perf_counter()
+        cf = tomography_field(jt, (16,) * 3)
+        lh = jt.Gaussian(lh64.likelihood.data,
+                         noise_cov_inv=lambda x: x / noise_std ** 2).amend(los_model(jt, cf, los))
+        pos = {k: v.to(torch.float32) for k, v in pos64.items()}
+
+        def ham(x):
+            return lh(x) + 0.5 * jt.vdot(x, x)
+
+        chain = jt.NUTSChain(potential_energy=ham, inverse_mass_matrix=1.0, position_proto=pos,
+                             step_size=0.02, max_tree_depth=8)
+        built = time.perf_counter() - t0
+        reset_all_counts()
+        torch.cuda.reset_peak_memory_stats()
+        synchronize(jt)
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        nuts, _ = chain.generate_n_samples(42, pos, NUTS_TRANSITIONS)
+        synchronize(jt)
+        seconds = time.perf_counter() - t0
+        got = reference(mean_potential(ham, nuts), base, seconds)
+        keep = range(NUTS_TRANSITIONS // 2, NUTS_TRANSITIONS)
+        with torch.no_grad():
+            cf_nuts = torch.stack([cf({k: v[i] for k, v in nuts.samples.items()})
+                                   for i in keep]).double()
+    finally:
+        jt.config.update("enable_x64", True)
+    counts, shapes = launches_by_dtype(), shape_counts()
+    spread = geo_std + cf_nuts.std(0, correction=0) + 1e-3
+    frac_off = float(((geo_mean - cf_nuts.mean(0)).abs() > 3.0 * spread).double().mean())
+    energy, e64 = got["energy"], ref["energy"]
+    rel = (energy - e64) / abs(e64)
+    leaves = int((2 ** nuts.depths - 1).sum())
+    print(f"16^3 NUTS float32, from phase 28's geoVI position rounded: {NUTS_TRANSITIONS} "
+          f"transitions in {seconds:.3f} s ({seconds / NUTS_TRANSITIONS:.4f} s/transition, "
+          f"float64 {ref['seconds'] / NUTS_TRANSITIONS:.4f}; {leaves} leapfrog leaves; model "
+          f"built in {built:.3f} s) | mean potential of the kept half {energy!r}, float64 "
+          f"{e64!r}: relative {rel:+.5f} | mean depth {float(nuts.depths.double().mean()):.3f} | "
+          f"acceptance {float(nuts.acceptance.mean()):.4f} | divergences "
+          f"{int(nuts.divergences.sum())} | voxels off phase 28's geoVI {frac_off:.4f} | "
+          f"working memory {got['peak']:.3f} GiB against float64's {ref['peak']:.3f} GiB | "
+          f"kernel calls by dtype: {by_dtype_text(counts)} | {smi_line}", flush=True)
+    if {x.dtype for x in jt.tree.tree_leaves(nuts.samples)} != {torch.float32}:
+        raise AssertionError("16^3 NUTS float32: samples not float32")
+    if not (np.isfinite(energy) and abs(rel) < FLOAT32_ENERGY_RTOL):
+        raise AssertionError(f"16^3 NUTS float32: mean potential {energy} not finite or not "
+                             f"within {FLOAT32_ENERGY_RTOL:.0%} of float64's {e64}")
+    if not frac_off < 0.05:
+        raise AssertionError(f"float32 NUTS and geoVI disagree on {frac_off:.4f} of the voxels")
+    require_float32_kernels("16^3 NUTS", counts, ("los_integrate", "los_integrate_adjoint",
+                                                  "bin_gather", "bin_segment_sum"))
+    return dict(shapes=shapes, by_dtype=counts, **got, rel=rel)
 
 
 def present(name):
@@ -1847,7 +2248,7 @@ def icr_bound_ms(level, nrows, size, transpose):
 
 
 @phase("17 the refinement kernels vs plain")
-def phase_icr_kernels(cases):
+def phase_icr_kernels(cases, f32=()):
     """`cases`: {label: (RefineLevel on the card, rows)}.  Each step and its
     transpose against the plain versions in float64 and float32 (within
     1e-12 / 1e-5 of the plain output's largest entry), bitwise reproducible
@@ -1858,7 +2259,8 @@ def phase_icr_kernels(cases):
     stencil, the library route on an undeformed chart of the same shape
     (`conv2d` + `pixel_shuffle`; for the transpose `pixel_unshuffle` +
     `conv_transpose2d` + `conv2d`), held to the kernels on shared
-    matrices."""
+    matrices.  The labels in `f32` (the shapes phase 46's float32 legs
+    launch) are timed in float32 too, under `"<label> float32"`."""
     from nifty_tpu_torch.ops import icr_refine as ir
 
     dev = torch.device("cuda")
@@ -1890,42 +2292,19 @@ def phase_icr_kernels(cases):
             if max(errs) > ICR_RTOL[dtype]:
                 raise AssertionError(f"the refinement kernels are off their plain versions by "
                                      f"{errs} of the largest entry ({label}, {dtype})")
-            if dtype != torch.float64:
+            if dtype == torch.float32 and label not in f32:
                 continue
             r = dict(refine_err=float((fine1 - fine_p).abs().max()),
                      transpose_err=max(float((back1[0] - back_p[0]).abs().max()),
                                        float((back1[1] - back_p[1]).abs().max())))
-            r["refine_device_ms"] = device_ms(lambda: ir.icr_refine(coarse, xi, lv))
-            r["transpose_device_ms"] = device_ms(lambda: ir.icr_refine_transpose(cot, lv))
-            r["refine_plain_device_ms"] = device_ms(lambda: ir.icr_refine_plain(coarse, xi, lv))
-            r["transpose_plain_ms"] = cuda_ms(lambda: ir.icr_refine_transpose_plain(cot, lv), n=20)
-            size = coarse.element_size()
-            r["refine_bound_ms"], r["refine_bound_by"] = icr_bound_ms(lv, nrows, size, False)
-            r["transpose_bound_ms"], r["transpose_bound_by"] = icr_bound_ms(lv, nrows, size, True)
-            r["refine_library_ms"] = r["transpose_library_ms"] = None
-            library = conv_route(lv)
-            if library is not None:
-                shared, route, route_t = library
-                xi_channels = xi.reshape(nrows, *lv.sites, lv.F).permute(0, 3, 1, 2).contiguous()
-                want = ir.icr_refine(coarse, xi, shared)
-                lib_err = float((route(coarse, xi_channels) - want).abs().max())
-                want_c, want_x = ir.icr_refine_transpose(cot, shared)
-                got_c, got_x = route_t(cot)
-                got_x = got_x.permute(0, 2, 3, 1).reshape(nrows, -1)
-                lib_err_t = max(float((got_c - want_c).abs().max()) / float(want_c.abs().max()),
-                                float((got_x - want_x).abs().max()) / float(want_x.abs().max()))
-                if (lib_err > ICR_RTOL[dtype] * float(want.abs().max())
-                        or lib_err_t > ICR_RTOL[dtype]):
-                    raise AssertionError(f"the conv2d routes are off the kernels by {lib_err} / "
-                                         f"{lib_err_t} relative ({label})")
-                r["refine_library_ms"] = device_ms(lambda: route(coarse, xi_channels))
-                r["transpose_library_ms"] = device_ms(lambda: route_t(cot))
-            results[label] = r
+            r.update(icr_timings(ir, lv, coarse, xi, cot, nrows, dtype, label))
+            results[label if dtype == torch.float64 else f"{label} float32"] = r
             lib, lib_t = r["refine_library_ms"], r["transpose_library_ms"]
+            name = str(dtype).replace("torch.", "")
             print(
                 f"{label}: coarse {lv.coarse_shape} -> fine {lv.fine_shape}, W {lv.W}, F {lv.F}, "
                 f"{lv.n_matrices} matrix pairs, B={nrows}, routes {lv.step_route} / "
-                f"{lv.transpose_route} | float64 device ms: step "
+                f"{lv.transpose_route} | {name} device ms: step "
                 f"{r['refine_device_ms']:.5f} ({r['refine_bound_ms'] / r['refine_device_ms']:.1%} "
                 f"of the bound {r['refine_bound_ms']:.5f} by {r['refine_bound_by']}; plain "
                 f"{r['refine_plain_device_ms']:.5f}"
@@ -1937,11 +2316,42 @@ def phase_icr_kernels(cases):
                 + (f", pixel_unshuffle + conv_transpose2d + conv2d {lib_t:.5f}"
                    if lib_t is not None else "")
                 + f"; {kernel_text(lv, True)}) | rel err float64 / float32 within "
-                f"{ICR_RTOL[torch.float64]} / {ICR_RTOL[torch.float32]}; max abs err float64 "
+                f"{ICR_RTOL[torch.float64]} / {ICR_RTOL[torch.float32]}; max abs err {name} "
                 f"{r['refine_err']:.3e} / {r['transpose_err']:.3e}",
                 flush=True,
             )
     return results
+
+
+def icr_timings(ir, lv, coarse, xi, cot, nrows, dtype, label):
+    """Phase 17's numbers of one level and dtype: the kernels' and the plain
+    versions' ms, the bounds and the library routes where the level is the
+    2-D stencil (held to the kernels first)."""
+    r = dict(refine_device_ms=device_ms(lambda: ir.icr_refine(coarse, xi, lv)),
+             transpose_device_ms=device_ms(lambda: ir.icr_refine_transpose(cot, lv)),
+             refine_plain_device_ms=device_ms(lambda: ir.icr_refine_plain(coarse, xi, lv)),
+             transpose_plain_ms=cuda_ms(lambda: ir.icr_refine_transpose_plain(cot, lv), n=20))
+    size = coarse.element_size()
+    r["refine_bound_ms"], r["refine_bound_by"] = icr_bound_ms(lv, nrows, size, False)
+    r["transpose_bound_ms"], r["transpose_bound_by"] = icr_bound_ms(lv, nrows, size, True)
+    r["refine_library_ms"] = r["transpose_library_ms"] = None
+    library = conv_route(lv)
+    if library is not None:
+        shared, route, route_t = library
+        xi_channels = xi.reshape(nrows, *lv.sites, lv.F).permute(0, 3, 1, 2).contiguous()
+        want = ir.icr_refine(coarse, xi, shared)
+        lib_err = float((route(coarse, xi_channels) - want).abs().max())
+        want_c, want_x = ir.icr_refine_transpose(cot, shared)
+        got_c, got_x = route_t(cot)
+        got_x = got_x.permute(0, 2, 3, 1).reshape(nrows, -1)
+        lib_err_t = max(float((got_c - want_c).abs().max()) / float(want_c.abs().max()),
+                        float((got_x - want_x).abs().max()) / float(want_x.abs().max()))
+        if lib_err > ICR_RTOL[dtype] * float(want.abs().max()) or lib_err_t > ICR_RTOL[dtype]:
+            raise AssertionError(f"the conv2d routes are off the kernels by {lib_err} / "
+                                 f"{lib_err_t} relative ({label}, {dtype})")
+        r["refine_library_ms"] = device_ms(lambda: route(coarse, xi_channels))
+        r["transpose_library_ms"] = device_ms(lambda: route_t(cot))
+    return r
 
 
 def icr_counts():
@@ -1975,11 +2385,13 @@ def icr_text(counts, field):
 def drive_icr(jt, label, lh, field, n_updates=1, kwargs=BENCH_KWARGS, **maps):
     """`n_updates` updates of an ICR likelihood with the refinement launch
     counts and the peak memory reset just before; fails unless both kernels
-    launched at every level.  Returns the counts."""
+    launched at every level.  Returns the counts and the run's
+    :func:`reference` (what phase 46's float32 leg is held to)."""
     from nifty_tpu_torch.ops import icr_refine as ir
 
     torch.cuda.reset_peak_memory_stats()
     ir.reset_launch_counts()
+    base = torch.cuda.memory_allocated()
     _, state, secs = run_updates(jt, lh, n_updates, kwargs, **maps)
     counts = icr_counts()
     energy = float(state.minimization_state.fun)
@@ -1993,7 +2405,7 @@ def drive_icr(jt, label, lh, field, n_updates=1, kwargs=BENCH_KWARGS, **maps):
     if not np.isfinite(energy):
         raise AssertionError(f"{label}: non-finite KL energy {energy}")
     require_icr_launches(label, counts, field)
-    return counts
+    return counts, reference(energy, base, secs[0])
 
 
 def masked_signal(jt, field, npix, seed, fraction=3):
@@ -2119,17 +2531,19 @@ def phase_4100(jt, gp, with_profile):
     prior; `BENCH_KWARGS` with the sample loop for both stages."""
     _, response = masked_signal(jt, gp, int(np.prod(gp.chart.shape)), DEMO9_MASK_SEED)
     lh, _ = icr_gaussian(jt, response, jt.HostKey(19), 19, DEMO9_NOISE)
-    counts = drive_icr(jt, "4100^2 deformed chart", lh, gp, residual_map="smap", kl_map="smap")
+    counts, ref = drive_icr(jt, "4100^2 deformed chart", lh, gp, residual_map="smap",
+                            kl_map="smap")
     if with_profile:
         profile_update(jt, "4100^2 deformed chart", lh, residual_map="smap", kl_map="smap")
-    return counts
+    return counts, lh, ref
 
 
-def icr_kernel_entries(kres, paths):
+def icr_kernel_entries(kres, paths, dtype="float64"):
     """The `kernels` line's entries of the two refinement kernels: one for
     each kernel, field level and number of rows that the runs in `paths`
     ({field name: (field, {run: counts})}) launched, with phase 17's numbers
-    for that shape; fails on a shape that phase 17 did not check."""
+    for that shape in `dtype`; fails on a shape that phase 17 did not
+    check (time, for float32)."""
     src = "nifty_tpu_torch/csrc/icr_refine.cu"
     entries = []
     for name, (field, runs) in paths.items():
@@ -2141,15 +2555,16 @@ def icr_kernel_entries(kres, paths):
                           for run, c in runs.items()}
                 for nrows in sorted(set().union(*by_run.values())):
                     label = f"{name} L{lv} B={nrows}"
-                    if label not in kres:
+                    key = label if dtype == "float64" else f"{label} {dtype}"
+                    if key not in kres:
                         raise AssertionError(
-                            f"the main path launched icr_{kind} at {label}, a shape that phase "
-                            f"17 did not hold against the plain version")
-                    r = kres[label]
+                            f"the main path launched icr_{kind} at {key}, a shape that phase "
+                            f"17 did not hold against the plain version and time")
+                    r = kres[key]
                     first = next(c[nrows] for c in by_run.values() if c.get(nrows))
                     entries.append(dict(
                         name=f"icr_{kind} (K9, {label}, {level.coarse_shape} -> "
-                             f"{level.fine_shape}, float64)",
+                             f"{level.fine_shape}, {dtype})",
                         route="cuda", source=src,
                         replaces=f"{replaces} (XLA in the JAX package, not Pallas)",
                         launches=first,
@@ -2236,7 +2651,7 @@ def check_k10(label, rings, nm, F, ct, want, against, select=None):
 
 
 @phase("22 the HEALPix longitude kernels (K10) vs plain")
-def phase_hp_kernels(cases, wide):
+def phase_hp_kernels(cases, wide, f32=()):
     """`cases`: {label: (HPRings on the card, nm, rows)}.  K10 and its
     adjoint against the plain versions in float64 and float32 (within 1e-12
     / 1e-5 of the per-output sum of |term|), bitwise reproducible and
@@ -2249,7 +2664,10 @@ def phase_hp_kernels(cases, wide):
     transforms run in the workspace): held against the plain versions on a
     sample of its rings (:func:`hp_ring_sample`), timed beside the bound
     (the ``torch.fft`` route would first build a cuFFT plan for each of
-    its 2048 ring lengths)."""
+    its 2048 ring lengths).  The labels of `cases` in `f32` (the shape phase
+    46's float32 leg launches) are timed in float32 too, under
+    `"<label> float32"`: the kernels, the ``torch.fft`` route and the plain
+    versions (not the stored tables)."""
     from nifty_tpu_torch.ops import hp_longitude as hl
 
     dev = torch.device("cuda")
@@ -2268,27 +2686,47 @@ def phase_hp_kernels(cases, wide):
                 ct, rings, nm)
             y1, g1, rels = check_k10(label, rings, nm, F, ct, (y_plain, g_plain),
                                      "their plain versions")
-            if dtype != torch.float64:
+            if dtype == torch.float32 and label not in f32:
                 continue
             r = dict(synth_err=float((y1 - y_plain).abs().max()),
                      adjoint_err=float((g1 - g_plain).abs().max()),
                      synth_rel=rels[0], adjoint_rel=rels[1])
             r["synth_device_ms"] = device_ms(lambda: hl.hp_longitude(F, rings))
             r["adjoint_device_ms"] = device_ms(lambda: hl.hp_longitude_adjoint(ct, rings, nm))
-            r["synth_library_ms"] = device_ms(lambda: hl.hp_longitude_fft_route(F, rings), n=5)
-            r["adjoint_library_ms"] = device_ms(
-                lambda: hl.hp_longitude_adjoint_fft_route(ct, rings, nm), n=5)
+            # the torch.fft route builds a cuFFT plan for every ring length
+            # and number of rows (seconds each time): timed at one row, the
+            # rows the main path launches
+            r["synth_library_ms"] = r["adjoint_library_ms"] = None
+            if nrows == 1:
+                r["synth_library_ms"] = device_ms(lambda: hl.hp_longitude_fft_route(F, rings), n=5)
+                r["adjoint_library_ms"] = device_ms(
+                    lambda: hl.hp_longitude_adjoint_fft_route(ct, rings, nm), n=5)
             bound = hp_bound_ms(rings, nm, nrows, F.element_size(), PEAK_OPS_PER_S[dtype])
             r["synth_bound_ms"], r["synth_bound_by"] = bound
             r["adjoint_bound_ms"], r["adjoint_bound_by"] = bound
+            if dtype == torch.float32:
+                r["synth_plain_ms"] = cuda_ms(lambda: hl.hp_longitude_plain(F, rings), n=5)
+                r["adjoint_plain_ms"] = cuda_ms(
+                    lambda: hl.hp_longitude_adjoint_plain(ct, rings, nm), n=5)
+                results[f"{label} float32"] = r
+                print(f"{label}: planes ({nrows}, 2, {nm}, {rings.nrings}) <-> maps ({nrows}, "
+                      f"{rings.npix}) | float32 ms: synthesis {r['synth_device_ms']:.5f} "
+                      f"({100 * bound[0] / r['synth_device_ms']:.1f} % of the bound; torch.fft "
+                      f"route {r['synth_library_ms']:.4f}, plain {r['synth_plain_ms']:.4f}) | "
+                      f"adjoint {r['adjoint_device_ms']:.5f} "
+                      f"({100 * bound[0] / r['adjoint_device_ms']:.1f} %; torch.fft route "
+                      f"{r['adjoint_library_ms']:.4f}, plain {r['adjoint_plain_ms']:.4f}) | "
+                      f"bound {bound[0]:.5f} by {bound[1]} | rel err of sum|term| "
+                      f"{rels[0]:.2e} / {rels[1]:.2e}, max abs err {r['synth_err']:.3e} / "
+                      f"{r['adjoint_err']:.3e}", flush=True)
+                continue
             results[label] = r
             if nrows > 1:
                 print(f"{label}: planes ({nrows}, 2, {nm}, {rings.nrings}) <-> maps ({nrows}, "
-                      f"{rings.npix}) | float64 ms: synthesis {r['synth_device_ms']:.5f} "
-                      f"(torch.fft route {r['synth_library_ms']:.4f}) | adjoint "
-                      f"{r['adjoint_device_ms']:.5f} (torch.fft route "
-                      f"{r['adjoint_library_ms']:.4f}) | bound {bound[0]:.5f} by {bound[1]} | "
-                      f"rel err of sum|term| {rels[0]:.2e} / {rels[1]:.2e}", flush=True)
+                      f"{rings.npix}) | float64 ms: synthesis {r['synth_device_ms']:.5f} | "
+                      f"adjoint {r['adjoint_device_ms']:.5f} | bound {bound[0]:.5f} by "
+                      f"{bound[1]} | rel err of sum|term| {rels[0]:.2e} / {rels[1]:.2e}",
+                      flush=True)
                 continue
             key = (rings.npix, nm)
             if key not in tables:
@@ -2408,23 +2846,30 @@ def demo16_likelihood(jt, sky):
     return lh, truth, (k_init, k_opt)
 
 
-def demo16_fit(jt, lh, k_init, k_opt, n_iters, n_samples, marks):
+DEMO16_KWARGS = dict(
+    draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=60)),
+    nonlinearly_update_kwargs=dict(minimize_kwargs=dict(
+        xtol=1e-3, maxiter=3, cg_kwargs=dict(maxiter=25))),
+    kl_kwargs=dict(minimize_kwargs=dict(xtol=1e-4, maxiter=8, cg_kwargs=dict(maxiter=40))),
+    sample_mode="nonlinear_resample")
+
+
+def demo16_fit(jt, lh, k_init, k_opt, n_iters, n_samples, marks, firsts=None):
     """The demo's `optimize_kl` from 0.1 times a latent draw; `marks` gets
-    the time after each iteration."""
+    the time after each iteration, `firsts` (a list) the first iteration's
+    KL energy and the peak allocation after it."""
     position = {k: 0.1 * v for k, v in lh.init(k_init).items()}
 
     def clock(samples, state):
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
+        if firsts is not None and not firsts:
+            firsts.extend([float(state.minimization_state.fun),
+                           torch.cuda.max_memory_allocated()])
 
     return jt.optimize_kl(
         lh, position, key=k_opt, n_total_iterations=n_iters, n_samples=n_samples,
-        residual_map="smap", kl_map="smap", callback=clock,
-        draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=60)),
-        nonlinearly_update_kwargs=dict(minimize_kwargs=dict(
-            xtol=1e-3, maxiter=3, cg_kwargs=dict(maxiter=25))),
-        kl_kwargs=dict(minimize_kwargs=dict(xtol=1e-4, maxiter=8, cg_kwargs=dict(maxiter=40))),
-        sample_mode="nonlinear_resample")
+        residual_map="smap", kl_map="smap", callback=clock, **DEMO16_KWARGS)
 
 
 def demo16_witness(jt, lh, k_init, k_opt, n_iters, n_samples, energy):
@@ -2458,7 +2903,9 @@ def phase_demo16(jt, sky, with_profile, with_witness=False):
     (`demo16_likelihood`), `optimize_kl` with 4 iterations of 4 pairs from
     0.1 times a latent draw, the sample loop for both stages.  The demo's
     check: the posterior mean's rms error below the truth's rms.
-    `with_witness`: then :func:`demo16_witness`."""
+    `with_witness`: then :func:`demo16_witness`.  Returns the distributor's
+    and K10's counts, and the likelihood, the keys and the first
+    iteration's :func:`reference` (phase 46's)."""
     from nifty_tpu_torch.ops import bin_gather as bg
     from nifty_tpu_torch.ops import hp_longitude as hl
 
@@ -2468,8 +2915,10 @@ def phase_demo16(jt, sky, with_profile, with_witness=False):
     torch.cuda.reset_peak_memory_stats()
     bg.reset_launch_counts()
     hl.reset_launch_counts()
+    base, firsts = torch.cuda.memory_allocated(), []
     marks = [time.perf_counter()]
-    samples, state = demo16_fit(jt, lh, k_init, k_opt, n_iters, n_samples, marks)
+    samples, state = demo16_fit(jt, lh, k_init, k_opt, n_iters, n_samples, marks, firsts)
+    ref = dict(energy=firsts[0], peak=(firsts[1] - base) / 2 ** 30, seconds=marks[1] - marks[0])
     counts, k10 = launch_counts(bg), hp_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     with torch.no_grad():
@@ -2499,10 +2948,10 @@ def phase_demo16(jt, sky, with_profile, with_witness=False):
         profile_update(jt, "demo 16 sky", lh, residual_map="smap", kl_map="smap")
     if with_witness:
         demo16_witness(jt, lh, k_init, k_opt, n_iters, n_samples, energy)
-    return counts, k10
+    return counts, k10, (lh, k_init, k_opt, ref)
 
 
-def hp_kernel_entries(kres, runs, rings, nm, nside):
+def hp_kernel_entries(kres, runs, rings, nm, nside, dtype="float64"):
     """The `kernels` line's entries of K10 and its adjoint: one for each
     direction and number of rows that the runs ({run: K10 counts})
     launched at this grid, with phase 22's numbers; fails on a shape that
@@ -2517,17 +2966,19 @@ def hp_kernel_entries(kres, runs, rings, nm, nside):
                   for run, c in runs.items()}
         for nrows in sorted(set().union(*by_run.values())):
             label = f"nside {nside} mmax {nm - 1} B={nrows}"
-            if label not in kres:
-                raise AssertionError(f"the main path launched {name} at {label}, a shape that "
-                                     f"phase 22 did not hold against the plain version")
-            r = kres[label]
+            key = label if dtype == "float64" else f"{label} {dtype}"
+            if key not in kres:
+                raise AssertionError(f"the main path launched {name} at {key}, a shape that "
+                                     f"phase 22 did not hold against the plain version and time")
+            r = kres[key]
             entries.append(dict(
-                name=f"{name} (K10, {label}, float64)", route="cuda", source=src,
+                name=f"{name} (K10, {label}, {dtype})", route="cuda", source=src,
                 replaces=f"{tpu}:{line} (XLA in the JAX package, not Pallas)",
                 launches=next(c[nrows] for c in by_run.values() if c.get(nrows)),
                 launches_by_run={run: c.get(nrows, 0) for run, c in by_run.items()},
                 max_abs_err=r[f"{kind}_err"], ms=r[f"{kind}_device_ms"],
-                plain_ms=r[f"{kind}_plain_ms"], table_ms=r[f"{kind}_table_ms"],
+                plain_ms=r[f"{kind}_plain_ms"],
+                **({"table_ms": r[f"{kind}_table_ms"]} if f"{kind}_table_ms" in r else {}),
                 bound_ms=r[f"{kind}_bound_ms"], bound_by=r[f"{kind}_bound_by"],
                 library_ms=r[f"{kind}_library_ms"],
             ))
@@ -2580,6 +3031,13 @@ def tomography_model(jt, dims, n_rays, n_points, ray_seed, flexible=True, n_bins
     the field and the response as submodules (so that `shard_position`
     reaches both).  Returns the model, `cf` and the
     response."""
+    cf = tomography_field(jt, dims, flexible, n_bins, hartley_fn)
+    los = tomography_rays(jt, dims, n_rays, n_points, ray_seed)
+    return los_model(jt, cf, los), cf, los
+
+
+def tomography_field(jt, dims, flexible=True, n_bins=None, hartley_fn=None):
+    """:func:`tomography_model`'s correlated field."""
     cfm = jt.CorrelatedFieldMaker("cf")
     cfm.set_amplitude_total_offset(offset_mean=0.0, offset_std=(1e-1, 3e-2))
     kw = dict(flexibility=(1e0, 5e-1), asperity=(5e-1, 5e-2)) if flexible else {}
@@ -2587,11 +3045,14 @@ def tomography_model(jt, dims, n_rays, n_points, ray_seed, flexible=True, n_bins
         kw["n_bins"] = n_bins
     cfm.add_fluctuations(dims, distances=1.0 / dims[0], fluctuations=(1.0, 5e-1),
                          loglogavgslope=(-4.0, 5e-1), **kw)
-    cf = cfm.finalize(hartley_fn=hartley_fn)
-    los = tomography_rays(jt, dims, n_rays, n_points, ray_seed)
+    return cfm.finalize(hartley_fn=hartley_fn)
+
+
+def los_model(jt, cf, los):
+    """x -> los(exp(cf(x))), the field and the response as submodules."""
     fwd = jt.Model(lambda x: los(torch.exp(cf(x))), domain=cf.domain, init=cf.init)
     fwd.cf, fwd.los = cf, los
-    return fwd, cf, los
+    return fwd
 
 
 def build_tomography(jt, dims, n_rays, n_points, ray_seed, key, flexible=True, n_bins=None):
@@ -2715,7 +3176,7 @@ def los_ptxas_lines():
 
 
 @phase("25 the ray integral kernels (K11) vs plain")
-def phase_los_kernels(cases):
+def phase_los_kernels(cases, f32=()):
     """`cases`: {label: (SamplingCartesianGridLOS, rows)}.  K11 and its
     adjoint against their plain versions in float64 and float32 (within
     1e-12 / 1e-5 of the per-output sum of |term|), bitwise reproducible,
@@ -2724,7 +3185,9 @@ def phase_los_kernels(cases):
     each kernel's registers and spills (printed once); float64 device ms
     (50 calls in a replayed CUDA graph) beside the bound and the share of
     it reached, the plain versions' and the library routes' ms (CUDA events
-    around 5 calls).  Returns the results by (table key, rows)."""
+    around 5 calls).  Returns the results by (table key, rows); the labels
+    in `f32` (the shapes phase 46's float32 legs launch) are timed in
+    float32 too, under (table key, rows, "float32")."""
     from nifty_tpu_torch.ops import los_interp as li
 
     for line in los_ptxas_lines():
@@ -2761,29 +3224,18 @@ def phase_los_kernels(cases):
             if max(rels) > LOS_RTOL[dtype]:
                 raise AssertionError(f"the K11 kernels are off their plain versions by {rels} "
                                      f"of the per-output sum of |term| ({label}, {dtype})")
-            if dtype != torch.float64:
+            if dtype == torch.float32 and label not in f32:
                 continue
-            lib_fwd, lib_adj = los_library_routes(tab, f, ybar)
-            for got, want, scale in zip((lib_fwd(), lib_adj()), plain, scales):
-                if float(((got - want).abs() / scale.clamp_min(tiny)).max()) > 1e-10:
-                    raise AssertionError(f"a library route disagrees with the plain version "
-                                         f"({label})")
             r = dict(forward_err=float((y1 - plain[0]).abs().max()),
                      adjoint_err=float((g1 - plain[1]).abs().max()),
                      forward_rel=rels[0], adjoint_rel=rels[1])
-            r["forward_device_ms"] = device_ms(lambda: li.los_integrate(f, tab))
-            r["adjoint_device_ms"] = device_ms(lambda: li.los_integrate_adjoint(ybar, tab))
-            r["forward_plain_ms"] = cuda_ms(lambda: li.los_integrate_plain(f, tab), n=5)
-            r["adjoint_plain_ms"] = cuda_ms(lambda: li.los_integrate_adjoint_plain(ybar, tab), n=5)
-            r["forward_library_ms"] = cuda_ms(lib_fwd, n=5)
-            r["adjoint_library_ms"] = cuda_ms(lib_adj, n=5)
-            for kind in ("forward", "adjoint"):
-                r[f"{kind}_bound_ms"], r[f"{kind}_bound_by"] = los_bound_ms(
-                    tab, nrows, f.element_size(), kind == "adjoint")
-            results[tab.key, nrows] = r
+            r.update(los_timings(li, tab, f, ybar, plain, scales, nrows, label))
+            name = str(dtype).replace("torch.", "")
+            results[(tab.key, nrows) if dtype == torch.float64
+                    else (tab.key, nrows, name)] = r
             print(
                 f"{label}: {tab.nrays} rays x {tab.nent} entries ({tab.n_valid} valid, "
-                f"{tab.n_touched} cells touched) over {tab.ncells} cells | float64 ms: forward "
+                f"{tab.n_touched} cells touched) over {tab.ncells} cells | {name} ms: forward "
                 f"{r['forward_device_ms']:.5f} "
                 f"({100 * r['forward_bound_ms'] / r['forward_device_ms']:.1f} % of its bound "
                 f"{r['forward_bound_ms']:.5f}; plain {r['forward_plain_ms']:.4f}, torch.sparse.mm "
@@ -2795,6 +3247,32 @@ def phase_los_kernels(cases):
                 flush=True,
             )
     return results
+
+
+#: how far a library route may lie from the plain version, of the sum of
+#: |term| an output
+LIBRARY_RTOL = {torch.float64: 1e-10, torch.float32: 1e-5}
+
+
+def los_timings(li, tab, f, ybar, plain, scales, nrows, label):
+    """Phase 25's numbers of one table, rows and dtype: the kernels' device
+    ms, the plain versions' and the library routes' ms (the routes held to
+    the plain versions first) and the bounds."""
+    tiny = torch.finfo(f.dtype).tiny
+    lib_fwd, lib_adj = los_library_routes(tab, f, ybar)
+    for got, want, scale in zip((lib_fwd(), lib_adj()), plain, scales):
+        if float(((got - want).abs() / scale.clamp_min(tiny)).max()) > LIBRARY_RTOL[f.dtype]:
+            raise AssertionError(f"a library route disagrees with the plain version "
+                                 f"({label}, {f.dtype})")
+    r = dict(forward_device_ms=device_ms(lambda: li.los_integrate(f, tab)),
+             adjoint_device_ms=device_ms(lambda: li.los_integrate_adjoint(ybar, tab)),
+             forward_plain_ms=cuda_ms(lambda: li.los_integrate_plain(f, tab), n=5),
+             adjoint_plain_ms=cuda_ms(lambda: li.los_integrate_adjoint_plain(ybar, tab), n=5),
+             forward_library_ms=cuda_ms(lib_fwd, n=5), adjoint_library_ms=cuda_ms(lib_adj, n=5))
+    for kind in ("forward", "adjoint"):
+        r[f"{kind}_bound_ms"], r[f"{kind}_bound_by"] = los_bound_ms(
+            tab, nrows, f.element_size(), kind == "adjoint")
+    return r
 
 
 #: the slabs of phase 44's worlds (a field rank of 2 x 2, and the whole grid
@@ -2905,8 +3383,8 @@ def phase_los_slabs(slabs):
     1e-12 / 1e-5 of the per-output sum of |term|), float64 and float32; the
     forward one launch a call, bitwise repeated, +0 (never -0) where a pair
     holds no virtual ray, and bitwise the nine-launch route's partials
-    (`LOS_SLAB_PINNED`); at 3 rows also bitwise when replayed from a CUDA
-    graph and row by row; each
+    (`LOS_SLAB_PINNED`); at 256^3's 3 rows also bitwise when replayed from a
+    CUDA graph and row by row; each
     kernel's registers and spills; float64 device ms (50 calls in a
     replayed CUDA graph) beside the bound, the plain versions (CUDA events
     around 5 calls), ``torch.sparse.mm`` of the CSR (10 calls in a
@@ -2942,11 +3420,11 @@ def phase_los_slabs(slabs):
                                          f"the per-output sum of |term| ({where}, B={nrows})")
                 if not torch.equal(got, li.slab_row_partials(f, slab)):
                     raise AssertionError(f"los_slab_forward does not repeat ({where}, B={nrows})")
-                if nrows > 1 and not torch.equal(
-                        got, replayed(lambda: li.slab_row_partials(f, slab))):
+                full = nrows > 1 and grid == "256^3"
+                if full and not torch.equal(got, replayed(lambda: li.slab_row_partials(f, slab))):
                     raise AssertionError(f"los_slab_forward differs when replayed from a CUDA "
                                          f"graph ({where}, B={nrows})")
-                for b in range(nrows if nrows > 1 else 0):
+                for b in range(nrows if full else 0):
                     if not torch.equal(li.slab_row_partials(f[b:b + 1].contiguous(), slab),
                                        got[b:b + 1]):
                         raise AssertionError(f"row {b} of los_slab_forward's {nrows}-row call "
@@ -3016,7 +3494,7 @@ def grid_text(dims):
     return f"{dims[0]}^{len(dims)}" if len(set(dims)) == 1 else "x".join(map(str, dims))
 
 
-def los_kernel_entries(kres, runs):
+def los_kernel_entries(kres, runs, dtype="float64"):
     """The `kernels` line's entries of K11 and its adjoint: one for each
     direction, table and number of rows that the runs ({run: K11 counts})
     launched, with phase 25's numbers; fails on a shape that phase 25 did
@@ -3025,14 +3503,15 @@ def los_kernel_entries(kres, runs):
     for kind, name in (("forward", "los_integrate"), ("adjoint", "los_integrate_adjoint")):
         by_run = {run: c[kind] for run, c in runs.items()}
         for shape in sorted(set().union(*by_run.values())):
-            if shape not in kres:
-                raise AssertionError(f"the main path launched {name} at {shape}, a shape that "
-                                     f"phase 25 did not hold against the plain version")
-            r = kres[shape]
+            key = shape if dtype == "float64" else shape + (dtype,)
+            if key not in kres:
+                raise AssertionError(f"the main path launched {name} at {key}, a shape that "
+                                     f"phase 25 did not hold against the plain version and time")
+            r = kres[key]
             (dims, nrays, nent), nrows = shape
             entries.append(dict(
                 name=f"{name} (K11, {grid_text(dims)} x {nrays} rays x {nent} entries "
-                     f"B={nrows}, float64)",
+                     f"B={nrows}, {dtype})",
                 route="cuda", source="nifty_tpu_torch/csrc/los_interp.cu",
                 replaces="nifty_tpu/responses/los.py:39 (XLA in the JAX package, not Pallas)",
                 launches=next(c[shape] for c in by_run.values() if c.get(shape)),
@@ -3134,7 +3613,8 @@ def phase_tomography_256(jt, lh, cf, with_profile):
     each iteration's seconds, samples/s, KL energy, reduced chi^2 and peak
     device memory.  The check: every latent finite and the reduced chi^2
     in [0.5, 3]; fails unless all four kernels launched.  Returns the
-    counts and the first update's KL energy (phase 44's yardstick)."""
+    counts, the first update's KL energy (phase 44's yardstick) and its
+    :func:`reference` (phase 46's)."""
     from nifty_tpu_torch.ops import bin_gather as bg
 
     opt = jt.OptimizeVI(lh, n_total_iterations=3, residual_map="smap", kl_map="smap")
@@ -3142,6 +3622,7 @@ def phase_tomography_256(jt, lh, cf, with_profile):
     samples = jt.Samples(pos=pos, samples=None, keys=None)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    base = torch.cuda.memory_allocated()
     seconds, energies = [], []
     for i in range(3):
         torch.cuda.synchronize()
@@ -3151,6 +3632,8 @@ def phase_tomography_256(jt, lh, cf, with_profile):
         seconds.append(time.perf_counter() - t0)
         chi2 = reduced_chi2(lh, samples)
         energies.append(float(state.minimization_state.fun))
+        if i == 0:
+            ref = reference(energies[0], base, seconds[0])
         print(f"256^3 iteration {i + 1}: {seconds[-1]:.3f} s | geoVI samples/s "
               f"{2 * 2 / seconds[-1]:.4f} | KL energy {float(state.minimization_state.fun)!r} | "
               f"reduced chi^2 {chi2:.4f} | peak mem "
@@ -3167,14 +3650,17 @@ def phase_tomography_256(jt, lh, cf, with_profile):
     require_launches("256^3", counts, (cf.dist,))
     if with_profile:
         profile_window("256^3 tomography", lambda: kl_text(opt.update(samples, state)))
-    return counts, k11, energies[0]
+    return counts, k11, energies[0], ref
 
 
-def tomography_256_start(jt, opt, lh):
+def tomography_256_start(jt, opt, lh, wide=False):
     """Phase 27's state (`TOMO256_KWARGS`) and start (0.1 times a latent
     draw), both from `DEMO1_SEED + 1` on the host: the start of phase 44's
-    worlds too."""
+    worlds too.  `wide`: the keys' float64 draws rounded (`WideKey`), phase
+    46's float32 start."""
     k_state, k_pos = jt.HostKey(DEMO1_SEED + 1).split(2)
+    if wide:
+        k_state, k_pos = WideKey(jt, k_state), WideKey(jt, k_pos)
     state = opt.init_state(k_state, **TOMO256_KWARGS)
     return state, {k: 0.1 * v for k, v in jt.random_like(k_pos, lh.domain).items()}
 
@@ -3188,7 +3674,9 @@ def phase_nuts(jt, lh, cf):
     half kept.  The check: fewer than 5 % of the voxels' posterior means
     differ by more than 3 (geoVI std + NUTS std + 1e-3).  Prints
     s/transition, the mean depth, the acceptance and the divergences.
-    Returns the launch counts of the geoVI run and of the chain."""
+    Returns the launch counts of the geoVI run and of the chain, and the
+    geoVI position, its posterior mean and std and the chain's
+    :func:`reference` (its mean potential over the kept half: phase 46's)."""
     from nifty_tpu_torch.ops import bin_gather as bg
 
     reset_counts()
@@ -3210,11 +3698,14 @@ def phase_nuts(jt, lh, cf):
     chain = jt.NUTSChain(potential_energy=ham, inverse_mass_matrix=1.0,
                          position_proto=samples.pos, step_size=0.02, max_tree_depth=8)
     reset_counts()
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     nuts, _ = chain.generate_n_samples(42, samples.pos, NUTS_TRANSITIONS)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    ref = reference(mean_potential(ham, nuts), base, seconds)
     nuts_counts = launch_counts(bg), los_counts()
     keep = range(NUTS_TRANSITIONS // 2, NUTS_TRANSITIONS)
     with torch.no_grad():
@@ -3235,7 +3726,7 @@ def phase_nuts(jt, lh, cf):
         require_launches(label, counts, (cf.dist,))
     if not frac_off < 0.05:
         raise AssertionError(f"NUTS and geoVI disagree on {frac_off:.4f} of the voxels")
-    return geo, nuts_counts
+    return geo, nuts_counts, (samples.pos, geo_mean, geo_std, ref)
 
 
 # -- inference and diagnostics (phases 29-33) --------------------------------
@@ -3798,7 +4289,7 @@ def k7_plane_text(tab):
 
 
 @phase("34 the NUFFT window kernels (K7) vs plain")
-def phase_k7_kernels(cases):
+def phase_k7_kernels(cases, f32=()):
     """`cases`: {label: (RadioResponse, plane, rows)}.  K7's interpolation
     and spread against their plain versions in float64 and float32 (within
     1e-12 / 1e-5 of the per-output sum of |term|), bitwise reproducible and
@@ -3812,7 +4303,9 @@ def phase_k7_kernels(cases):
     `K7_PINNED`, and the cells no window reaches +0 with a clear sign bit;
     each table's spread work (`k7_plane_text`, once a table, in float64).
     Returns the results by (table key, rows) and the factor tables' by
-    table key."""
+    table key; the labels in `f32` (the shapes phase 46's float32 leg
+    launches) are timed in float32 too, under (table key, rows, "float32")
+    and (table key, "float32")."""
     from nifty_tpu_torch.ops import nufft_window as nw
 
     for line in ptxas_lines("nufft_window", "nufft_interp|nufft_spread|nufft_factors|nufft_gather"):
@@ -3865,13 +4358,14 @@ def phase_k7_kernels(cases):
             if max(rels) > K7_RTOL[dtype]:
                 raise AssertionError(f"the K7 kernels are off their plain versions by {rels} "
                                      f"of the per-output sum of |term| ({label}, {dtype})")
-            if dtype != torch.float64:
+            if dtype == torch.float32 and label not in f32:
                 continue
+            name = str(dtype).replace("torch.", "")
             lib_interp, lib_spread = k7_library_routes(tab, g, v)
             for got, want, scale in zip((lib_interp(), lib_spread()), plain, scales):
-                if float(((got - want).abs() / scale.clamp_min(tiny)).max()) > 1e-10:
+                if float(((got - want).abs() / scale.clamp_min(tiny)).max()) > LIBRARY_RTOL[dtype]:
                     raise AssertionError(f"a library route disagrees with the plain version "
-                                         f"({label})")
+                                         f"({label}, {dtype})")
             r = dict(interp_err=float((a1 - plain[0]).abs().max()),
                      spread_err=float((s1 - plain[1]).abs().max()),
                      interp_rel=rels[0], spread_rel=rels[1])
@@ -3883,18 +4377,19 @@ def phase_k7_kernels(cases):
             r["spread_library_ms"] = cuda_ms(lib_spread, n=5)
             for kind in ("interp", "spread"):
                 r[f"{kind}_bound_ms"], r[f"{kind}_bound_by"] = k7_bound_ms(
-                    tab, nrows, 8, kind == "spread")
-            results[tab.key, nrows] = r
-            if tab.key not in factor_results:
-                factor_results[tab.key] = k7_factor_timing(tab, fac, fac_plain)
-            f = factor_results[tab.key]
+                    tab, nrows, dtype.itemsize, kind == "spread")
+            fkey = tab.key if dtype == torch.float64 else (tab.key, name)
+            results[(tab.key, nrows) if dtype == torch.float64 else (tab.key, nrows, name)] = r
+            if fkey not in factor_results:
+                factor_results[fkey] = k7_factor_timing(tab, fac, fac_plain)
+            f = factor_results[fkey]
             work = ""
             if dtype == torch.float64 and tab.key not in described:
                 described.add(tab.key)
                 work = f" | {k7_plane_text(tab)}"
             print(
                 f"{label}: {tab.npts} points on the {'x'.join(map(str, tab.os_shape))} grid "
-                f"({tab.n_reached} cells reached), W {tab.width}, B={nrows} | float64 ms: interp "
+                f"({tab.n_reached} cells reached), W {tab.width}, B={nrows} | {name} ms: interp "
                 f"{r['interp_device_ms']:.5f} "
                 f"({100 * r['interp_bound_ms'] / r['interp_device_ms']:.1f} % of its bound "
                 f"{r['interp_bound_ms']:.5f}, {r['interp_bound_by']}; plain "
@@ -3923,10 +4418,10 @@ def phase_k7_kernels(cases):
 
 
 def k7_factor_timing(tab, fac, fac_plain):
-    """A float64 factor table's build: device ms of the factor kernel into
-    a spare table (50 calls in a replayed CUDA graph), its bound, the plain
-    version's ms (CUDA events), the largest difference in ulp and in
-    absolute terms."""
+    """A factor table's build: device ms of the factor kernel into a spare
+    table (50 calls in a replayed CUDA graph), its bound, the plain
+    version's ms (CUDA events), the largest difference in ulp (of the
+    table's float type) and in absolute terms."""
     from nifty_tpu_torch.ops import nufft_window as nw
 
     spare = torch.empty_like(fac)
@@ -3941,12 +4436,13 @@ def k7_factor_timing(tab, fac, fac_plain):
     torch.cuda.synchronize()
     if not torch.equal(spare, fac):
         raise AssertionError("a factor table's rebuild differs from its build")
-    bound, by = k7_factors_bound_ms(tab, 8)
+    bound, by = k7_factors_bound_ms(tab, tab.dtype.itemsize)
     diff = (fac - fac_plain).abs()
+    info = torch.finfo(tab.dtype)
     return dict(ms=ms, bound_ms=bound, bound_by=by,
                 plain_ms=cuda_ms(lambda: nw.csr_factors_plain(tab), n=5),
                 err=float(diff.max()),
-                ulps=float((diff / fac_plain.abs().clamp_min(1e-300)).max()) / 2.0 ** -52)
+                ulps=float((diff / fac_plain.abs().clamp_min(info.tiny)).max()) / info.eps)
 
 
 def require_k7_launches(label, counts):
@@ -3967,12 +4463,14 @@ def phase_radio(jt, field, with_profile):
     tables built in the set-up, and the interpolation, the spread and the
     distributor kernels launched in the update.  The checks: each of them
     launched, every latent finite, the reduced chi^2 below its start.
-    Returns the distributor's and K7's counts."""
+    Returns the distributor's and K7's counts, and the likelihood, the
+    response, the noise std and the update's :func:`reference` (phase
+    46's)."""
     from nifty_tpu_torch.ops import bin_gather as bg
 
     reset_counts()
     t0 = time.perf_counter()
-    lh, rr, _ = build_radio(jt, field, (1024, 1024), 2849, jt.HostKey(RADIO_SEED))
+    lh, rr, std = build_radio(jt, field, (1024, 1024), 2849, jt.HostKey(RADIO_SEED))
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
     opt = jt.OptimizeVI(lh, n_total_iterations=100, residual_map="smap", kl_map="smap")
@@ -3985,10 +4483,12 @@ def phase_radio(jt, field, with_profile):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     samples, state = opt.update(samples, state)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    ref = reference(float(state.minimization_state.fun), base, seconds)
     counts, k7 = launch_counts(bg), dict(k7_counts(), factors=factors)
     chi2_end = radio_chi2(lh, samples.pos)
     chi2_samples = float(np.mean([radio_chi2(lh, s) for s in samples]))
@@ -4017,7 +4517,7 @@ def phase_radio(jt, field, with_profile):
                        sums=K7_PROFILE_SUMS)
         print("radio 1024^2 profile as first written (NVIDIA H100 80GB HBM3, 700.00 W): the K7 "
               "spread 3337 ms over 4032 calls, device busy 6.447 s of 13.656", flush=True)
-    return counts, k7
+    return counts, k7, (lh, rr, std, ref)
 
 
 # phase 35's profile: the K7 kernels' device time, by the kernels' names
@@ -4105,12 +4605,13 @@ def phase_solvers(jt, lh, samples):
     return counts
 
 
-def k7_kernel_entries(kres, factor_res, runs, checked):
+def k7_kernel_entries(kres, factor_res, runs, checked, dtype="float64"):
     """The `kernels` line's entries of K7: one for each direction, table and
     number of rows that the runs ({run: K7 counts}) launched, with phase
     34's numbers, and one for each factor table they built; fails on a
     shape that phase 34 did not check, among these runs' and the `checked`
-    runs' (phase 4's card runs)."""
+    runs' (phase 4's card runs).  `dtype`: the float type of the runs'
+    calls and of phase 34's numbers."""
     entries = []
     for kind, name, replaces in (("interp", "window_interp", ":204-247"),
                                  ("spread", "window_spread", ":251-265")):
@@ -4120,15 +4621,16 @@ def k7_kernel_entries(kres, factor_res, runs, checked):
                 raise AssertionError(f"{name} launched at {shape}, a shape that phase 34 did not "
                                      f"hold against the plain version")
         for shape in sorted(set().union(*by_run.values())):
-            if shape not in kres:
-                raise AssertionError(f"the main path launched {name} at {shape}, a shape that "
-                                     f"phase 34 did not hold against the plain version")
-            r = kres[shape]
+            key = shape if dtype == "float64" else shape + (dtype,)
+            if key not in kres:
+                raise AssertionError(f"the main path launched {name} at {key}, a shape that "
+                                     f"phase 34 did not hold against the plain version and time")
+            r = kres[key]
             (os_shape, npts, width), nrows = shape
             launches = next(c[shape] for c in by_run.values() if c.get(shape))
             entries.append(dict(
                 name=f"{name} (K7, {'x'.join(map(str, os_shape))} grid x {npts} points, W "
-                     f"{width}, B={nrows}, float64)",
+                     f"{width}, B={nrows}, {dtype})",
                 route="cuda", source="nifty_tpu_torch/csrc/nufft_window.cu",
                 replaces=f"nifty_tpu/ops/nufft.py{replaces} (XLA in the JAX package, not Pallas)",
                 # the spread launches two kernels a call: the values' gather, the sums
@@ -4140,15 +4642,16 @@ def k7_kernel_entries(kres, factor_res, runs, checked):
             ))
     by_run = {run: c["factors"] for run, c in runs.items()}
     for key in sorted(set().union(*by_run.values())):
-        if key not in factor_res:
-            raise AssertionError(f"the main path built a K7 factor table at {key}, a shape that "
-                                 f"phase 34 did not hold against the plain version")
-        f = factor_res[key]
+        fkey = key if dtype == "float64" else (key, dtype)
+        if fkey not in factor_res:
+            raise AssertionError(f"the main path built a K7 factor table at {fkey}, a shape that "
+                                 f"phase 34 did not hold against the plain version and time")
+        f = factor_res[fkey]
         os_shape, npts, width = key
         launches = next(c[key] for c in by_run.values() if c.get(key))
         entries.append(dict(
             name=f"window factors (K7's factor table, {'x'.join(map(str, os_shape))} grid x "
-                 f"{npts} points, W {width}, float64)",
+                 f"{npts} points, W {width}, {dtype})",
             route="cuda", source="nifty_tpu_torch/csrc/nufft_window.cu",
             replaces="nifty_tpu/ops/nufft.py:204-247 (the weights of interp_point; XLA in the "
                      "JAX package, not Pallas)",
@@ -5296,6 +5799,20 @@ def kernel_entries(kres, paths, src, dtype="float64"):
     return kernels
 
 
+def side_phases():
+    """Phases 29-31 (demos 5, 8 and 15) in a process of their own, with the
+    card set up as :func:`phase_device` sets it and the kernels that
+    :func:`phase_build` built."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import nifty_tpu_torch as jt
+
+    jt.logger.setLevel(logging.WARNING)
+    phase_demo5(jt)
+    phase_demo8(jt)
+    phase_demo15(jt)
+
+
 def main(argv):
     """``--profile``: after phases 5, 6, 8, 12, 15, 19, 23, 24, 27 and 35, profile
     one more update of each config, and after phase 33 one more SLQ probe
@@ -5310,8 +5827,10 @@ def main(argv):
     import nifty_tpu_torch as jt
 
     jt.logger.setLevel(logging.WARNING)
-    phase_build()
+    builds = start_builds()
 
+    # the correlated fields' host set-up (mode maps, CSR), which calls no
+    # kernel, while the kernels compile
     t0 = time.perf_counter()
     cf128 = build_field(jt, (128, 128))
     cf1024 = build_field(jt, (1024, 1024))
@@ -5328,6 +5847,8 @@ def main(argv):
     # its padded 256-entry grid (129 bins, uint8 index)
     map256 = jt.density_estimator(128, 1.0 / 128)[0].field.dist
     t3 = time.perf_counter()
+    phase_build(builds)
+    waited = time.perf_counter() - t3
     # phase 23's sky: HEALPix nside 256, lmax 511 (the Legendre table, 2.15 GB
     # in float64, and the ring table); its l map (262,144 modes, 512 bins)
     sky = build_sphere(jt, 511, "healpix")
@@ -5340,7 +5861,8 @@ def main(argv):
                                             flexible=False)
     lh256, cf256, los256, noise256 = build_tomography(jt, key=DEMO1_SEED, n_bins=128,
                                                       **TOMO256_RAYS)
-    lh16, cf16, los16, _ = build_tomography(jt, (16,) * 3, 48, 64, NUTS_SEED, NUTS_SEED + 1)
+    lh16, cf16, los16, noise16 = build_tomography(jt, (16,) * 3, 48, 64, NUTS_SEED,
+                                                  NUTS_SEED + 1)
     # phase 32's map: demo 11's 64^2 fields (both models share it)
     map64sq = demo11_field(jt, True, "true").dist
     # phase 41's map: demo 7's 64^2 field, checked in phase 3 on its own
@@ -5350,10 +5872,12 @@ def main(argv):
     # phases 37-40's maps: a field rank's rows of phase 6's full-grid map and
     # of demo 4's, the whole maps, and their (row, bin) maps
     mmaps = mesh_maps(jt, cf4096, cf256)
-    print(f"field set-up (host mode maps, CSR) {time.perf_counter() - t0:.3f} s, of which 4096^2 "
+    print(f"field set-up (host mode maps, CSR) {time.perf_counter() - t0 - waited:.3f} s "
+          f"(the kernels compiling meanwhile, {waited:.3f} s waited for after it), of which 4096^2 "
           f"unbinned {t2 - t1:.3f} s, 512^2 x 64 {t3 - t2:.3f} s, the HEALPix sky (nside "
           f"{sky_sht.nside}, {sky_sht.nrings} rings, Legendre table "
-          f"{sky_sht.lam.numel() * 8 / 2**30:.2f} GiB) {t4 - t3:.3f} s, the tomography models "
+          f"{sky_sht.lam.numel() * 8 / 2**30:.2f} GiB) {t4 - t3 - waited:.3f} s, the tomography "
+          f"models "
           f"(ray tables, data; 256^3: the {cf256.dist.shape} quarter map) "
           f"{time.perf_counter() - t4:.3f} s", flush=True)
     # the 1-D maps at the rows the lockstep stages give them (1 for an
@@ -5411,7 +5935,13 @@ def main(argv):
         # float64, 10 calls a timing (256^3's 3)
         **{f"{label} B={rows}": (mmaps[label], rows, 3 if label.startswith("256^3") else 10)
            for label, all_rows in MESH_MAP_ROWS.items() for rows in all_rows},
-    })
+    }, f32={
+        # phase 43's runs (4096^2 in the sample loop, 128^2 in lockstep, the
+        # acceptance run's 64^2 in lockstep) and phase 46's legs (the sample
+        # loop or a chain: one row)
+        "4096^2 nb128 quarter B=1", *(f"128^2 unbinned B={rows}" for rows in (1, 2, 4, 8)),
+        *(f"64^2 unbinned B={rows}" for rows in (1, 2, 4)), "256^3 nb128 quarter B=1",
+        "1024^2 unbinned quarter B=1", "l map lmax 511 B=1", "16^3 unbinned B=1"})
 
     k7_cpu_vs_card = phase_cpu_vs_card(jt)
 
@@ -5501,26 +6031,41 @@ def main(argv):
     kres_icr = phase_icr_kernels({
         f"{name} L{lv} B={rows}": (level, rows)
         for name, field in icr.items() for lv, level in enumerate(field.levels)
-        for rows in ((1, 2, 4, 8) if name == "demo9" else (1,))})
+        for rows in ((1, 2, 4, 8) if name == "demo9" else (1,))},
+        # phase 46's float32 legs: phases 19 and 21's fields, the sample loop
+        f32={f"{name} L{lv} B=1" for name in ("4100^2", "sphere x radius")
+             for lv in range(len(icr[name].levels))})
     c_demo9 = phase_demo9(jt, icr["demo9"])
-    c_4100 = phase_4100(jt, icr["4100^2"], with_profile)
+    c_4100, lh4100, ref4100 = phase_4100(jt, icr["4100^2"], with_profile)
     sphere = icr["sphere nside 256"]
-    c_sphere = phase("20 a HEALPix sphere, nside 4 -> 256, Gaussian, 1 update")(drive_icr)(
+    c_sphere, _ = phase("20 a HEALPix sphere, nside 4 -> 256, Gaussian, 1 update")(drive_icr)(
         jt, "sphere nside 256", build_likelihood(jt, sphere, jt.HostKey(20)), sphere,
         residual_map="smap", kl_map="smap")
     radial = icr["sphere x radius"]
-    c_radial = phase("21 sphere x radius, (48, 6) -> (49152, 68), Gaussian, 1 update")(drive_icr)(
-        jt, "sphere x radius", build_likelihood(jt, radial, jt.HostKey(21)), radial,
-        residual_map="smap", kl_map="smap")
+    lh_radial = build_likelihood(jt, radial, jt.HostKey(21))
+    c_radial, ref_radial = phase("21 sphere x radius, (48, 6) -> (49152, 68), Gaussian, "
+                                 "1 update")(drive_icr)(
+        jt, "sphere x radius", lh_radial, radial, residual_map="smap", kl_map="smap")
+    npix4100 = int(np.prod(icr["4100^2"].chart.shape))
+    f32_icr = phase_icr_float32(jt, {
+        "4100^2 deformed chart": (
+            icr["4100^2"], lh4100, DEMO9_NOISE, ref4100,
+            lambda gp: masked_signal(jt, gp, npix4100, DEMO9_MASK_SEED)[1]),
+        "sphere x radius": (radial, lh_radial, NOISE_STD, ref_radial, lambda gp: gp)}, smi_line)
+    del lh4100, lh_radial
+    torch.cuda.empty_cache()
 
     # spherical correlated fields: K10 at the rows a model call (1) and
     # stacked samples (2, 4, 8) give it, then the two cells
     hp_rings = sky_sht.rings
     kres_hp = phase_hp_kernels({f"nside 256 mmax 511 B={rows}": (hp_rings, 512, rows)
                                 for rows in (1, 2, 4, 8)},
-                               {"nside 2048 mmax 511 B=1": (2048, 512, 1)})
-    c_demo16, k10_demo16 = phase_demo16(jt, sky, with_profile, with_witness)
-    del sky, sky_sht
+                               {"nside 2048 mmax 511 B=1": (2048, 512, 1)},
+                               f32={"nside 256 mmax 511 B=1"})
+    c_demo16, k10_demo16, (lh_sky, k_init16, k_opt16, ref16) = phase_demo16(
+        jt, sky, with_profile, with_witness)
+    f32_sky = phase_sphere_float32(jt, sky, lh_sky, k_init16, k_opt16, ref16, smi_line)
+    del sky, sky_sht, lh_sky
     torch.cuda.empty_cache()
     gl = build_bench_sphere(jt, 511)
     lh_gl = build_likelihood(jt, gl, jt.HostKey(24))
@@ -5542,25 +6087,27 @@ def main(argv):
     kres_los = phase_los_kernels({
         **{f"{n}^3 x {los.target.shape[0]} rays B={rows}": (los, rows)
            for n, los in ((16, los16), (64, los64)) for rows in (1, 4, 8)},
-        "256^3 x 1024 rays B=1": (los256, 1), **slab_cases(slabs)})
+        "256^3 x 1024 rays B=1": (los256, 1), **slab_cases(slabs)},
+        f32={"256^3 x 1024 rays B=1", "16^3 x 48 rays B=1"})
     sres_los = phase_los_slabs(slabs)
     del slabs
     torch.cuda.empty_cache()
     c_demo1, k11_demo1 = phase_demo1(jt, lh64, cf64)
     del lh64, los64
-    c_256, k11_256, e256 = phase_tomography_256(jt, lh256, cf256, with_profile)
+    c_256, k11_256, e256, ref256 = phase_tomography_256(jt, lh256, cf256, with_profile)
+    f32_256 = phase_tomography_float32(jt, lh256, los256, noise256, ref256, smi_line)
     # phase 44's data: phase 27's, read by the ranks of its worlds
     data_256 = os.path.join(mesh_tmp, "data_256.npy")
     np.save(data_256, lh256.likelihood.data.cpu().numpy())
     del lh256, los256
     torch.cuda.empty_cache()
-    (c_geo16, k11_geo16), (c_nuts, k11_nuts) = phase_nuts(jt, lh16, cf16)
+    (c_geo16, k11_geo16), (c_nuts, k11_nuts), (*nuts_start, ref_nuts) = phase_nuts(
+        jt, lh16, cf16)
+    f32_nuts = phase_nuts_float32(jt, lh16, los16, noise16, nuts_start, ref_nuts, smi_line)
 
-    # inference and diagnostics: demos 5, 8, 15 and 11, then the evidence on
-    # phase 6's and phase 5's posteriors
-    phase_demo5(jt)
-    phase_demo8(jt)
-    phase_demo15(jt)
+    # inference and diagnostics: demo 11, then the evidence on phase 6's
+    # and phase 5's posteriors (demos 5, 8 and 15 run beside the mesh
+    # phases, `side_phases`)
     c_demo11, demo11_map = phase_demo11(jt)
     c_ev4096, c_ev128 = phase_evidence(jt, lh4096, samples4096, lh128, samples128, with_profile)
     c_instr = phase_instrumentation(jt, lh4096, samples4096, cf4096, smi_line)
@@ -5582,20 +6129,31 @@ def main(argv):
         **{f"1024^2 radio plane {i} B=1": (rr_radio, p, 1)
            for p, i in enumerate(rr_radio.planes)},
         **{f"32^2 radio plane {i} B={rows}": (rr32, p, rows)
-           for p, i in enumerate(rr32.planes) for rows in (1, 2, 4)}})
+           for p, i in enumerate(rr32.planes) for rows in (1, 2, 4)}},
+        f32={f"1024^2 radio plane {i} B=1" for i in rr_radio.planes})
     del rr_radio, rr32
     torch.cuda.empty_cache()
-    c_radio, k7_radio = phase_radio(jt, cf1024, with_profile)
+    c_radio, k7_radio, (lh_radio, rr1024, std_radio, ref_radio) = phase_radio(
+        jt, cf1024, with_profile)
+    f32_radio = phase_radio_float32(jt, lh_radio, rr1024, std_radio, ref_radio, smi_line)
+    del lh_radio, rr1024
     torch.cuda.empty_cache()
     c_solvers = phase_solvers(jt, lh128, samples128)
     del lh128, samples128
 
     # mesh parallelism: a 4-rank gloo world on card 0, then an NCCL world
-    # over every card
+    # over every card; beside them, in a process of its own, demos 5, 8 and
+    # 15 (phases 29-31), which the host-bound worlds leave a core and most
+    # of the card for
+    side = multiprocessing.get_context("spawn").Process(target=side_phases)
+    side.start()
     try:
         c_mesh = phase_mesh(jt, mesh_tmp, data_4096, e4096, smi_line, (data_256, noise256, e256))
     finally:
         shutil.rmtree(mesh_tmp, ignore_errors=True)
+        side.join()
+    if side.exitcode != 0:
+        raise RuntimeError(f"phases 29-31 failed beside the mesh phases (exit {side.exitcode})")
 
     src = "nifty_tpu_torch/csrc/bin_gather.cu"
     tpu = "nifty_tpu/ops/pallas_gather.py"
@@ -5670,6 +6228,13 @@ def main(argv):
          {"float32": c_f32["float32 4096^2 n_bins=128"]}),
         ("128^2 unbinned", cf128.dist, *k3k4, {"float32": c_f32["float32 128^2 unbinned"]}),
         ("64^2 unbinned", demo11_map, *k3k4, {"acceptance": c_f32["acceptance float32"]}),
+        # phase 46's legs
+        ("256^3 nb128 quarter", cf256.dist, *k1k2,
+         {"float32_tomography_256": f32_256["shapes"]["dist"]}),
+        ("1024^2 unbinned quarter", cf1024.dist, *k5,
+         {"float32_radio_1024": f32_radio["shapes"]["dist"]}),
+        ("l map lmax 511", gl_dist, *k1k2, {"float32_demo16": f32_sky["shapes"]["dist"]}),
+        ("16^3 unbinned", cf16.dist, *k3k4, {"float32_nuts": f32_nuts["shapes"]["dist"]}),
     ]
     print(json.dumps({"kernels": kernel_entries(kres, paths, src)
                       + kernel_entries(kres, paths32, src, "float32")
@@ -5687,7 +6252,20 @@ def main(argv):
                              for r in (0, 1)},
                           "tomography_nccl": c_mesh["slab_tomography_nccl"]})
                       + k7_kernel_entries(kres_k7, fres_k7, {"radio_1024": k7_radio},
-                                          {"cpu_vs_card_32": k7_cpu_vs_card})}))
+                                          {"cpu_vs_card_32": k7_cpu_vs_card})
+                      # phase 46's float32 legs
+                      + icr_kernel_entries(kres_icr, {
+                          name: (icr[name], {"float32": f32_icr[leg]["shapes"]["icr"]})
+                          for name, leg in (("4100^2", "4100^2 deformed chart"),
+                                            ("sphere x radius", "sphere x radius"))}, "float32")
+                      + hp_kernel_entries(kres_hp, {"float32_demo16": f32_sky["shapes"]["hp"]},
+                                          hp_rings, 512, 256, "float32")
+                      + los_kernel_entries(kres_los, {
+                          "float32_tomography_256": f32_256["shapes"]["los"],
+                          "float32_nuts": f32_nuts["shapes"]["los"]}, "float32")
+                      + k7_kernel_entries(kres_k7, fres_k7,
+                                          {"float32_radio_1024": f32_radio["shapes"]["k7"]}, {},
+                                          "float32")}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -226,8 +226,9 @@ def iterative_build_tree(
             chk[idx_max] = z
         else:
             checks = [is_euclidean_uturn(chk[i], z) for i in range(idx_min, idx_max + 1)]
-        read = torch.stack([torch.as_tensor(e_z, dtype=torch.float64)]
-                           + [c.to(torch.float64) for c in checks]).tolist()
+        # one host read of the energy and the checks, in the energy's dtype
+        e_z = e_z if torch.is_tensor(e_z) else torch.as_tensor(e_z, dtype=torch.float64)
+        read = torch.stack([e_z] + [c.to(e_z.dtype) for c in checks]).tolist()
         energy_diff = e0 - read[0]
         energy_diff = -math.inf if math.isnan(energy_diff) else energy_diff
         diverging = abs(energy_diff) > max_energy_difference

@@ -120,6 +120,15 @@ class _Sampler:
         raise NotImplementedError()
 
 
+def _float_dtype(position):
+    """The dtype of ``position``'s first floating leaf (float64 without
+    one): a chain's statistics take its precision."""
+    for x in tree_leaves(position):
+        if x.is_floating_point():
+            return x.dtype
+    return torch.float64
+
+
 class NUTSChain(_Sampler):
     """No-U-turn chain; see :func:`nifty_tpu_torch.hmc.generate_nuts_tree`."""
 
@@ -152,9 +161,11 @@ class NUTSChain(_Sampler):
         # Normalize the tree's summed Metropolis statistic by its number of
         # proposals (2^depth - 1) so ``acceptance`` is a per-transition
         # probability in [0, 1] (reference: ``src/re/hmc_oo.py:237-240``),
-        # in float: an integer 2**depth overflows for large depths.
-        num_prop = 2.0 ** depths.to(torch.float64) - 1.0
-        acc = torch.tensor(acc, dtype=torch.float64)
+        # in float (the position's): an integer 2**depth overflows for large
+        # depths.
+        dtype = _float_dtype(samples[0])
+        num_prop = 2.0 ** depths.to(dtype) - 1.0
+        acc = torch.tensor(acc, dtype=dtype)
         acc = torch.where(num_prop > 0, acc / num_prop.clamp_min(1.0), 0.0)
         return Chain(samples=stack(list(samples)), divergences=torch.tensor(div),
                      acceptance=acc, depths=depths)

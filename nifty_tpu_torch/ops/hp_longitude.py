@@ -51,7 +51,8 @@ against them.
 :func:`hp_longitude` and :func:`hp_longitude_adjoint` run the kernels for a
 CUDA tensor and the plain versions for a CPU tensor only.  Their
 ``launches`` count the calls that take the kernel route, in total, by rows
-(``launches_by_rows``) and by (npix, nm, rows) (``launches_by_shape``).
+(``launches_by_rows``), by (npix, nm, rows) (``launches_by_shape``) and by
+the values' float type (``launches_by_dtype``, "f32" / "f64").
 :class:`HpLongitude` and :class:`HpLongitudeAdjoint` are the
 ``torch.autograd.Function`` pair, each the other's derivative, with
 ``setup_context``, ``jvp`` and ``vmap``.
@@ -426,10 +427,11 @@ def _launch(kind, x, out, rings: HPRings, nm: int):
         raise RuntimeError(f"CUDA kernel launch failed with cudaError {-rc}")
 
 
-def _count(wrapper, rings: HPRings, nm: int, nrows: int):
+def _count(wrapper, rings: HPRings, nm: int, nrows: int, dtype):
     wrapper.launches += 1
     wrapper.launches_by_rows[nrows] += 1
     wrapper.launches_by_shape[rings.npix, nm, nrows] += 1
+    wrapper.launches_by_dtype[_FLOAT_DTYPES[dtype]] += 1
 
 
 def hp_longitude(F, rings: HPRings):
@@ -446,7 +448,7 @@ def hp_longitude(F, rings: HPRings):
         raise RuntimeError(f"no hp_longitude kernel for device {F.device}")
     out = F.new_empty((F.shape[0], rings.npix))
     _launch("synth", F, out, rings, nm)
-    _count(hp_longitude, rings, nm, F.shape[0])
+    _count(hp_longitude, rings, nm, F.shape[0], F.dtype)
     return out
 
 
@@ -460,7 +462,7 @@ def hp_longitude_adjoint(ct, rings: HPRings, nm: int):
         raise RuntimeError(f"no hp_longitude kernel for device {ct.device}")
     out = ct.new_empty((ct.shape[0], 2, nm, rings.nrings))
     _launch("adjoint", ct, out, rings, nm)
-    _count(hp_longitude_adjoint, rings, nm, ct.shape[0])
+    _count(hp_longitude_adjoint, rings, nm, ct.shape[0], ct.dtype)
     return out
 
 
@@ -468,6 +470,7 @@ def reset_launch_counts():
     for fn in (hp_longitude, hp_longitude_adjoint):
         fn.launches = 0
         fn.launches_by_rows, fn.launches_by_shape = Counter(), Counter()
+        fn.launches_by_dtype = Counter()
 
 
 reset_launch_counts()

@@ -43,7 +43,8 @@ where every box's halo of reading sites is compact, else in two passes
 through scratch.  ``icr_refine.launches`` and
 ``icr_refine_transpose.launches`` count the calls that take the kernel
 route (never plain runs), in total, by rows (``launches_by_rows``) and by
-level and rows (``launches_by_level``, keyed by :attr:`RefineLevel.key`).
+level and rows (``launches_by_level``, keyed by :attr:`RefineLevel.key`)
+and by the values' float type (``launches_by_dtype``, "f32" / "f64").
 
 :class:`IcrRefine` and :class:`IcrRefineTranspose` are the
 ``torch.autograd.Function`` pair: each one's derivative is the other, with
@@ -446,6 +447,7 @@ def _count(wrapper, level: RefineLevel, nrows: int):
     wrapper.launches += 1
     wrapper.launches_by_rows[nrows] += 1
     wrapper.launches_by_level[level.key, nrows] += 1
+    wrapper.launches_by_dtype[_FLOAT_DTYPES[level.olf.dtype]] += 1
 
 
 def icr_refine(coarse, xi, level: RefineLevel):
@@ -507,6 +509,7 @@ def reset_launch_counts():
     for fn in (icr_refine, icr_refine_transpose):
         fn.launches = 0
         fn.launches_by_rows, fn.launches_by_level = Counter(), Counter()
+        fn.launches_by_dtype = Counter()
 
 
 reset_launch_counts()

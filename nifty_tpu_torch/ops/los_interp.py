@@ -31,8 +31,9 @@ hand-written kernels (``csrc/los_interp.cu``) run them for a CUDA tensor;
 plain versions, which :func:`los_integrate` / :func:`los_integrate_adjoint`
 take for a CPU tensor only; :func:`forward_row_tile` picks the rows a
 forward block serves from the grid's fill.  Their ``launches`` count the calls that take
-the kernel route, in total, by rows (``launches_by_rows``) and by (table
-key, rows) (``launches_by_shape``).  :class:`LosIntegrate` and
+the kernel route, in total, by rows (``launches_by_rows``), by (table
+key, rows) (``launches_by_shape``) and by the values' float type
+(``launches_by_dtype``, "f32" / "f64").  :class:`LosIntegrate` and
 :class:`LosIntegrateAdjoint` are the ``torch.autograd.Function`` pair, each
 the other's derivative, with ``setup_context``, ``jvp`` and ``vmap``.
 
@@ -378,10 +379,11 @@ def _stream(dev):
     return torch._C._cuda_getCurrentRawStream(dev)
 
 
-def _count(wrapper, key, nrows: int):
+def _count(wrapper, key, nrows: int, dtype):
     wrapper.launches += 1
     wrapper.launches_by_rows[nrows] += 1
     wrapper.launches_by_shape[key, nrows] += 1
+    wrapper.launches_by_dtype[_FLOAT_DTYPES[dtype]] += 1
 
 
 def los_integrate(f, table: LosTable):
@@ -402,7 +404,7 @@ def los_integrate(f, table: LosTable):
         _stream(dev))
     if rc < 0:
         raise RuntimeError(f"CUDA kernel launch failed with cudaError {-rc}")
-    _count(los_integrate, table.key, f.shape[0])
+    _count(los_integrate, table.key, f.shape[0], f.dtype)
     return out
 
 
@@ -423,7 +425,7 @@ def los_integrate_adjoint(ybar, table: LosTable):
         ybar.shape[0], dev, _stream(dev))
     if rc < 0:
         raise RuntimeError(f"CUDA kernel launch failed with cudaError {-rc}")
-    _count(los_integrate_adjoint, table.key, ybar.shape[0])
+    _count(los_integrate_adjoint, table.key, ybar.shape[0], ybar.dtype)
     return out
 
 
@@ -431,6 +433,7 @@ def reset_launch_counts():
     for fn in (los_integrate, los_integrate_adjoint, slab_row_partials):
         fn.launches = 0
         fn.launches_by_rows, fn.launches_by_shape = Counter(), Counter()
+        fn.launches_by_dtype = Counter()
 
 
 # -- autograd pair --------------------------------------------------------
@@ -707,7 +710,7 @@ def slab_row_partials(f, slab: LosSlab):
     if rc < 0:
         raise RuntimeError(f"CUDA kernel launch failed with cudaError {-rc}")
     if rc:
-        _count(slab_row_partials, slab.key, nrows)
+        _count(slab_row_partials, slab.key, nrows, f.dtype)
     return out.reshape(nrows, -1, slab.nrays)
 
 

@@ -168,10 +168,14 @@ class RadioResponse(Model):
     order), and the output is unsorted at the end.  One
     :class:`~nifty_tpu_torch.ops.nufft_window.WindowTable` a plane is built
     on the host at construction for the domain's float type (another float
-    type's at its first call), and the phase screens are buffers.  The
-    model takes images ``(..., *shape)`` with any leading batch axes and
-    returns ``(..., n_vis)``, complex128 for float64 (complex64 for
-    float32).  ``sorted_windows`` is accepted and changes no value.
+    type's at its first call).  The phase screens are evaluated once in
+    float64 on the host: a float64 image is multiplied by them in
+    complex128, a float32 one by their complex64 cast (a buffer made at its
+    first use, as the window tables are), so a float32 computation stays in
+    float32 throughout.  The model takes images ``(..., *shape)`` with any
+    leading batch axes and returns ``(..., n_vis)``, complex128 for float64
+    (complex64 for float32).  ``sorted_windows`` is accepted and changes no
+    value.
     """
 
     def __init__(self, shape, uv, *, pixsize=None, w=None, n_w_planes: int = 8,
@@ -222,6 +226,7 @@ class RadioResponse(Model):
             screens = np.stack([np.exp(-2j * np.pi * wc * n_term) for wc in self._w_centers])
             self.register_buffer("screens", torch.from_numpy(screens).to(device),
                                  persistent=False)
+            self.register_buffer("screens_complex64", None, persistent=False)
         #: the planes that hold visibilities, in order
         self.planes = tuple(i for i, (a, b) in enumerate(self._w_slices) if b > a)
         self.tables = nn.ModuleDict()
@@ -239,12 +244,23 @@ class RadioResponse(Model):
                 for i in self.planes])
         return self.tables[name]
 
+    def plane_screens(self, dtype) -> torch.Tensor:
+        """The phase screens ``(n_w_planes, *shape)`` for an image of
+        ``dtype``: complex128 for float64 or complex128 images, their
+        complex64 cast (made once) for float32 or complex64 ones."""
+        if _REAL.get(dtype, dtype) == torch.float64:
+            return self.screens
+        if self.screens_complex64 is None:
+            self.screens_complex64 = self.screens.to(torch.complex64)
+        return self.screens_complex64
+
     def forward(self, image):
         compute, _ = _compute_types(image.dtype)
         tables = self.plane_tables(_REAL.get(compute, compute))
         if self._w_centers is None:
             vis = nufft2(image, table=tables[0])
         else:
-            vis = torch.cat([nufft2(image * self.screens[i], table=tab)
+            screens = self.plane_screens(image.dtype)
+            vis = torch.cat([nufft2(image * screens[i], table=tab)
                              for i, tab in zip(self.planes, tables)], dim=-1)
         return vis.index_select(-1, self.unsort)

@@ -29,9 +29,9 @@ tensor; :func:`window_interp_plain` and :func:`window_spread_plain` are the
 plain versions, which :func:`window_interp` / :func:`window_spread` take for
 a CPU tensor only.  Their ``launches`` count the calls that take the kernel
 route (the spread's launch two kernels: the values' gather and the sums),
-in total, by rows (``launches_by_rows``) and by (table key, rows)
-(``launches_by_shape``); :func:`build_factors` counts the factor tables it
-builds.
+in total, by rows (``launches_by_rows``), by (table key, rows)
+(``launches_by_shape``) and by float type (``launches_by_dtype``, "f32" /
+"f64"); :func:`build_factors` counts the factor tables it builds.
 :class:`WindowInterp` and :class:`WindowSpread` are the
 ``torch.autograd.Function`` pair, each the other's derivative, with
 ``setup_context``, ``jvp`` and ``vmap``.  The positions are constants of
@@ -375,6 +375,7 @@ def _count(wrapper, table: WindowTable, nrows: int):
     wrapper.launches += 1
     wrapper.launches_by_rows[nrows] += 1
     wrapper.launches_by_shape[table.key, nrows] += 1
+    wrapper.launches_by_dtype[_REAL[table.dtype]] += 1
 
 
 def build_factors(table: WindowTable):
@@ -397,6 +398,7 @@ def build_factors(table: WindowTable):
         table.factors = f
     build_factors.launches += 1
     build_factors.launches_by_shape[table.key] += 1
+    build_factors.launches_by_dtype[_REAL[table.dtype]] += 1
     return f
 
 
@@ -460,7 +462,9 @@ def reset_launch_counts():
     for fn in (window_interp, window_spread):
         fn.launches = 0
         fn.launches_by_rows, fn.launches_by_shape = Counter(), Counter()
+        fn.launches_by_dtype = Counter()
     build_factors.launches, build_factors.launches_by_shape = 0, Counter()
+    build_factors.launches_by_dtype = Counter()
 
 
 reset_launch_counts()

@@ -147,9 +147,11 @@ def _real(x: torch.Tensor) -> torch.Tensor:
 
 def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """The ranks' ``x`` (equal shapes) concatenated along ``dim`` in rank
-    order."""
+    order.  Without a group, ``x`` in the layout a group's result has
+    (contiguous): a float32 sum's bits follow its input's strides, so a
+    mesh without a world computes as a world of one rank does."""
     if group is None:
-        return x
+        return x.contiguous()
     p = group_size(group)
     _count("all_gather", x)
     xs = x.movedim(dim, 0).contiguous()
@@ -196,9 +198,10 @@ def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
 def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch.Tensor:
     """Tiled all-to-all: ``x`` cut along ``split_dim`` into p equal chunks,
     chunk j sent to rank j, and the chunks received concatenated along
-    ``concat_dim`` in rank order."""
+    ``concat_dim`` in rank order.  Without a group, ``x`` contiguous, as a
+    group's result is (see :func:`all_gather`)."""
     if group is None:
-        return x
+        return x.contiguous()
     p = group_size(group)
     _count("all_to_all", x)
     xs = x.movedim(split_dim, 0)

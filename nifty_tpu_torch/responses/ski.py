@@ -82,11 +82,13 @@ def interpolation_matrix(grid_shape, grid_bounds, sampling_points, *, distances=
     return indices, weights
 
 
-def interpolation_table(indices, weights, grid_size: int, device=None) -> los_interp.LosTable:
+def interpolation_table(indices, weights, grid_size: int, device=None,
+                        dtype=torch.float64) -> los_interp.LosTable:
     """K11's table of the interpolation ``(indices, weights)`` onto a flat
-    grid of ``grid_size`` cells, on ``device`` (the configured one by
-    default)."""
+    grid of ``grid_size`` cells, its weights in ``dtype`` (float64 or
+    float32), on ``device`` (the configured one by default)."""
     device = config.default_device() if device is None else torch.device(device)
+    weights = np.asarray(weights, dtype=str(dtype).replace("torch.", ""))
     return los_interp.LosTable.from_interpolation(indices, weights, (int(grid_size),)).to(device)
 
 
@@ -349,8 +351,10 @@ class StructuredKernelInterpolation(Model):
     The latent ``x`` is white in the harmonic domain of the (padded)
     inducing grid; ``sqrt(P)`` is the amplitude spectrum of the stationary
     kernel evaluated on the grid's mode lengths (``amplitude``, a function
-    of a float64 tensor); ``W`` interpolates to the sampling points.  Takes
-    latents ``(..., *padded shape)`` with any leading batch axes.
+    of a float64 tensor, evaluated once and kept in the domain's dtype);
+    ``W`` interpolates to the sampling points (its weights in the domain's
+    dtype).  Takes latents ``(..., *padded shape)`` with any leading batch
+    axes.
     """
 
     def __init__(
@@ -372,20 +376,24 @@ class StructuredKernelInterpolation(Model):
         n_points = np.asarray(sampling_points).shape[1]
         super().__init__(domain=ShapeWithDtype(shape_wpad, dtype),
                          target=ShapeWithDtype((n_points,), dtype))
-        self.table = interpolation_table(indices, weights, int(np.prod(grid_shape)), device)
+        dtype = self.domain.dtype
+        self.table = interpolation_table(indices, weights, int(np.prod(grid_shape)), device,
+                                         dtype)
         self._grid_shape = grid_shape
         self._padded_shape = tuple(shape_wpad)
         distances = (bounds_wpad[:, 1] - bounds_wpad[:, 0]) / np.array(shape_wpad)
         self.register_buffer("mode_lengths", torch.from_numpy(
             fourier_mode_lengths(shape_wpad, tuple(distances))).to(device), persistent=False)
+        self.register_buffer("amplitude_on_grid", amplitude(self.mode_lengths).to(dtype),
+                             persistent=False)
         self._amplitude = amplitude
         self._subslice = tuple(slice(0, s) for s in grid_shape)
 
     def grid_field(self, x):
         """The correlated field on the (unpadded) inducing grid."""
         ndim = len(self._padded_shape)
-        amp = self._amplitude(self.mode_lengths)
-        f = hartley(amp * x, axes=tuple(range(-ndim, 0))) / np.sqrt(np.prod(self._padded_shape))
+        f = hartley(self.amplitude_on_grid * x, axes=tuple(range(-ndim, 0))) / np.sqrt(
+            np.prod(self._padded_shape))
         return f[(Ellipsis, *self._subslice)]
 
     def forward(self, x):

@@ -68,6 +68,7 @@ def run_cases(cases):
         if mesh is not None:
             mesh.deactivate()
         jt.config.update("deterministic_reductions", False)
+        jt.config.update("enable_x64", True)
     return out
 
 
@@ -455,14 +456,16 @@ def tomography_problem(data, noise_std, pos, mesh, dims=(16, 16, 16), n_rays=48,
 
 
 def tomography_update_case(data, noise_std, pos, key, samples, field, sample_mode,
-                           nl_maxiter, budgets, det=False, n_samples=2):
+                           nl_maxiter, budgets, det=False, n_samples=2, x64=True):
     """One ``OptimizeVI.update`` of the 16^3 tomography on a samples x
     field mesh, its noise replayed from a table of recorded draws or drawn
-    from an int seed (``key``); the global samples, the KL energy and the
-    collectives of the update by kind."""
+    from an int seed (``key``), in float64 or (``x64=False``) float32; the
+    global samples, the KL energy and the collectives of the update by
+    kind."""
     from nifty_tpu_torch.parallel import collectives as coll
 
     jt.config.update("deterministic_reductions", det)
+    jt.config.update("enable_x64", x64)
     mesh = make_mesh(samples, field)
     lh, p = tomography_problem(data, noise_std, pos, mesh)
     opt = jt.OptimizeVI(lh, n_total_iterations=1)
